@@ -1,25 +1,39 @@
 #!/usr/bin/env python3
 """Smoke test of quinoa_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives the port's main path, the Sedov DG(P1) HLLC + Superbee step at 48^3
-(663,552 tets) in float32, through its hand-written CUDA kernels:
+Drives the port's three DG(P1) paths at 48^3 (663,552 tets) in float32
+through their hand-written CUDA kernels:
 
 1. card    the name and power limit from nvidia-smi;
-2. build   compile csrc/*.cu with nvcc (sm_90a) and load the library;
-3. kernels each kernel against its plain torch version on the card, on a
-           perturbed Sedov state: float32 at 48^3 and float64 on a small
-           mesh, with a CUDA-event time for both; then the small-mesh
-           solver on the card against the same solver on the CPU;
-4. slice   DGSolver at 48^3 from its initial_state(): 1 warm-up and 10
-           timed steps; every kernel must have launched 33 times and the
-           state must be finite.  Then the same 11 steps from the initial
-           state tools/bench_l2_known_good.json was harvested from (see
-           tpu_precision_initial_u), whose L2(sol) must match that file at
-           rtol 5e-4.
+2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
+           and load the library;
+3. kernels each kernel against its plain torch version on the card:
+           K1-K4 on a perturbed Sedov state, K5 and K6 on GaussHump
+           transport rows, float32 at 48^3 and float64 on small meshes,
+           with a CUDA-event time for kernel and plain version at 48^3;
+           then four small float64 solvers on the card against the same
+           solvers on the CPU (Sedov P1, Sedov pdg, GaussHump, GaussHump
+           pdg: 2 steps, u atol 1e-11, dt rtol 1e-12, ndofel equal);
+4. p1      the Sedov DG(P1) HLLC + Superbee step (bench.py) from its
+           initial_state(): 1 warm-up and 10 timed steps through K1, K2
+           and K3, 33 launches each; then the same 11 steps from the
+           initial state tools/bench_l2_known_good.json was harvested
+           from (see tpu_precision_initial_u), whose L2(sol) must match
+           that file at rtol 5e-4;
+5. pdg     the p-adaptive Sedov step (bench.py --pdg): 1 + 10 steps
+           through K4, K2 and K3, 33 launches each; finite, with P0 and
+           P1 elements;
+6. hump    GaussHump transport on Dirichlet faces (the face Gauss-point
+           path): 1 + 10 steps through K5 (left and right face states of
+           every rhs and dt sweep: 8 launches a step) and K6 (3 a step);
+           finite, and L2(err) < 0.5 L2(sol) against the analytic hump.
 
-Any failure raises, so the script exits non-zero.  Its last two lines
-are a JSON object of the kernels and the result line
-{"ok": true, "device": {...}}.  Needs one CUDA card, nvcc and no network.
+Every path sets the launch counts to 0 just before it and reads them just
+after; a kernel of the path that did not launch as stated, or one that
+does not belong to it and launched, fails the run.  Any failure raises,
+so the script exits non-zero.  Its last two lines are a JSON object of
+the kernels and the result line {"ok": true, "device": {...}}.  Needs one
+CUDA card, nvcc and no network.
 """
 
 import dataclasses
@@ -34,15 +48,17 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_BIG = 48                      # the bench box: 48^3 hexes, 6 tets each
-SMALL = (6, 6, 4)               # float64 parity mesh
+SMALL = (6, 6, 4)               # float64 Sedov parity mesh
+HUMP_SMALL = (10, 10, 2)        # float64 GaussHump mesh (tests/test_dg.py)
 L2_RTOL = 5e-4                  # bench.py's gate
 # |kernel - plain| <= TOL * max|plain| per output.  Kernel and plain
 # version evaluate the same expressions in the same order without fused
 # multiply-adds, so they differ only by torch's own reduction order;
 # the bounds leave room for a few ulp in the largest entries.
 TOL = {"float32": 1e-5, "float64": 1e-12}
-SOLVER_ATOL = 1e-11             # small-mesh solver, card vs CPU, 2 steps
+SOLVER_ATOL = 1e-11             # small-mesh solvers, card vs CPU, 2 steps
 REPS = 7                        # timed repetitions (median)
+NSTEPS = 10                     # timed steps of each path, after 1 warm-up
 
 KERNELS = {
     "limit_vol": ("quinoa_tpu_torch/csrc/limit_vol.cu",
@@ -51,7 +67,23 @@ KERNELS = {
                   "quinoa_tpu/ops/face_fused.py:762"),
     "face_to_elem": ("quinoa_tpu_torch/csrc/face_to_elem.cu",
                      "quinoa_tpu/ops/face_fused.py:839"),
+    "nbr_bounds": ("quinoa_tpu_torch/csrc/nbr_bounds.cu",
+                   "quinoa_tpu/ops/nbr_bounds.py:258"),
+    "face_gather": ("quinoa_tpu_torch/csrc/face_gather.cu",
+                    "quinoa_tpu/ops/face_accum.py:698"),
+    "face_accum": ("quinoa_tpu_torch/csrc/face_accum.cu",
+                   "quinoa_tpu/ops/face_accum.py:644"),
 }
+#: launches per step of each path; every other kernel must launch 0 times
+PATHS = {
+    "p1": {"limit_vol": 3, "face_flux": 3, "face_to_elem": 3},
+    "pdg": {"nbr_bounds": 3, "face_flux": 3, "face_to_elem": 3},
+    "hump": {"face_gather": 8, "face_accum": 3},
+}
+#: the path whose launches the kernels line reports for each kernel
+MAIN_PATH = {"limit_vol": "p1", "face_flux": "p1", "face_to_elem": "p1",
+             "nbr_bounds": "pdg", "face_gather": "hump",
+             "face_accum": "hump"}
 
 
 def tpu_precision_initial_u(solver, torch):
@@ -84,15 +116,22 @@ def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
 
 
-def sedov_geom(n, torch, dtype, device):
+def box_geom(n, bc_code, dtype, device):
+    """DG(P1) geometry of a Hilbert-ordered box with one BC on all six
+    sides: the unit cube at 48^3, 0.1 per cell on the Sedov mesh, and
+    the GaussHump box of tests/test_dg.py."""
     from quinoa_tpu_torch.mesh import box_tet_mesh, hilbert_element_reorder
-    from quinoa_tpu_torch.pde.dg import BC_SYMMETRY, build_dggeom
+    from quinoa_tpu_torch.pde.dg import build_dggeom
 
     nx, ny, nz = n
-    hi = (1.0, 1.0, 1.0) if n == (N_BIG,) * 3 else (0.1 * nx, 0.1 * ny,
-                                                     0.1 * nz)
+    if n == (N_BIG,) * 3:
+        hi = (1.0, 1.0, 1.0)
+    elif n == HUMP_SMALL:
+        hi = (1.0, 1.0, 0.2)
+    else:
+        hi = (0.1 * nx, 0.1 * ny, 0.1 * nz)
     mesh, _ = hilbert_element_reorder(box_tet_mesh(nx, ny, nz, hi=hi))
-    bc = {i: BC_SYMMETRY for i in range(1, 7)}
+    bc = {i: bc_code for i in range(1, 7)}
     return build_dggeom(mesh, ndof=4, bc_sidesets=bc, dtype=dtype,
                         device=device)
 
@@ -202,6 +241,100 @@ def kernel_checks(torch, geom, system, U, dtype_name, timed):
     return out
 
 
+def face_gp_kernel_checks(torch, geom, U, hump, Uh, dtype_name, timed):
+    """K4 on the Sedov state U of geom, K5 and K6 on the transport rows Uh
+    of hump, against their plain versions; returns {name: (max_abs_err,
+    ms, plain_ms)} (times only when timed)."""
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.ops.face_accum import (accumulate_faces_plain,
+                                                 face_gather_plain)
+    from quinoa_tpu_torch.ops.nbr_bounds import neighbor_mean_bounds_plain
+
+    gen = torch.Generator(device=Uh.device).manual_seed(5)
+    R = Uh.shape[0]
+    cL, cR = torch.randn((2, R, hump.nface), generator=gen, device=Uh.device,
+                         dtype=Uh.dtype)
+    base = torch.randn((R, hump.nelem), generator=gen, device=Uh.device,
+                       dtype=Uh.dtype)
+    cases = (
+        ("nbr_bounds", lambda: kernels.nbr_bounds(U, geom.esuelT, 5, 4),
+         lambda: neighbor_mean_bounds_plain(geom, U[::4])),
+        ("face_gather", lambda: kernels.face_gather(Uh, hump.el),
+         lambda: face_gather_plain(Uh, hump.el)),
+        ("face_accum",
+         lambda: kernels.face_accum(cL, cR, hump.fose, hump.fsideR, base),
+         lambda: accumulate_faces_plain(hump, cL, cR, base)),
+    )
+    out = {}
+    for name, kf, pf in cases:
+        got, want = kf(), pf()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        err = compare(name, got, want, dtype_name)
+        ms = cuda_ms(torch, kf) if timed else None
+        plain_ms = cuda_ms(torch, pf) if timed else None
+        out[name] = (err, ms, plain_ms)
+        phase("kernels", f"{name} {dtype_name} E={hump.nelem} "
+              f"F={hump.nface} rows={R}: max|kernel-plain|={err:.3e} "
+              f"(tol {TOL[dtype_name]:g} * max|plain|)"
+              + (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                 if timed else ""))
+    err = compare("face_gather er", (kernels.face_gather(Uh, hump.er),),
+                  (face_gather_plain(Uh, hump.er),), dtype_name)
+    phase("kernels", f"face_gather er {dtype_name}: max|kernel-plain|="
+          f"{err:.3e}")
+    return out
+
+
+def card_vs_cpu(torch, name, make):
+    """Two float64 steps of make(device) on the card and on the CPU."""
+    on_card, on_cpu = make("card"), make("cpu")
+    sa = on_card.nsteps(on_card.initial_state(), 2)
+    sb = on_cpu.nsteps(on_cpu.initial_state(), 2)
+    err = float((sa.u.cpu() - sb.u).abs().max())
+    dterr = abs(float(sa.dt) - float(sb.dt))
+    same = bool(torch.equal(sa.ndofel.cpu(), sb.ndofel))
+    if not (err <= SOLVER_ATOL and dterr <= 1e-12 * float(sb.dt) and same):
+        raise AssertionError(f"{name} card vs CPU: |du|={err:.3e} "
+                             f"|ddt|={dterr:.3e} ndofel equal: {same}")
+    phase("kernels", f"small solver {name} (E={on_cpu.geom.nelem}, f64, 2 "
+          f"steps) card vs CPU: max|du|={err:.3e} |ddt|={dterr:.3e}, "
+          f"ndofel equal, P1 elements {int((sb.ndofel == 4).sum())} "
+          f"(atol {SOLVER_ATOL:g}, dt rtol 1e-12)")
+
+
+def drive(torch, solver, name, card, state=None):
+    """1 warm-up and NSTEPS timed steps of one path, with the launch
+    counts zeroed just before and read just after; returns (state,
+    counts, wall seconds of the timed steps)."""
+    from quinoa_tpu_torch import kernels
+
+    if state is None:
+        state = solver.initial_state()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    state = solver.step(state)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NSTEPS):
+        state = solver.step(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    want = {k: (NSTEPS + 1) * PATHS[name].get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{name}: kernel launches {counts}, expected "
+                             f"{want}")
+    if not bool(torch.isfinite(state.u).all()):
+        raise AssertionError(f"{name}: non-finite state after "
+                             f"{NSTEPS + 1} steps")
+    E = solver.geom.nelem
+    phase(name, f"{E * NSTEPS / wall:.1f} cell-updates/s, "
+          f"{1e3 * wall / NSTEPS:.3f} ms/step, t={float(state.t):.9e}, "
+          f"launches {counts}, on {card}")
+    return state, counts, wall
+
+
 def main():
     import torch
 
@@ -210,8 +343,9 @@ def main():
     sys.path.insert(0, REPO)
     from quinoa_tpu_torch import kernels
     from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
-    from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow
-    from quinoa_tpu_torch.pde.problems import SedovBlastwave
+    from quinoa_tpu_torch.pde.dg import BC_DIRICHLET, BC_SYMMETRY
+    from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow, DGTransport
+    from quinoa_tpu_torch.pde.problems import GaussHump, SedovBlastwave
 
     # full float32 matmuls (dg_initialize's einsums); TF32 is off by
     # default, set here so the run does not depend on the default
@@ -238,80 +372,94 @@ def main():
             phase("build", line.strip())
 
     system = DGCompFlow(SedovBlastwave(), riemann_flux="hllc")
+    transport = DGTransport(GaussHump())
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
-    big = sedov_geom((N_BIG,) * 3, torch, torch.float32, dev)
-    phase("kernels", f"48^3 geometry: E={big.nelem} F={big.nface}, "
-          f"{time.perf_counter() - t0:.1f} s on the host")
+    big = box_geom((N_BIG,) * 3, BC_SYMMETRY, torch.float32, dev)
+    hump = box_geom((N_BIG,) * 3, BC_DIRICHLET, torch.float32, dev)
+    phase("kernels", f"48^3 geometries (Sedov, GaussHump): E={big.nelem} "
+          f"F={big.nface}, {time.perf_counter() - t0:.1f} s on the host")
     U = torch.as_tensor(perturbed_state(big.nelem, 7)).to(torch.float32
                                                           ).to(dev)
     stats = kernel_checks(torch, big, system, U, "float32", timed=True)
-    small = sedov_geom(SMALL, torch, torch.float64, dev)
+    hump_solver = DGSolver(transport, hump, cfl=0.8)
+    Uh = hump_solver.initial_state().u
+    stats.update(face_gp_kernel_checks(torch, big, U, hump, Uh, "float32",
+                                       timed=True))
+    small = box_geom(SMALL, BC_SYMMETRY, torch.float64, dev)
     U64 = torch.as_tensor(perturbed_state(small.nelem, 11)).to(dev)
     kernel_checks(torch, small, system, U64, "float64", timed=False)
+    hump_small = box_geom(HUMP_SMALL, BC_DIRICHLET, torch.float64, dev)
+    Uh64 = DGSolver(transport, hump_small).initial_state().u
+    face_gp_kernel_checks(torch, small, U64, hump_small, Uh64, "float64",
+                          timed=False)
 
-    small_cpu = sedov_geom(SMALL, torch, torch.float64, "cpu")
-    on_card = DGSolver(system, small, cfl=0.5, limiter="superbeep1")
-    on_cpu = DGSolver(system, small_cpu, cfl=0.5, limiter="superbeep1")
-    sa = on_card.nsteps(on_card.initial_state(), 2)
-    sb = on_cpu.nsteps(on_cpu.initial_state(), 2)
-    err = float((sa.u.cpu() - sb.u).abs().max())
-    dterr = abs(float(sa.dt) - float(sb.dt))
-    if not (err <= SOLVER_ATOL and dterr <= 1e-12 * float(sb.dt)):
-        raise AssertionError(f"small solver card vs CPU: |du|={err:.3e} "
-                             f"|ddt|={dterr:.3e}")
-    phase("kernels", f"small solver (E={small.nelem}, f64, 2 steps) card "
-          f"vs CPU: max|du|={err:.3e} |ddt|={dterr:.3e} (atol "
-          f"{SOLVER_ATOL:g}, dt rtol 1e-12)")
+    geoms = {}
 
-    # 4. the slice
+    def geom(name, device):
+        if (name, device) not in geoms:
+            bc = BC_SYMMETRY if name == "sedov" else BC_DIRICHLET
+            n = SMALL if name == "sedov" else HUMP_SMALL
+            geoms[name, device] = box_geom(n, bc, torch.float64,
+                                           dev if device == "card" else
+                                           "cpu")
+        return geoms[name, device]
+
+    card_vs_cpu(torch, "sedov_p1", lambda d: DGSolver(
+        system, geom("sedov", d), cfl=0.5, limiter="superbeep1"))
+    card_vs_cpu(torch, "sedov_pdg", lambda d: DGSolver(
+        system, geom("sedov", d), cfl=0.5, limiter="superbeep1", pref=True))
+    card_vs_cpu(torch, "gausshump", lambda d: DGSolver(
+        transport, geom("hump", d), cfl=0.8))
+    card_vs_cpu(torch, "gausshump_pdg", lambda d: DGSolver(
+        transport, geom("hump", d), cfl=0.8, pref=True))
+
+    # 4. the Sedov P1 step
+    counts = {}
     solver = DGSolver(system, big, cfl=0.5, limiter="superbeep1")
-    state = solver.initial_state()
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    state = solver.step(state)                       # warm-up
-    torch.cuda.synchronize()
-    nsteps = 10
-    t0 = time.perf_counter()
-    for _ in range(nsteps):
-        state = solver.step(state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(kernels.launches)
-    want = 3 * (nsteps + 1)
-    if any(counts[k] != want for k in KERNELS):
-        raise AssertionError(f"kernel launches {counts}, expected {want} "
-                             "each")
-    if not bool(torch.isfinite(state.u).all()):
-        raise AssertionError("non-finite state after 11 steps")
+    state, counts["p1"], _ = drive(torch, solver, "p1", card)
     diag = DGDiagnostics(system, big)
-    ms = 1e3 * wall / nsteps
-    phase("slice", f"{big.nelem * nsteps / wall:.1f} cell-updates/s, "
-          f"{ms:.3f} ms/step, t={float(state.t):.9e}, launches {counts}, "
-          f"on {card}")
-    phase("slice", f"L2(sol) from initial_state(): {diag.compute(state)[0]}")
+    phase("p1", f"L2(sol) from initial_state(): {diag.compute(state)[0]}")
 
     # the L2 gate, from the known-good's own initial state
     gate = dataclasses.replace(solver.initial_state(),
                                u=tpu_precision_initial_u(solver, torch))
-    gate = solver.nsteps(gate, nsteps + 1)
+    gate = solver.nsteps(gate, NSTEPS + 1)
     if not bool(torch.isfinite(gate.u).all()):
         raise AssertionError("non-finite gate state after 11 steps")
     l2sol, _, _ = diag.compute(gate)
     with open(os.path.join(REPO, "tools", "bench_l2_known_good.json")) as fh:
         good = json.load(fh)["l2sol"]
     ok = np.allclose(l2sol, good, rtol=L2_RTOL, atol=0.0)
-    phase("slice", f"L2(sol) from the known-good's initial state {l2sol} "
+    phase("p1", f"L2(sol) from the known-good's initial state {l2sol} "
           f"vs {good}: {'ok' if ok else 'FAIL'} (rtol {L2_RTOL}, max rel "
           f"{max(abs(a - b) / abs(b) for a, b in zip(l2sol, good)):.3e})")
     if not ok:
         raise AssertionError("L2(sol) gate failed")
 
+    # 5. the p-adaptive Sedov step
+    solver = DGSolver(system, big, cfl=0.5, limiter="superbeep1", pref=True)
+    state, counts["pdg"], _ = drive(torch, solver, "pdg", card)
+    n4 = int((state.ndofel == 4).sum())
+    if not 0 < n4 < big.nelem:
+        raise AssertionError(f"pdg: {n4} of {big.nelem} elements at P1, "
+                             "expected a mix of P0 and P1")
+    phase("pdg", f"P1 share {n4 / big.nelem:.6f} ({n4} of {big.nelem} "
+          f"elements), L2(sol) {DGDiagnostics(system, big).compute(state)[0]}")
+
+    # 6. GaussHump transport on the face Gauss-point path
+    state, counts["hump"], _ = drive(torch, hump_solver, "hump", card)
+    l2sol, l2err, _ = DGDiagnostics(transport, hump).compute(state)
+    phase("hump", f"L2(sol) {l2sol[0]:.9e}, L2(err) {l2err[0]:.9e}")
+    if not l2err[0] < 0.5 * l2sol[0]:
+        raise AssertionError("hump: L2(err) >= 0.5 L2(sol)")
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": stats[name][0],
-         "ms": stats[name][1], "plain_ms": stats[name][2]}
+         "launches": counts[MAIN_PATH[name]][name],
+         "max_abs_err": stats[name][0], "ms": stats[name][1],
+         "plain_ms": stats[name][2]}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

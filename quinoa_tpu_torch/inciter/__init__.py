@@ -1,4 +1,4 @@
-"""The DG(P1) Superbee solver and its diagnostics."""
+"""The DG(P1) solver and its diagnostics."""
 
 from .dg import DGDiagnostics, DGSolver, DGState
 

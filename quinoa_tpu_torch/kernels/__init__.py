@@ -35,16 +35,17 @@ BUILD_DIR = os.path.join(_PKG, "build")
 #: keeps multiply-adds unfused, as torch's elementwise ops are, so each
 #: kernel can be held tightly against its plain version.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v"]
 
 #: layout of the packed constant table (csrc/common.cuh TAB_*)
 TAB_BSELF, TAB_BVOL, TAB_WDB, TAB_WFACE, TAB_SIZE = 0, 48, 68, 128, 131
-#: DG(P1) compressible Euler: components, modes, face points
+#: DG(P1) compressible Euler, the shapes of K1-K3: components, modes,
+#: face points.  K4-K6 take their row counts as arguments.
 C, K, G = 5, 4, 3
 
 #: kernel launches since the last reset_launches()
-launches = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0}
+launches = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0,
+            "nbr_bounds": 0, "face_gather": 0, "face_accum": 0}
 
 _lib = None
 
@@ -97,6 +98,38 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, name)
 
 
+def _compile(so: str):
+    """One nvcc per source, all started together, then one link; the
+    compiler's reports go to <library>.log."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{so[:-3]}.{os.getpid()}"
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    objs = [f"{tag}.{os.path.basename(p)[:-3]}.o" for p in cus]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, p],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for p, o in zip(cus, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        with open(so[:-3] + ".log", "w") as fh:
+            fh.write("".join(logs))
+        for src, proc, log in zip(cus, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"({proc.returncode}):\n{log[-4000:]}")
+        tmp = f"{tag}.tmp"
+        proc = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, so)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+
+
 def build() -> ctypes.CDLL:
     """Compile csrc/*.cu if needed and load the library (once per
     process).  The compiler's register/spill report is kept beside the
@@ -106,19 +139,10 @@ def build() -> ctypes.CDLL:
         return _lib
     so = library_path()
     if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cus = [p for p in _sources() if p.endswith(".cu")]
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-                              capture_output=True, text=True)
-        with open(so[:-3] + ".log", "w") as fh:
-            fh.write(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
-        os.replace(tmp, so)
+        _compile(so)
     lib = ctypes.CDLL(so)
     P, D, L = ctypes.c_void_p, ctypes.c_double, ctypes.c_longlong
+    I = ctypes.c_int
     for sfx in ("f32", "f64"):
         fn = getattr(lib, f"qtk_limit_vol_{sfx}")
         fn.argtypes = [P, P, P, P, P, D, D, D, P, P, L, P]
@@ -128,6 +152,15 @@ def build() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"qtk_face_to_elem_{sfx}")
         fn.argtypes = [P] * 8 + [L, L, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_nbr_bounds_{sfx}")
+        fn.argtypes = [P] * 4 + [I, I, L, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_face_gather_{sfx}")
+        fn.argtypes = [P] * 3 + [I, L, L, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_face_accum_{sfx}")
+        fn.argtypes = [P] * 6 + [I, L, L, P]
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -246,3 +279,58 @@ def face_to_elem(cL, cR, mx, fose, fsideR, rv=None):
              ctypes.c_void_p(0 if rv is None else rv.data_ptr()), _ptr(r),
              _ptr(delt), E, F], dev)
     return r, delt
+
+
+def nbr_bounds(U, esuelT, ncomp, ndof):
+    """K4 (csrc/nbr_bounds.cu): (umin, umax), each (ncomp, E), over the
+    cell means U[c*ndof] of the element and its face neighbours."""
+    dev = _cuda_device(U)
+    dt = U.dtype
+    E = U.shape[1]
+    _check("U", U, (ncomp * ndof, E), dt, dev)
+    _check("esuelT", esuelT, (4, E), torch.int32, dev)
+    fn = getattr(build(), f"qtk_nbr_bounds_{_suffix(dt)}")
+    umin = torch.empty((ncomp, E), dtype=dt, device=dev)
+    umax = torch.empty((ncomp, E), dtype=dt, device=dev)
+    _launch("nbr_bounds", fn,
+            [_ptr(U), _ptr(esuelT), _ptr(umin), _ptr(umax), int(ncomp),
+             int(ndof), E], dev)
+    return umin, umax
+
+
+def face_gather(U, idx):
+    """K5 (csrc/face_gather.cu): U[:, idx], (R, F) from U (R, E) and the
+    int32 element index idx (F,)."""
+    dev = _cuda_device(U)
+    dt = U.dtype
+    R, E = U.shape
+    F = idx.shape[0]
+    _check("U", U, (R, E), dt, dev)
+    _check("idx", idx, (F,), torch.int32, dev)
+    fn = getattr(build(), f"qtk_face_gather_{_suffix(dt)}")
+    out = torch.empty((R, F), dtype=dt, device=dev)
+    _launch("face_gather", fn, [_ptr(U), _ptr(idx), _ptr(out), R, E, F], dev)
+    return out
+
+
+def face_accum(cL, cR, fose, fsideR, base=None):
+    """K6 (csrc/face_accum.cu): (R, E) sums of each element's four face
+    rows of cL/cR (R, F), picked by fsideR, on top of base (R, E) when
+    given, of zero otherwise."""
+    dev = _cuda_device(cL)
+    dt = cL.dtype
+    R, F = cL.shape
+    E = fose.shape[1]
+    _check("contribL", cL, (R, F), dt, dev)
+    _check("contribR", cR, (R, F), dt, dev)
+    _check("fose", fose, (4, E), torch.int32, dev)
+    _check("fsideR", fsideR, (4, E), dt, dev)
+    if base is not None:
+        _check("base", base, (R, E), dt, dev)
+    fn = getattr(build(), f"qtk_face_accum_{_suffix(dt)}")
+    r = torch.empty((R, E), dtype=dt, device=dev)
+    _launch("face_accum", fn,
+            [_ptr(cL), _ptr(cR), _ptr(fose), _ptr(fsideR),
+             ctypes.c_void_p(0 if base is None else base.data_ptr()), _ptr(r),
+             R, E, F], dev)
+    return r

@@ -19,8 +19,9 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..pde.dg import BC_INTERIOR, require_slice, uview
+from ..pde.dg import BC_INTERIOR, require_fused_physics, uview
 from .basis import eval_basis_cm
+from .face_accum import accumulate_faces_plain
 
 
 def face_flux_plain(system, geom, U):
@@ -67,22 +68,24 @@ def face_flux_plain(system, geom, U):
 def face_to_elem_plain(geom, contribL, contribR, mx, rv=None):
     """K3's plain version: each element gathers its four faces in slot
     order (quinoa_tpu/pde/dg.py:446-449, :489); returns (r, delt)."""
-    r = contribL.new_zeros((contribL.shape[0], geom.nelem)) if rv is None \
-        else rv
+    return (accumulate_faces_plain(geom, contribL, contribR, rv),
+            delt_plain(geom, mx))
+
+
+def delt_plain(geom, mx):
+    """Per-element sum (E,) of the four faces' charvel mx (F,), in slot
+    order (quinoa_tpu/pde/dg.py:489)."""
     delt = mx.new_zeros(geom.nelem)
     for i in range(4):
-        f = geom.fose[i].long()
-        side = geom.fsideR[i] > 0
-        r = r + torch.where(side, contribR[:, f], contribL[:, f])
-        delt = delt + mx[f]
-    return r, delt
+        delt = delt + mx[geom.fose[i].long()]
+    return delt
 
 
 def fused_face_pass(system, geom, U, vol_rhs=None):
     """U (C*K, E) -> (acc (C*K, E), delt (E,)): the accumulated surface
     integral (plus vol_rhs when given, so acc is then the full rhs) and
     the per-element summed charvel of the dt sweep."""
-    require_slice(system, geom)
+    require_fused_physics(system, geom, face_pass=True)
     if U.device.type == "cpu":
         cL, cR, mx = face_flux_plain(system, geom, U)
         return face_to_elem_plain(geom, cL, cR, mx, vol_rhs)

@@ -1,7 +1,7 @@
 """Riemann solvers on component-major torch tensors.
 
 Port of quinoa_tpu/ops/riemann.py (reference src/PDE/Integrate/Riemann/
-{HLLC,LaxFriedrichs}.hpp).  States are (5, ...), normals (3, ...).  The
+{HLLC,LaxFriedrichs,Upwind}.hpp).  States are (C, ...), normals (3, ...).  The
 face kernel (csrc/face_flux.cu) evaluates hllc in the same operation
 order, so the two agree to rounding on the card.
 """
@@ -95,3 +95,14 @@ def hllc(fn, uL, uR, eos):
         fL,
         torch.where(Sm > 0.0, fStarL, torch.where(Sr >= 0.0, fStarR, fR)),
     )
+
+
+def upwind(fn, uL, uR, vel):
+    """Scalar upwind flux with prescribed velocity (Upwind.hpp:25-64).
+
+    vel (C, 3, ...), uL/uR (C, ...), fn (3, ...) -> (C, ...).
+    """
+    swave = _dot3(vel.movedim(1, 0), fn)
+    splus = 0.5 * (swave + swave.abs())
+    sminus = 0.5 * (swave - swave.abs())
+    return splus * uL + sminus * uR

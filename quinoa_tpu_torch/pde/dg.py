@@ -1,10 +1,12 @@
 """Discontinuous-Galerkin core: geometry tables and operators on torch
 tensors (feature-major layout).
 
-Port of quinoa_tpu/pde/dg.py for the slice's case: coordinate-free faces
-and every dof active (no dofmask).  Layout as in the JAX package: the modal
-state is U (C*K, E) with row c*K+k, per-face slabs are (rows, F) and
-coordinates (3, n); the element or face axis is always last.
+Port of quinoa_tpu/pde/dg.py for DG(P1): the fused face pass of
+coordinate-free compressible Euler, the face Gauss-point path (transport,
+Dirichlet and inlet faces), the p-adaptive dofmask and its indicator.
+Layout as in the JAX package: the modal state is U (C*K, E) with row
+c*K+k, per-face slabs are (rows, F) and coordinates (3, n); the element or
+face axis is always last.
 
 build_dggeom builds the tables on the host with numpy exactly as the JAX
 version does (same face order, fose, fsideR and esuelT), then moves them to
@@ -22,7 +24,7 @@ import torch
 
 from quinoa_tpu.mesh.derived import gen_faces, gen_esuel, _TET_FACES
 
-from ..ops.basis import eval_basis_np, eval_dbdxi, mass_diag
+from ..ops.basis import eval_basis_cm, eval_basis_np, eval_dbdxi, mass_diag
 from ..ops.quadrature import gauss_tet, gauss_tri, ng_vol, ng_face, ng_init
 
 # BC type codes (per boundary face), as quinoa_tpu/pde/dg.py
@@ -111,6 +113,22 @@ class DGGeom:
         from ..kernels import pack_tables
 
         return pack_tables(self.tables, self.dtype, self.device)
+
+    @functools.cached_property
+    def face_gp(self) -> torch.Tensor:
+        """Physical coordinates (3, G, F) of the face Gauss points, from
+        the left element (quinoa_tpu/pde/dg.py:413-416).  Cached: they
+        depend on the geometry only."""
+        el = self.el.long()
+        return _phys_gp(self.node0[:, None, el], self.Jmat[:, :, None, el],
+                        self.xi_l)
+
+    @functools.cached_property
+    def vol_gp(self) -> torch.Tensor:
+        """Physical coordinates (3, Gv, E) of the volume Gauss points."""
+        xi = torch.as_tensor(self.tables["xi_vol"].T, dtype=self.dtype,
+                             device=self.device)[:, :, None]
+        return _phys_gp(self.node0[:, None], self.Jmat[:, :, None], xi)
 
     @functools.cached_property
     def has_coord_bc(self) -> bool:
@@ -291,54 +309,138 @@ def _phys_gp(node0, Jmat, xi):
     )
 
 
+def needs_face_gp(system, geom: DGGeom) -> bool:
+    """True where the face pass needs the face Gauss-point coordinates:
+    the system's flux samples them (a system without a needs_face_gp
+    attribute reads as True, as in quinoa_tpu/inciter/dg.py:99-102) or
+    some face is Dirichlet or inlet."""
+    return bool(getattr(system, "needs_face_gp", True) or geom.has_coord_bc)
+
+
 def require_slice(system, geom: DGGeom):
-    """Raise for what the port does not cover: anything but a P1,
-    coordinate-free, source-free system on symmetry/extrapolate/outlet
-    faces."""
+    """Raise for what the port does not cover: anything but DG(P1),
+    source terms, and on the fused face pass (compressible Euler on faces
+    that need no coordinates) a flux other than HLLC."""
     if geom.ndof != 4:
         raise NotImplementedError(f"ndof={geom.ndof}: only DG(P1) is ported")
-    if getattr(system, "ncomp", None) != 5 or not getattr(
-            system, "coord_free_flux", False):
-        raise NotImplementedError("only compressible Euler (DGCompFlow) "
-                                  "is ported")
     if system.has_src:
         raise NotImplementedError("source terms are not ported")
-    if getattr(system, "riemann_flux", "hllc") != "hllc":
-        raise NotImplementedError("the face kernel implements HLLC only")
-    if geom.has_coord_bc:
-        raise NotImplementedError("Dirichlet/inlet faces are not ported")
+    if not needs_face_gp(system, geom):
+        require_fused_physics(system, geom, face_pass=True)
+
+
+def require_fused_physics(system, geom: DGGeom, face_pass: bool = False):
+    """Raise unless kernel K1 (with face_pass: K2 + K3) covers the case:
+    DG(P1) source-free compressible Euler; the face kernel implements
+    HLLC on faces whose ghost needs no coordinates."""
+    if geom.ndof != 4:
+        raise NotImplementedError(f"ndof={geom.ndof}: only DG(P1) is ported")
+    if not getattr(system, "coord_free_flux", False) or system.has_src:
+        raise NotImplementedError("the fused kernels implement source-free "
+                                  "compressible Euler only")
+    if face_pass:
+        if getattr(system, "riemann_flux", "hllc") != "hllc":
+            raise NotImplementedError("the face kernel implements HLLC only")
+        if geom.has_coord_bc:
+            raise NotImplementedError("the face kernel has no Dirichlet/"
+                                      "inlet ghost (face Gauss-point path)")
 
 
 # -- operators ---------------------------------------------------------------
 
 
+def _masked(U, dofmask, C):
+    """U with the inactive dofs zeroed (U itself without a dofmask)."""
+    return U if dofmask is None else U * dofmask.repeat(C, 1)
+
+
+def _face_states(geom: DGGeom, Um, C):
+    """Left and right states (C, G, F) at the face Gauss points and the
+    basis (K, G, F) on each side.  The modal states of el and er come
+    through the face gather (kernel K5 on a card)."""
+    from ..ops.face_accum import face_gather
+
+    K, F = geom.ndof, geom.nface
+    out = []
+    for idx, xi in ((geom.el, geom.xi_l), (geom.er, geom.xi_r)):
+        Uf = face_gather(Um, idx).reshape(C, K, F)
+        B = eval_basis_cm(K, xi)                         # (K,G,F)
+        s = B[0] * Uf[:, 0, None]
+        for k in range(1, K):
+            s = s + B[k] * Uf[:, k, None]
+        out += [s, B]
+    return out
+
+
 def dg_rhs(system, geom: DGGeom, U, dofmask=None, t=0.0, face_gp=False,
            want_charvel=False, vol_rhs=None):
-    """DG right-hand side (C*K, E): volume + surface integrals, the plain
-    torch formulation (no kernel launch on any device).
+    """DG right-hand side (C*K, E): volume + surface integrals.
 
-    Only the slice's case is ported: dofmask None (every dof active),
-    coordinate-free faces, no source.  With want_charvel also returns
-    delt (E,), the dt sweep's per-element summed charvel.  vol_rhs, when
-    given, replaces the volume integral (the limit + volume pass made it).
+    dofmask (K, E) or None (every dof active): the state is masked and
+    so is the result, as in quinoa_tpu/pde/dg.py:330-333, :451-452.
+    face_gp=False takes the fused face pass (kernels K2 + K3 on a card);
+    with want_charvel it also returns delt (E,), the dt sweep's
+    per-element summed charvel.  face_gp=True takes the face Gauss-point
+    path (:396-453): face states through the gather (K5), ghosts and the
+    flux at the face coordinates in torch, element sums through the
+    accumulation (K6).  vol_rhs, when given, replaces the volume
+    integral (the limit + volume pass made it).  t is the time the
+    boundary ghosts and the flux see.
     """
-    if dofmask is not None or face_gp:
-        raise NotImplementedError("dofmask / face Gauss-point coordinates "
-                                  "are not ported")
-    from ..ops.face_fused import face_flux_plain, face_to_elem_plain
+    if face_gp and want_charvel:
+        raise ValueError("the face Gauss-point path has no charvel: use "
+                         "dg_dt")
+    from ..ops.face_accum import accumulate_faces
+    from ..ops.face_fused import fused_face_pass
     from ..ops.nbr_bounds import volume_rhs_plain
 
-    Rv = volume_rhs_plain(system, geom, U) if vol_rhs is None else vol_rhs
-    cL, cR, mx = face_flux_plain(system, geom, U)
-    r, delt = face_to_elem_plain(geom, cL, cR, mx, Rv)
+    C, K = system.ncomp, geom.ndof
+    Um = _masked(U, dofmask, C)
+    Rv = volume_rhs_plain(system, geom, Um, t) if vol_rhs is None \
+        else vol_rhs
+    if face_gp:
+        sL, B_l, sR, B_r = _face_states(geom, Um, C)
+        gpf, fnf = geom.face_gp, geom.fn[:, None, :]
+        sR = torch.where(geom.bctype == BC_INTERIOR, sR,
+                         system.bc_state(geom.bctype, sL, fnf, gpf, t))
+        fl = system.riemann(fnf, sL, sR, gpf, t)         # (C,G,F)
+        wt = geom.farea * geom.fmask
+        wface = geom.tables["w_face"]
+        cL = cR = None
+        for g in range(len(wface)):
+            wfl = fl[:, g] * (float(wface[g]) * wt)      # (C,F)
+            tl = B_l[:, g][None] * wfl[:, None]          # (C,K,F)
+            tr = B_r[:, g][None] * wfl[:, None]
+            cL, cR = (tl, tr) if g == 0 else (cL + tl, cR + tr)
+        # the test functions are not masked: the rows they would zero
+        # belong to inactive dofs, which the dofmask below zeroes anyway
+        r = accumulate_faces(geom, -cL.reshape(C * K, -1),
+                             cR.reshape(C * K, -1), Rv)
+        delt = None
+    else:
+        r, delt = fused_face_pass(system, geom, Um, vol_rhs=Rv)
+    if dofmask is not None:
+        r = r * dofmask.repeat(C, 1)
     return (r, delt) if want_charvel else r
 
 
 def dg_dt(system, geom: DGGeom, U, dofmask=None):
     """Max-characteristic-speed face sweep: min_e vol_e / sum_f dSV
-    (DGCompFlow.hpp dt:197-406)."""
-    _, delt = dg_rhs(system, geom, U, dofmask, want_charvel=True)
-    return dg_dt_from_delt(geom, delt)
+    (DGCompFlow.hpp dt:197-406; quinoa_tpu/pde/dg.py:456-492)."""
+    from ..ops.face_fused import delt_plain
+
+    Um = _masked(U, dofmask, system.ncomp)
+    sL, _, sR, _ = _face_states(geom, Um, system.ncomp)
+    gpf = geom.face_gp if getattr(system, "needs_face_gp", True) else None
+    fnf = geom.fn[:, None, :]
+    dSV_l = system.charvel(sL, fnf, gpf)                 # (G,F)
+    dSV_r = system.charvel(sR, fnf, gpf)
+    wt = torch.as_tensor(geom.tables["w_face"], dtype=U.dtype,
+                         device=U.device)[:, None] * (geom.farea * geom.fmask)
+    interior = geom.bctype == BC_INTERIOR
+    mx = (wt * torch.where(interior, torch.maximum(dSV_l, dSV_r),
+                           dSV_l)).sum(0)
+    return dg_dt_from_delt(geom, delt_plain(geom, mx))
 
 
 def dg_dt_from_delt(geom: DGGeom, delt):
@@ -363,3 +465,32 @@ def dg_initialize(system, geom: DGGeom, t):
     proj = torch.einsum("gk,cge->cke", wB, f)
     mn = torch.as_tensor(tb["mnorm"], dtype=dtype, device=dev)
     return (proj / mn[None, :, None]).reshape(C * K, E)
+
+
+def eval_ndof_sticky(geom: DGGeom, u, ndofel, ncomp, tolref):
+    """p-adaptive indicator: keep P1 where any component's
+    reference-space gradient magnitude exceeds tolref (DG.cpp
+    eval_ndof:1089-1163; quinoa_tpu/pde/dg.py:519-540).  Sticky: only
+    elements currently at ndof==4 are re-evaluated; a dropped element
+    comes back only through propagate_ndof's ring promotion."""
+    K = geom.ndof
+    Uv = uview(u, ncomp, K)
+    u1, u2, u3 = Uv[:, 1, :], Uv[:, 2, :], Uv[:, 3, :]
+    dxi = (2.0 * u1, u1 + 3.0 * u2, u1 + u2 + 4.0 * u3)
+    grad2 = None
+    for j in range(3):
+        d = (dxi[0] * geom.jacInv[0, j] + dxi[1] * geom.jacInv[1, j]
+             + dxi[2] * geom.jacInv[2, j])
+        grad2 = d * d if grad2 is None else grad2 + d * d
+    keep = (torch.sqrt(grad2) > tolref).any(dim=0)
+    fresh = torch.where(keep, 4, 1).to(torch.int32)
+    return torch.where(ndofel == 4, fresh, ndofel)
+
+
+def propagate_ndof(geom: DGGeom, ndofel):
+    """p-refine every face neighbour of a p-refined element, one ring per
+    step (DG.cpp propagate_ndof:1286-1313).  Non-transitive: reads
+    ndofel and writes a new tensor."""
+    nbr = ndofel[torch.clamp_min(geom.esuelT, 0).long()]   # (4,E)
+    prom = ((nbr == 4) & (geom.esuelT >= 0)).any(dim=0)
+    return torch.where(prom, 4, ndofel).to(torch.int32)

@@ -1,11 +1,10 @@
-"""DG system for compressible Euler (DGCompFlow), feature-major layout.
+"""DG systems: compressible Euler (DGCompFlow) and scalar transport
+(DGTransport), feature-major layout.
 
-Port of quinoa_tpu/pde/dg_compflow.py:18-88 (reference DGCompFlow.hpp):
-the flux, Riemann, boundary-ghost and characteristic-speed callbacks the
-DG operators consume.  States are (C, ...), normals (3, ...).  Only the
-coordinate-free boundary conditions (symmetry, extrapolate, outlet) are
-ported; a Dirichlet or inlet face needs the face Gauss-point coordinates
-and raises.
+Port of quinoa_tpu/pde/dg_compflow.py (reference DGCompFlow.hpp,
+DGTransport.hpp): the flux, Riemann, boundary-ghost and
+characteristic-speed callbacks the DG operators consume.  States are
+(C, ...), normals (3, ...).
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import riemann as rie
-from .dg import BC_SYMMETRY
+from .dg import BC_DIRICHLET, BC_INLET, BC_SYMMETRY
 from .problems.compflow import euler_flux_dir
 
 
@@ -21,7 +20,8 @@ class DGCompFlow:
     """Compressible Euler for cell-centered DG.
 
     riemann_flux: 'hllc' (default) or 'laxfriedrichs'.  The CUDA face
-    kernel implements HLLC only.
+    kernel implements HLLC only; the face Gauss-point path (Dirichlet or
+    inlet faces) runs either flux in torch.
     """
 
     ncomp = 5
@@ -59,17 +59,19 @@ class DGCompFlow:
 
     def bc_state(self, bctype, sL, fn, gp, t):
         """Ghost state for boundary faces: reflected velocity on symmetry
-        faces, a copy of the interior state otherwise (the caller keeps
-        the true right state on interior faces)."""
-        if gp is not None:
-            raise NotImplementedError(
-                "Dirichlet/inlet ghosts (face coordinates) are not ported")
+        faces, the analytic solution on Dirichlet faces (needs the face
+        coordinates gp), a copy of the interior state otherwise (the
+        caller keeps the true right state on interior faces)."""
         rho = sL[0]
         vel = sL[1:4] / rho
         vn = rie._dot3(vel, fn)
         velr = vel - 2.0 * vn * fn
         sym = torch.cat([sL[0:1], rho * velr, sL[4:5]])
-        return torch.where(bctype == BC_SYMMETRY, sym, sL)
+        out = torch.where(bctype == BC_SYMMETRY, sym, sL)
+        if gp is None:
+            return out
+        return torch.where(bctype == BC_DIRICHLET,
+                           self.problem.solution(gp, t), out)
 
     def charvel(self, state, fn, gp=None):
         """|v.n| + a at face states, for the dt sweep."""
@@ -78,3 +80,49 @@ class DGCompFlow:
         p = torch.clamp_min(self.eos.pressure_cons_cm(state), 0.0)
         a = self.eos.soundspeed(rho, p)
         return rie._dot3(vel, fn).abs() + a
+
+
+class DGTransport:
+    """Linear advection of N scalars for cell-centered DG (upwind flux),
+    counterpart of DGTransport.hpp.  Its velocity field samples
+    coordinates, so it always takes the face Gauss-point path (no
+    needs_face_gp attribute: the solver reads the default, True)."""
+
+    has_src = False
+
+    def __init__(self, problem, ncomp=None):
+        self.problem = problem
+        self.ncomp = ncomp if ncomp is not None else problem.ncomp
+
+    def initialize(self, xyz, t):
+        return self.problem.solution(xyz, t)
+
+    def analytic(self, xyz, t):
+        return self.problem.solution(xyz, t)
+
+    def src(self, xyz, t):
+        return torch.zeros((self.ncomp,) + tuple(xyz.shape[1:]),
+                           dtype=xyz.dtype, device=xyz.device)
+
+    def flux_cols(self, state, gp, t):
+        """F_j[c] = v_j(x)[c] * u[c]."""
+        vel = self.problem.velocity(gp, t)               # (C, 3, n)
+        return [state * vel[:, j] for j in range(3)]
+
+    def riemann(self, fn, sL, sR, gp, t):
+        return rie.upwind(fn, sL, sR, self.problem.velocity(gp, t))
+
+    def bc_state(self, bctype, sL, fn, gp, t):
+        """Dirichlet: analytic solution; Inlet: zero; Outlet/Extrapolate:
+        copy (DGTransport.hpp:340-400)."""
+        dirich = self.problem.solution(gp, t)
+        return torch.where(
+            bctype == BC_DIRICHLET,
+            dirich,
+            torch.where(bctype == BC_INLET, torch.zeros_like(sL), sL),
+        )
+
+    def charvel(self, state, fn, gp=None):
+        """max over components of |v.n| for the dt face sweep."""
+        vel = self.problem.velocity(gp, 0.0)             # (C, 3, n)
+        return rie._dot3(vel.movedim(1, 0), fn).abs().amax(0)

@@ -1,5 +1,6 @@
 """Problem policies: initial and analytic solutions."""
 
 from .compflow import SedovBlastwave
+from .transport import GaussHump
 
-__all__ = ["SedovBlastwave"]
+__all__ = ["GaussHump", "SedovBlastwave"]

@@ -17,14 +17,19 @@ import torch
 from quinoa_tpu_torch import kernels
 from quinoa_tpu_torch.inciter.dg import DGSolver
 from quinoa_tpu_torch.mesh import box_tet_mesh, hilbert_element_reorder
+from quinoa_tpu_torch.ops.face_accum import (accumulate_faces,
+                                             accumulate_faces_plain,
+                                             face_gather, face_gather_plain)
 from quinoa_tpu_torch.ops.face_fused import (face_flux_plain,
                                              face_to_elem_plain,
                                              fused_face_pass)
 from quinoa_tpu_torch.ops.nbr_bounds import (limit_vol_plain,
+                                             neighbor_mean_bounds,
+                                             neighbor_mean_bounds_plain,
                                              superbee_limit_window)
-from quinoa_tpu_torch.pde.dg import BC_SYMMETRY, build_dggeom
-from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow
-from quinoa_tpu_torch.pde.problems import SedovBlastwave
+from quinoa_tpu_torch.pde.dg import BC_DIRICHLET, BC_SYMMETRY, build_dggeom
+from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow, DGTransport
+from quinoa_tpu_torch.pde.problems import GaussHump, SedovBlastwave
 
 pytestmark = pytest.mark.cuda
 
@@ -76,7 +81,34 @@ def test_kernels_match_plain_versions(card, dtype):
            dtype)
     torch.cuda.synchronize()
     assert kernels.launches == {"limit_vol": 1, "face_flux": 1,
-                                "face_to_elem": 1}
+                                "face_to_elem": 1, "nbr_bounds": 0,
+                                "face_gather": 0, "face_accum": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_face_gp_kernels_match_plain_versions(card, dtype):
+    """K4, K5 and K6 against their plain versions: bit for bit (selects,
+    copies, and sums in the same order)."""
+    g = _geom(card, dtype)
+    U = _state(g.nelem, dtype, card)
+    kernels.reset_launches()
+    for got, want in zip(neighbor_mean_bounds(g, U, 5),
+                         neighbor_mean_bounds_plain(g, U[::4])):
+        assert torch.equal(got, want)
+    for idx in (g.el, g.er):
+        assert torch.equal(face_gather(U, idx), face_gather_plain(U, idx))
+    gen = torch.Generator(device=card).manual_seed(3)
+    cL, cR = torch.randn((2, 4, g.nface), generator=gen, device=card,
+                         dtype=dtype)
+    base = torch.randn((4, g.nelem), generator=gen, device=card,
+                       dtype=dtype)
+    for b in (None, base):
+        assert torch.equal(accumulate_faces(g, cL, cR, b),
+                           accumulate_faces_plain(g, cL, cR, b))
+    torch.cuda.synchronize()
+    assert kernels.launches == {"limit_vol": 0, "face_flux": 0,
+                                "face_to_elem": 0, "nbr_bounds": 1,
+                                "face_gather": 2, "face_accum": 2}
 
 
 def test_face_kernel_pad_faces(card):
@@ -109,3 +141,35 @@ def test_solver_on_card_matches_cpu(card):
     assert bool(torch.isfinite(sa.u).all())
     assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11
     assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
+
+
+@pytest.mark.parametrize("case", ["sedov_pdg", "gausshump",
+                                  "gausshump_pdg"])
+def test_new_paths_on_card_match_cpu(card, case):
+    """The p-adaptive and face Gauss-point paths, two float64 steps on
+    the card against the CPU: u atol 1e-11, dt rtol 1e-12, ndofel
+    equal."""
+    def solver(device):
+        if case == "sedov_pdg":
+            return DGSolver(DGCompFlow(SedovBlastwave()),
+                            _geom(device, torch.float64),
+                            limiter="superbeep1", pref=True)
+        mesh = box_tet_mesh(10, 10, 2, hi=(1.0, 1.0, 0.2))
+        g = build_dggeom(mesh, 4, {i: BC_DIRICHLET for i in range(1, 7)},
+                         dtype=torch.float64, device=device)
+        return DGSolver(DGTransport(GaussHump()), g, cfl=0.8,
+                        pref=case == "gausshump_pdg")
+
+    a, b = solver(card), solver("cpu")
+    kernels.reset_launches()
+    sa = a.nsteps(a.initial_state(), 2)
+    sb = b.nsteps(b.initial_state(), 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(sa.u).all())
+    assert torch.equal(sa.ndofel.cpu(), sb.ndofel)
+    assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11
+    assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
+    path = {"sedov_pdg": ("nbr_bounds", "face_flux", "face_to_elem"),
+            "gausshump": ("face_gather", "face_accum"),
+            "gausshump_pdg": ("face_gather", "face_accum")}[case]
+    assert {k for k, v in kernels.launches.items() if v} == set(path)

@@ -1,0 +1,169 @@
+"""The port's p-adaptive DG against quinoa_tpu: the neighbour-mean bounds
+(kernel K4's plain version) against the Pallas neighbor_mean_bounds kernel
+in interpret mode, Superbee with a dofmask and precomputed bounds, the
+sticky indicator and the one-ring promotion, the Sedov pdg solver and the
+mixed P0/P1 diagnostics.
+
+Float64 on the CPU on the 6x6x4 box of the JAX package's own bounds-kernel
+test (far neighbours live at W=128).  Inputs are made with numpy from a
+seed and handed to both packages; the geometry goes through convert.py.
+Tolerances: bounds and the indicator are selects and comparisons (exact);
+Superbee is min/max/select plus a 4-term sum (atol 1e-13, the JAX
+package's own limiter tolerance); the solver takes the two-step solver
+tolerance of tests/test_dg.py (u atol 1e-11, dt rtol 1e-12).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from quinoa_tpu.inciter.dg import DGDiagnostics as JDiag
+from quinoa_tpu.inciter.dg import DGSolver as JSolver
+from quinoa_tpu.mesh import box_tet_mesh
+from quinoa_tpu.mesh.reorder import hilbert_element_reorder
+from quinoa_tpu.ops.nbr_bounds import build_bounds_plan
+from quinoa_tpu.ops.nbr_bounds import neighbor_mean_bounds as j_bounds
+from quinoa_tpu.pde.dg import BC_SYMMETRY, build_dggeom
+from quinoa_tpu.pde.dg import eval_ndof_sticky as j_eval_ndof
+from quinoa_tpu.pde.dg import propagate_ndof as j_propagate
+from quinoa_tpu.pde.dg_compflow import DGCompFlow as JCompFlow
+from quinoa_tpu.pde.limiter import superbee_p1 as j_superbee_p1
+from quinoa_tpu.pde.problems import SedovBlastwave as JSedov
+
+from quinoa_tpu_torch import convert
+from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
+from quinoa_tpu_torch.ops.nbr_bounds import neighbor_mean_bounds
+from quinoa_tpu_torch.pde.dg import eval_ndof_sticky, propagate_ndof
+from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow as TCompFlow
+from quinoa_tpu_torch.pde.limiter import superbee_p1
+from quinoa_tpu_torch.pde.problems import SedovBlastwave as TSedov
+
+C, K = 5, 4
+ATOL_LIM = 1e-13
+U_ATOL = 1e-11
+DT_RTOL = 1e-12
+L2_RTOL = 1e-12
+
+
+def _arrays(g):
+    out = {f.name: np.asarray(getattr(g, f.name))
+           for f in dataclasses.fields(g) if f.name != "tables"}
+    out["tables"] = dict(g.tables)
+    return out
+
+
+@pytest.fixture(scope="module")
+def case():
+    mesh = box_tet_mesh(6, 6, 4, hi=(0.6, 0.6, 0.4))
+    bc = {i: BC_SYMMETRY for i in range(1, 7)}
+    jg = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
+    tg = convert.geom_from_arrays(_arrays(jg))
+    rng = np.random.default_rng(21)
+    E = jg.nelem
+    U0 = rng.standard_normal((C * K, E)) * 0.1
+    U0[[c * K for c in range(C)]] += 2.0
+    ndofel = np.where(rng.random(E) < 0.4, 1, 4).astype(np.int32)
+    return jg, tg, U0, ndofel
+
+
+def _dofmask(ndofel, dtype=np.float64):
+    return (np.arange(K)[:, None] < ndofel[None, :]).astype(dtype)
+
+
+def test_neighbor_bounds_match_pallas_kernel(case):
+    """K4's plain version against neighbor_mean_bounds (interpret mode,
+    far neighbours live): bit for bit."""
+    jg, tg, U0, _ = case
+    plan = build_bounds_plan(jg, W=128)
+    assert plan.nef > 0
+    jmin, jmax = j_bounds(plan, jnp.asarray(U0[::K]), interpret=True)
+    tmin, tmax = neighbor_mean_bounds(tg, torch.as_tensor(U0), C)
+    np.testing.assert_array_equal(tmin.numpy(), np.asarray(jmin))
+    np.testing.assert_array_equal(tmax.numpy(), np.asarray(jmax))
+    assert (tmin.numpy() < U0[::K]).any() and (tmax.numpy() > U0[::K]).any()
+
+
+def test_superbee_with_dofmask_and_bounds(case):
+    """Superbee with a dofmask and precomputed bounds against the JAX
+    package's; P0 elements keep their state."""
+    jg, tg, U0, ndofel = case
+    dm = _dofmask(ndofel)
+    plan = build_bounds_plan(jg, W=128)
+    jb = j_bounds(plan, jnp.asarray(U0[::K]), interpret=True)
+    jl = np.asarray(j_superbee_p1(jg, jnp.asarray(U0), jnp.asarray(dm), C,
+                                  bounds=jb))
+    tU = torch.as_tensor(U0)
+    tl = superbee_p1(tg, tU, torch.as_tensor(dm), C,
+                     bounds=neighbor_mean_bounds(tg, tU, C)).numpy()
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=ATOL_LIM)
+    p0 = ndofel == 1
+    np.testing.assert_array_equal(tl[:, p0], U0[:, p0])
+    assert not np.allclose(tl[:, ~p0], U0[:, ~p0])   # the limiter acted
+
+
+def test_eval_and_propagate_ndof_exact(case):
+    """The sticky indicator and the one-ring promotion, exactly."""
+    jg, tg, U0, ndofel = case
+    U = U0 * 0.02            # gradients straddle tolref 0.1
+    je = np.asarray(j_eval_ndof(jg, jnp.asarray(U), jnp.asarray(ndofel), C,
+                                0.1))
+    te = eval_ndof_sticky(tg, torch.as_tensor(U), torch.as_tensor(ndofel),
+                          C, 0.1)
+    assert te.dtype == torch.int32
+    np.testing.assert_array_equal(te.numpy(), je)
+    assert set(np.unique(je[ndofel == 4])) == {1, 4}
+    np.testing.assert_array_equal(je[ndofel == 1], 1)   # sticky
+    jp = np.asarray(j_propagate(jg, jnp.asarray(je)))
+    tp = propagate_ndof(tg, te)
+    assert tp.dtype == torch.int32
+    np.testing.assert_array_equal(tp.numpy(), jp)
+    assert (jp != je).any() and (jp == 1).any()
+
+
+@pytest.fixture(scope="module")
+def sedov_pdg():
+    mesh, _ = hilbert_element_reorder(
+        box_tet_mesh(6, 6, 4, hi=(0.6, 0.6, 0.4)))
+    bc = {i: BC_SYMMETRY for i in range(1, 7)}
+    jg = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
+    tg = convert.geom_from_arrays(_arrays(jg))
+    kw = dict(cfl=0.5, limiter="superbeep1", pref=True)
+    js = JSolver(JCompFlow(JSedov()), jg, **kw)
+    ts = DGSolver(TCompFlow(TSedov()), tg, **kw)
+    a, b = js.initial_state(), ts.initial_state()
+    out = {}
+    for n in (1, 2, 3):
+        a, b = js.step(a), ts.step(b)
+        out[n] = (a, b)
+    return js, jg, ts, tg, out
+
+
+@pytest.mark.parametrize("nsteps", [1, 2, 3])
+def test_sedov_pdg_solver_matches_jax(sedov_pdg, nsteps):
+    """Sedov p-adaptive DG(P1) + Superbee: the port's route (bounds, split
+    Superbee, zeroing, fused face pass on the masked state) against the
+    JAX package's XLA route on the CPU."""
+    _, _, _, _, out = sedov_pdg
+    a, b = out[nsteps]
+    nd = np.asarray(a.ndofel)
+    np.testing.assert_array_equal(b.ndofel.numpy(), nd)
+    assert (nd == 1).any() and (nd == 4).any()
+    np.testing.assert_allclose(b.u.numpy(), np.asarray(a.u), rtol=0,
+                               atol=U_ATOL)
+    assert np.isclose(float(b.dt), float(a.dt), rtol=DT_RTOL)
+    assert np.isclose(float(b.t), float(a.t), rtol=DT_RTOL)
+
+
+def test_mixed_p0_diagnostics_match_jax(sedov_pdg):
+    """The mixed P0/P1 diagnostics: per-element active dofs, P0 error at
+    the centroid."""
+    js, jg, ts, tg, out = sedov_pdg
+    a, b = out[3]
+    assert (np.asarray(a.ndofel) == 1).any()
+    for x, y in zip(DGDiagnostics(ts.system, tg).compute(b),
+                    JDiag(js.system, jg).compute(a)):
+        np.testing.assert_allclose(x, y, rtol=L2_RTOL, atol=1e-14)
