@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of quinoa_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives the port's three DG(P1) paths at 48^3 (663,552 tets) in float32
-through their hand-written CUDA kernels:
+Drives the port's three DG(P1) paths and its two ALECG paths at 48^3
+(663,552 tets; 117,649 nodes and 795,024 edges) in float32 through their
+hand-written CUDA kernels:
 
 1. card    the name and power limit from nvidia-smi;
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -11,9 +12,12 @@ through their hand-written CUDA kernels:
            K1-K4 on a perturbed Sedov state, K5 and K6 on GaussHump
            transport rows, float32 at 48^3 and float64 on small meshes,
            with a CUDA-event time for kernel and plain version at 48^3;
-           then four small float64 solvers on the card against the same
+           K7-K9 (both flavours of K7 and K8) on the SlotCyl and
+           VorticalFlow initial states, alone and as the stage rhs;
+           then six small float64 solvers on the card against the same
            solvers on the CPU (Sedov P1, Sedov pdg, GaussHump, GaussHump
-           pdg: 2 steps, u atol 1e-11, dt rtol 1e-12, ndofel equal);
+           pdg, ALECG SlotCyl, ALECG VorticalFlow: 2 steps, u atol 1e-11,
+           dt rtol 1e-12, ndofel equal where the state has one);
 4. p1      the Sedov DG(P1) HLLC + Superbee step (bench.py) from its
            initial_state(): 1 warm-up and 10 timed steps through K1, K2
            and K3, 33 launches each; then the same 11 steps from the
@@ -26,7 +30,13 @@ through their hand-written CUDA kernels:
 6. hump    GaussHump transport on Dirichlet faces (the face Gauss-point
            path): 1 + 10 steps through K5 (left and right face states of
            every rhs and dt sweep: 8 launches a step) and K6 (3 a step);
-           finite, and L2(err) < 0.5 L2(sol) against the analytic hump.
+           finite, and L2(err) < 0.5 L2(sol) against the analytic hump;
+7. alecg   ALECG SlotCyl transport (bench_alecg.py): 1 + 10 steps through
+           K7 alecg_vol, K8 alecg_edge and K9 cg_assemble, 3 launches each
+           a step; finite, L2(sol) and L2(err) against the JAX package's
+           CPU result (JAX_L2);
+8. alecg_cf ALECG VorticalFlow Euler (bench_alecg.py --compflow): the same
+           through K7 alecg_vol_cf, K8 alecg_edge_cf and K9.
 
 Every path sets the launch counts to 0 just before it and reads them just
 after; a kernel of the path that did not launch as stated, or one that
@@ -51,6 +61,33 @@ N_BIG = 48                      # the bench box: 48^3 hexes, 6 tets each
 SMALL = (6, 6, 4)               # float64 Sedov parity mesh
 HUMP_SMALL = (10, 10, 2)        # float64 GaussHump mesh (tests/test_dg.py)
 L2_RTOL = 5e-4                  # bench.py's gate
+#: ALECG legs of bench_alecg.py: (problem, box lo, box hi, cfl); the small
+#: float64 card-vs-CPU meshes are tests/test_alecg_fused.py's
+ALECG = {"alecg": ("slotcyl", (0.0, 0.0, 0.0), (1.0, 1.0, 1.0), 0.8),
+         "alecg_cf": ("vortical", (-0.5, -0.5, -0.5), (0.5, 0.5, 0.5), 0.5)}
+ALECG_SMALL = {"alecg": ((10, 10, 5), (0.0, 0.0, 0.0), (1.0, 1.0, 0.5), 0.8),
+               "alecg_cf": ((8, 8, 8), (-0.5, -0.5, -0.5), (0.5, 0.5, 0.5),
+                            0.6)}
+#: L2(sol) and L2(err) per component after 11 float32 steps at 48^3 from
+#: initial_state(), from the JAX package on the CPU (its XLA path, x64
+#: off): quinoa_tpu.inciter.alecg.make_alecg on the bench_alecg.py mesh
+#: (hilbert_element_reorder, first_touch_node_reorder, all boundary nodes
+#: pinned), 11 step() calls, then quinoa_tpu.inciter.diagnostics.
+JAX_L2 = {
+    "alecg": {"l2sol": [0.15534241497516632],
+              "l2err": [0.04810980707406998]},
+    "alecg_cf": {"l2sol": [1.0, 0.2902412712574005, 0.2902684211730957,
+                           0.05775976926088333, 15.08370590209961],
+                 "l2err": [2.023221554736665e-07, 1.567408980918117e-05,
+                           1.8303720935364254e-05, 2.188024609495187e-06,
+                           0.00020845529797952622]},
+}
+JAX_L2_RTOL = 1e-4
+# VorticalFlow is steady, so its L2(err) after 11 steps is float32
+# round-off (2e-7 for rho = 1): the JAX package's own jitted and eager
+# evaluations of the manufactured source differ by 9.5e-7.  L2(err) is
+# held to rtol 1e-4 plus this many float32 ulps of the L2(sol) norm.
+L2ERR_ULPS = 8
 # |kernel - plain| <= TOL * max|plain| per output.  Kernel and plain
 # version evaluate the same expressions in the same order without fused
 # multiply-adds, so they differ only by torch's own reduction order;
@@ -73,17 +110,31 @@ KERNELS = {
                     "quinoa_tpu/ops/face_accum.py:698"),
     "face_accum": ("quinoa_tpu_torch/csrc/face_accum.cu",
                    "quinoa_tpu/ops/face_accum.py:644"),
+    "alecg_vol": ("quinoa_tpu_torch/csrc/alecg_vol.cu",
+                  "quinoa_tpu/ops/alecg_fused.py:259"),
+    "alecg_vol_cf": ("quinoa_tpu_torch/csrc/alecg_vol.cu",
+                     "quinoa_tpu/ops/alecg_fused.py:165"),
+    "alecg_edge": ("quinoa_tpu_torch/csrc/alecg_edge.cu",
+                   "quinoa_tpu/ops/alecg_fused.py:303"),
+    "alecg_edge_cf": ("quinoa_tpu_torch/csrc/alecg_edge.cu",
+                      "quinoa_tpu/ops/alecg_fused.py:214"),
+    "cg_assemble": ("quinoa_tpu_torch/csrc/cg_assemble.cu",
+                    "quinoa_tpu/ops/window_kernels.py:148"),
 }
 #: launches per step of each path; every other kernel must launch 0 times
 PATHS = {
     "p1": {"limit_vol": 3, "face_flux": 3, "face_to_elem": 3},
     "pdg": {"nbr_bounds": 3, "face_flux": 3, "face_to_elem": 3},
     "hump": {"face_gather": 8, "face_accum": 3},
+    "alecg": {"alecg_vol": 3, "alecg_edge": 3, "cg_assemble": 3},
+    "alecg_cf": {"alecg_vol_cf": 3, "alecg_edge_cf": 3, "cg_assemble": 3},
 }
 #: the path whose launches the kernels line reports for each kernel
 MAIN_PATH = {"limit_vol": "p1", "face_flux": "p1", "face_to_elem": "p1",
              "nbr_bounds": "pdg", "face_gather": "hump",
-             "face_accum": "hump"}
+             "face_accum": "hump", "alecg_vol": "alecg",
+             "alecg_edge": "alecg", "cg_assemble": "alecg",
+             "alecg_vol_cf": "alecg_cf", "alecg_edge_cf": "alecg_cf"}
 
 
 def tpu_precision_initial_u(solver, torch):
@@ -286,21 +337,88 @@ def face_gp_kernel_checks(torch, geom, U, hump, Uh, dtype_name, timed):
     return out
 
 
+def alecg_solver(name, n, dtype, device):
+    """The ALECG solver of one bench_alecg.py leg on an n = (nx, ny, nz)
+    box in Hilbert element and first-touch node order, every boundary
+    node pinned."""
+    from quinoa_tpu_torch.inciter.alecg import make_alecg
+    from quinoa_tpu_torch.mesh import (box_tet_mesh, first_touch_node_reorder,
+                                       hilbert_element_reorder)
+    from quinoa_tpu_torch.pde.cg import CGTransport
+    from quinoa_tpu_torch.pde.cg_compflow import CGCompFlow
+    from quinoa_tpu_torch.pde.problems import SlotCyl, VorticalFlow
+
+    problem, lo, hi, cfl = ALECG[name]
+    if n != (N_BIG,) * 3:
+        _, lo, hi, cfl = ALECG_SMALL[name]
+    system = (CGTransport(SlotCyl()) if problem == "slotcyl"
+              else CGCompFlow(VorticalFlow()))
+    mesh, _ = hilbert_element_reorder(box_tet_mesh(*n, lo=lo, hi=hi))
+    mesh, _ = first_touch_node_reorder(mesh)
+    return make_alecg(system, mesh, cfl=cfl, bcnodes=mesh.all_bnodes(),
+                      dtype=dtype, device=device)
+
+
+def alecg_kernel_checks(torch, solver, dtype_name, timed):
+    """K7, K8 (the solver's flavour) and K9 against their plain versions on
+    the solver's initial state, then the three as the stage rhs; returns
+    {name: (max_abs_err, ms, plain_ms)} (times only when timed)."""
+    from quinoa_tpu_torch.ops.alecg_fused import (alecg_edge,
+                                                  alecg_edge_plain,
+                                                  alecg_rhs, alecg_vol,
+                                                  alecg_vol_plain,
+                                                  cg_assemble,
+                                                  cg_assemble_plain)
+
+    g, e, rows, sy = solver.geom, solver.edget, solver.rows, solver.system
+    u = solver.initial_state().u
+    cv = alecg_vol_plain(sy, g, rows, u)
+    d = alecg_edge_plain(sy, e, rows, u)
+    sfx = "" if sy.flavour == "transport" else "_cf"
+    cases = (
+        ("alecg_vol" + sfx, lambda: alecg_vol(sy, g, rows, u),
+         lambda: alecg_vol_plain(sy, g, rows, u)),
+        ("alecg_edge" + sfx, lambda: alecg_edge(sy, e, rows, u),
+         lambda: alecg_edge_plain(sy, e, rows, u)),
+        ("cg_assemble", lambda: cg_assemble(cv, d, g.nsup, e.ensup),
+         lambda: cg_assemble_plain(cv, d, g.nsup, e.ensup)),
+    )
+    out = {}
+    for name, kf, pf in cases:
+        err = compare(name, (kf(),), (pf(),), dtype_name)
+        ms = cuda_ms(torch, kf) if timed else None
+        plain_ms = cuda_ms(torch, pf) if timed else None
+        out[name] = (err, ms, plain_ms)
+        phase("kernels", f"{name} {dtype_name} N={g.nnode} E={g.nelem} "
+              f"nE={e.edges.shape[1]} rows={u.shape[0]}: max|kernel-plain|="
+              f"{err:.3e} (tol {TOL[dtype_name]:g} * max|plain|)"
+              + (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                 if timed else ""))
+    err = compare("stage rhs K7+K8+K9", (alecg_rhs(sy, g, e, rows, u),),
+                  (cg_assemble_plain(cv, d, g.nsup, e.ensup),), dtype_name)
+    phase("kernels", f"K7+K8+K9{sfx} {dtype_name}: max|kernel-plain|="
+          f"{err:.3e} (tol {TOL[dtype_name]:g} * max|plain|)")
+    return out
+
+
 def card_vs_cpu(torch, name, make):
-    """Two float64 steps of make(device) on the card and on the CPU."""
+    """Two float64 steps of make(device) on the card and on the CPU;
+    ndofel must agree where the state has one (DG)."""
     on_card, on_cpu = make("card"), make("cpu")
     sa = on_card.nsteps(on_card.initial_state(), 2)
     sb = on_cpu.nsteps(on_cpu.initial_state(), 2)
     err = float((sa.u.cpu() - sb.u).abs().max())
     dterr = abs(float(sa.dt) - float(sb.dt))
-    same = bool(torch.equal(sa.ndofel.cpu(), sb.ndofel))
+    dg = hasattr(sb, "ndofel")
+    same = not dg or bool(torch.equal(sa.ndofel.cpu(), sb.ndofel))
     if not (err <= SOLVER_ATOL and dterr <= 1e-12 * float(sb.dt) and same):
         raise AssertionError(f"{name} card vs CPU: |du|={err:.3e} "
                              f"|ddt|={dterr:.3e} ndofel equal: {same}")
+    extra = (f", ndofel equal, P1 elements {int((sb.ndofel == 4).sum())}"
+             if dg else f", N={on_cpu.geom.nnode}")
     phase("kernels", f"small solver {name} (E={on_cpu.geom.nelem}, f64, 2 "
-          f"steps) card vs CPU: max|du|={err:.3e} |ddt|={dterr:.3e}, "
-          f"ndofel equal, P1 elements {int((sb.ndofel == 4).sum())} "
-          f"(atol {SOLVER_ATOL:g}, dt rtol 1e-12)")
+          f"steps) card vs CPU: max|du|={err:.3e} |ddt|={dterr:.3e}"
+          f"{extra} (atol {SOLVER_ATOL:g}, dt rtol 1e-12)")
 
 
 def drive(torch, solver, name, card, state=None):
@@ -328,11 +446,33 @@ def drive(torch, solver, name, card, state=None):
     if not bool(torch.isfinite(state.u).all()):
         raise AssertionError(f"{name}: non-finite state after "
                              f"{NSTEPS + 1} steps")
-    E = solver.geom.nelem
-    phase(name, f"{E * NSTEPS / wall:.1f} cell-updates/s, "
+    if name in ALECG:
+        unit, n = "node-updates/s", solver.geom.nnode    # bench_alecg.py:66
+    else:
+        unit, n = "cell-updates/s", solver.geom.nelem
+    phase(name, f"{n * NSTEPS / wall:.1f} {unit}, "
           f"{1e3 * wall / NSTEPS:.3f} ms/step, t={float(state.t):.9e}, "
           f"launches {counts}, on {card}")
     return state, counts, wall
+
+
+def alecg_gate(name, solver, state):
+    """L2(sol) and L2(err) after 11 float32 steps against JAX_L2."""
+    from quinoa_tpu_torch.inciter.diagnostics import Diagnostics
+
+    row = Diagnostics(solver.system, solver.geom).compute(state)
+    want = JAX_L2[name]
+    eps = float(np.finfo(np.float32).eps)
+    ok = (np.allclose(row.l2sol, want["l2sol"], rtol=JAX_L2_RTOL, atol=0.0)
+          and all(abs(a - b) <= JAX_L2_RTOL * abs(b) + L2ERR_ULPS * eps * s
+                  for a, b, s in zip(row.l2err, want["l2err"],
+                                     want["l2sol"])))
+    phase(name, f"after {row.it} steps t={row.t:.9e}: L2(sol) {row.l2sol} "
+          f"vs JAX {want['l2sol']}; L2(err) {row.l2err} vs JAX "
+          f"{want['l2err']}: {'ok' if ok else 'FAIL'} (rtol {JAX_L2_RTOL:g}"
+          f", L2(err) + {L2ERR_ULPS} f32 ulps of L2(sol))")
+    if not ok:
+        raise AssertionError(f"{name}: L2 gate failed")
 
 
 def main():
@@ -394,6 +534,23 @@ def main():
     Uh64 = DGSolver(transport, hump_small).initial_state().u
     face_gp_kernel_checks(torch, small, U64, hump_small, Uh64, "float64",
                           timed=False)
+    t0 = time.perf_counter()
+    alecg = {name: alecg_solver(name, (N_BIG,) * 3, torch.float32, dev)
+             for name in ALECG}
+    phase("kernels", f"48^3 ALECG solvers (SlotCyl, VorticalFlow): N="
+          f"{alecg['alecg'].geom.nnode} E={alecg['alecg'].geom.nelem} "
+          f"nE={alecg['alecg'].edget.edges.shape[1]} nsup D="
+          f"{alecg['alecg'].geom.nsup.shape[0]} ensup D="
+          f"{alecg['alecg'].edget.ensup.shape[0]}, "
+          f"{time.perf_counter() - t0:.1f} s on the host")
+    for name in ALECG:
+        # K9 reports its time at the transport leg's row count
+        for k, v in alecg_kernel_checks(torch, alecg[name], "float32",
+                                        timed=True).items():
+            stats.setdefault(k, v)
+        alecg_kernel_checks(torch, alecg_solver(name, ALECG_SMALL[name][0],
+                                                torch.float64, dev),
+                            "float64", timed=False)
 
     geoms = {}
 
@@ -414,6 +571,10 @@ def main():
         transport, geom("hump", d), cfl=0.8))
     card_vs_cpu(torch, "gausshump_pdg", lambda d: DGSolver(
         transport, geom("hump", d), cfl=0.8, pref=True))
+    for name in ALECG:
+        card_vs_cpu(torch, name, lambda d, name=name: alecg_solver(
+            name, ALECG_SMALL[name][0], torch.float64,
+            dev if d == "card" else "cpu"))
 
     # 4. the Sedov P1 step
     counts = {}
@@ -454,6 +615,11 @@ def main():
     phase("hump", f"L2(sol) {l2sol[0]:.9e}, L2(err) {l2err[0]:.9e}")
     if not l2err[0] < 0.5 * l2sol[0]:
         raise AssertionError("hump: L2(err) >= 0.5 L2(sol)")
+
+    # 7-8. ALECG SlotCyl transport and VorticalFlow Euler
+    for name in ALECG:
+        state, counts[name], _ = drive(torch, alecg[name], name, card)
+        alecg_gate(name, alecg[name], state)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

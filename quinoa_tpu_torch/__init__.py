@@ -3,14 +3,17 @@
 Module paths and public names mirror ``quinoa_tpu/`` so each function has a
 findable counterpart.  The package imports torch, numpy and ctypes, never
 jax; from ``quinoa_tpu`` it imports only the jax-free host modules
-(``quinoa_tpu.mesh.{unsmesh,boxmesh,derived}`` and ``quinoa_tpu.native``).
+(``quinoa_tpu.mesh.{unsmesh,boxmesh,derived,geometry}`` and
+``quinoa_tpu.native``).
 
 The port covers single-device DG(P1) (``inciter.dg.DGSolver``): the
 compressible-Euler step with the HLLC flux and the Superbee limiter, its
 p-adaptive variant, and the face Gauss-point path of scalar transport and
-Dirichlet/inlet faces.  The TPU kernels of these routes are hand-written
-CUDA kernels under ``csrc/``, built with nvcc at first use (``kernels``);
-on CPU tensors every kernel wrapper runs its plain torch version instead.
+Dirichlet/inlet faces; and single-device ALECG (``inciter.alecg``) for
+scalar transport and compressible Euler.  The TPU kernels of these paths
+are hand-written CUDA kernels under ``csrc/``, built with nvcc at first
+use (``kernels``); on CPU tensors every kernel wrapper runs its plain
+torch version instead.
 """
 
 __version__ = "0.1.0"

@@ -1,16 +1,18 @@
 """Carry geometry and state between quinoa_tpu and the port as plain
 numpy dicts.
 
-The JAX package's DGGeom and DGState are handed over as
-``{field name: numpy array}`` dicts (plus ``ndof``, ``nelem_real`` and
-``tables`` for a geometry), so this module never imports jax:
+The JAX package's DGGeom and DGState (DG), and its CGGeom, EdgeTables and
+CGState (ALECG), are handed over as ``{field name: numpy array}`` dicts
+(plus ``ndof``, ``nelem_real`` and ``tables`` for a DG geometry, ``nnode``
+for a CG one), so this module never imports jax:
 
     arrays = {f.name: np.asarray(getattr(g, f.name))
               for f in dataclasses.fields(g)}          # g: a JAX DGGeom
     arrays["tables"] = dict(g.tables)
     geom = geom_from_arrays(arrays, device="cuda", dtype=torch.float32)
 
-Floating fields take ``dtype``; index fields stay int32.
+Floating fields take ``dtype``; index fields stay int32.  Fields the port
+does not carry (the CG window ``plan``) are ignored.
 """
 
 from __future__ import annotations
@@ -18,29 +20,40 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .pde import cg
 from .pde.dg import DGGeom, GEOM_INT_FIELDS, GEOM_TENSOR_FIELDS
 
 STATE_FIELDS = ("u", "ndofel", "t", "it", "dt")
+CG_STATE_FIELDS = ("u", "t", "it", "dt")
+EDGE_FIELDS = ("edges", "A", "ensup", "xyz")
+_INT_FIELDS = (set(GEOM_INT_FIELDS) | set(cg.GEOM_INT_FIELDS)
+               | {"ndofel", "it", "edges", "ensup"})
 
 
 def _tensor(a, name, device, dtype):
     """A copy of ``a`` on ``device``: index fields int32, others ``dtype``
     (cast on the host, so a float32 value is the float64 one rounded)."""
-    if name in GEOM_INT_FIELDS or name in ("ndofel", "it"):
+    if name in _INT_FIELDS:
         return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
     return torch.from_numpy(np.array(a, dtype=np.float64)).to(dtype).to(
         device)
 
 
+def _tensors(arrays, names, device, dtype, what):
+    missing = [k for k in names if k not in arrays]
+    if missing:
+        raise KeyError(f"{what} dict lacks {missing}")
+    return {k: _tensor(arrays[k], k, device, dtype).contiguous()
+            for k in names}
+
+
 def geom_from_arrays(arrays: dict, device="cpu",
                      dtype: torch.dtype = torch.float64) -> DGGeom:
     """A DGGeom on ``device`` from a dict of numpy arrays."""
-    missing = [k for k in GEOM_TENSOR_FIELDS + ("ndof", "tables")
-               if k not in arrays]
+    missing = [k for k in ("ndof", "tables") if k not in arrays]
     if missing:
         raise KeyError(f"geometry dict lacks {missing}")
-    fields = {k: _tensor(arrays[k], k, device, dtype).contiguous()
-              for k in GEOM_TENSOR_FIELDS}
+    fields = _tensors(arrays, GEOM_TENSOR_FIELDS, device, dtype, "geometry")
     tables = {k: np.asarray(v, dtype=np.float64)
               for k, v in arrays["tables"].items()}
     return DGGeom(**fields, ndof=int(arrays["ndof"]),
@@ -62,10 +75,53 @@ def state_from_arrays(arrays: dict, device="cpu",
     """A DGState on ``device`` from a dict of numpy arrays."""
     from .inciter.dg import DGState
 
-    return DGState(**{k: _tensor(arrays[k], k, device, dtype).contiguous()
-                      for k in STATE_FIELDS})
+    return DGState(**_tensors(arrays, STATE_FIELDS, device, dtype, "state"))
 
 
 def state_to_arrays(state) -> dict:
     """The inverse of state_from_arrays."""
     return {k: getattr(state, k).cpu().numpy() for k in STATE_FIELDS}
+
+
+def cg_geom_from_arrays(arrays: dict, device="cpu",
+                        dtype: torch.dtype = torch.float64) -> cg.CGGeom:
+    """A CGGeom on ``device`` from a dict of numpy arrays."""
+    if "nnode" not in arrays:
+        raise KeyError("geometry dict lacks ['nnode']")
+    return cg.CGGeom(**_tensors(arrays, cg.GEOM_TENSOR_FIELDS, device, dtype,
+                                "geometry"), nnode=int(arrays["nnode"]))
+
+
+def cg_geom_to_arrays(geom: cg.CGGeom) -> dict:
+    """The inverse of cg_geom_from_arrays."""
+    out = {k: getattr(geom, k).cpu().numpy() for k in cg.GEOM_TENSOR_FIELDS}
+    out["nnode"] = geom.nnode
+    return out
+
+
+def edge_tables_from_arrays(arrays: dict, device="cpu",
+                            dtype: torch.dtype = torch.float64):
+    """ALECG EdgeTables on ``device`` from a dict of numpy arrays."""
+    from .inciter.alecg import EdgeTables
+
+    return EdgeTables(**_tensors(arrays, EDGE_FIELDS, device, dtype,
+                                 "edge table"))
+
+
+def edge_tables_to_arrays(edget) -> dict:
+    """The inverse of edge_tables_from_arrays."""
+    return {k: getattr(edget, k).cpu().numpy() for k in EDGE_FIELDS}
+
+
+def cg_state_from_arrays(arrays: dict, device="cpu",
+                         dtype: torch.dtype = torch.float64):
+    """A CGState on ``device`` from a dict of numpy arrays."""
+    from .inciter.diagcg import CGState
+
+    return CGState(**_tensors(arrays, CG_STATE_FIELDS, device, dtype,
+                              "state"))
+
+
+def cg_state_to_arrays(state) -> dict:
+    """The inverse of cg_state_from_arrays."""
+    return {k: getattr(state, k).cpu().numpy() for k in CG_STATE_FIELDS}

@@ -1,5 +1,9 @@
-"""The DG(P1) solver and its diagnostics."""
+"""The DG(P1) and ALECG solvers and their diagnostics."""
 
+from .alecg import ALECGSolver, make_alecg
 from .dg import DGDiagnostics, DGSolver, DGState
+from .diagcg import CGState
+from .diagnostics import Diagnostics
 
-__all__ = ["DGDiagnostics", "DGSolver", "DGState"]
+__all__ = ["ALECGSolver", "CGState", "DGDiagnostics", "DGSolver", "DGState",
+           "Diagnostics", "make_alecg"]

@@ -40,12 +40,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: layout of the packed constant table (csrc/common.cuh TAB_*)
 TAB_BSELF, TAB_BVOL, TAB_WDB, TAB_WFACE, TAB_SIZE = 0, 48, 68, 128, 131
 #: DG(P1) compressible Euler, the shapes of K1-K3: components, modes,
-#: face points.  K4-K6 take their row counts as arguments.
+#: face points.  K4-K6 and the transport flavours of K7-K8 take their row
+#: counts as arguments; K9 takes up to MAX_ROWS.
 C, K, G = 5, 4, 3
+MAX_ROWS = 8   # csrc/cg_assemble.cu MAXR
 
 #: kernel launches since the last reset_launches()
 launches = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0,
-            "nbr_bounds": 0, "face_gather": 0, "face_accum": 0}
+            "nbr_bounds": 0, "face_gather": 0, "face_accum": 0,
+            "alecg_vol": 0, "alecg_vol_cf": 0, "alecg_edge": 0,
+            "alecg_edge_cf": 0, "cg_assemble": 0}
 
 _lib = None
 
@@ -161,6 +165,21 @@ def build() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"qtk_face_accum_{sfx}")
         fn.argtypes = [P] * 6 + [I, L, L, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_alecg_vol_{sfx}")
+        fn.argtypes = [P] * 6 + [I, L, L, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_alecg_vol_cf_{sfx}")
+        fn.argtypes = [P] * 4 + [D, D, P, L, L, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_alecg_edge_{sfx}")
+        fn.argtypes = [P] * 4 + [I, L, L, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_alecg_edge_cf_{sfx}")
+        fn.argtypes = [P] * 3 + [D, D, P, L, L, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_cg_assemble_{sfx}")
+        fn.argtypes = [P] * 5 + [I, I, I, L, L, L, P]
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -333,4 +352,105 @@ def face_accum(cL, cR, fose, fsideR, base=None):
             [_ptr(cL), _ptr(cR), _ptr(fose), _ptr(fsideR),
              ctypes.c_void_p(0 if base is None else base.data_ptr()), _ptr(r),
              R, E, F], dev)
+    return r
+
+
+def alecg_vol(u, inpoelT, grad, w, vel):
+    """K7 transport (csrc/alecg_vol.cu): cv (R, E), the element term
+    -w * sum_b sum_j grad_bj * (vel_bj * u_b) of the R rows of u (R, N),
+    with the static corner velocities vel (4, R, 3, E)."""
+    dev = _cuda_device(u)
+    dt = u.dtype
+    R, N = u.shape
+    E = inpoelT.shape[1]
+    _check("u", u, (R, N), dt, dev)
+    _check("inpoelT", inpoelT, (4, E), torch.int32, dev)
+    _check("grad", grad, (4, 3, E), dt, dev)
+    _check("w", w, (E,), dt, dev)
+    _check("vel", vel, (4, R, 3, E), dt, dev)
+    fn = getattr(build(), f"qtk_alecg_vol_{_suffix(dt)}")
+    cv = torch.empty((R, E), dtype=dt, device=dev)
+    _launch("alecg_vol", fn,
+            [_ptr(u), _ptr(inpoelT), _ptr(grad), _ptr(w), _ptr(vel),
+             _ptr(cv), R, N, E], dev)
+    return cv
+
+
+def alecg_vol_cf(u, inpoelT, grad, w, eos):
+    """K7 compflow (csrc/alecg_vol.cu): cv (5, E), the element term with
+    the Euler flux of each corner's conservative state u (5, N)."""
+    dev = _cuda_device(u)
+    dt = u.dtype
+    N = u.shape[1]
+    E = inpoelT.shape[1]
+    _check("u", u, (C, N), dt, dev)
+    _check("inpoelT", inpoelT, (4, E), torch.int32, dev)
+    _check("grad", grad, (4, 3, E), dt, dev)
+    _check("w", w, (E,), dt, dev)
+    fn = getattr(build(), f"qtk_alecg_vol_cf_{_suffix(dt)}")
+    cv = torch.empty((C, E), dtype=dt, device=dev)
+    _launch("alecg_vol_cf", fn,
+            [_ptr(u), _ptr(inpoelT), _ptr(grad), _ptr(w), float(eos.gamma),
+             float(eos.pstiff), _ptr(cv), N, E], dev)
+    return cv
+
+
+def alecg_edge(u, edges, w):
+    """K8 transport (csrc/alecg_edge.cu): d (R, nE) = w * (u_b - u_a) over
+    the edges (2, nE) with the static weight w = A*lambda (nE,)."""
+    dev = _cuda_device(u)
+    dt = u.dtype
+    R, N = u.shape
+    nE = edges.shape[1]
+    _check("u", u, (R, N), dt, dev)
+    _check("edges", edges, (2, nE), torch.int32, dev)
+    _check("w", w, (nE,), dt, dev)
+    fn = getattr(build(), f"qtk_alecg_edge_{_suffix(dt)}")
+    d = torch.empty((R, nE), dtype=dt, device=dev)
+    _launch("alecg_edge", fn,
+            [_ptr(u), _ptr(edges), _ptr(w), _ptr(d), R, N, nE], dev)
+    return d
+
+
+def alecg_edge_cf(u, edges, A, eos):
+    """K8 compflow (csrc/alecg_edge.cu): d (5, nE) = A * max(cs_a, cs_b)
+    * (u_b - u_a), cs = |v| + sound speed with p clamped to >= 0."""
+    dev = _cuda_device(u)
+    dt = u.dtype
+    N = u.shape[1]
+    nE = edges.shape[1]
+    _check("u", u, (C, N), dt, dev)
+    _check("edges", edges, (2, nE), torch.int32, dev)
+    _check("A", A, (nE,), dt, dev)
+    fn = getattr(build(), f"qtk_alecg_edge_cf_{_suffix(dt)}")
+    d = torch.empty((C, nE), dtype=dt, device=dev)
+    _launch("alecg_edge_cf", fn,
+            [_ptr(u), _ptr(edges), _ptr(A), float(eos.gamma),
+             float(eos.pstiff), _ptr(d), N, nE], dev)
+    return d
+
+
+def cg_assemble(cv, d, nsup, ensup):
+    """K9 (csrc/cg_assemble.cu): r (R, N), each node's element slots of
+    cv (R, E) through nsup (Dv, N) plus its edge slots of +-d (R, nE)
+    through ensup (Dd, N), each summed level by level from level 0."""
+    dev = _cuda_device(cv)
+    dt = cv.dtype
+    R, E = cv.shape
+    nE = d.shape[1]
+    Dv, N = nsup.shape
+    Dd = ensup.shape[0]
+    if not 1 <= R <= MAX_ROWS:
+        raise ValueError(f"cg_assemble takes 1 to {MAX_ROWS} rows, not {R}")
+    if Dv < 1 or Dd < 1:
+        raise ValueError("cg_assemble needs at least one slot level")
+    _check("cv", cv, (R, E), dt, dev)
+    _check("d", d, (R, nE), dt, dev)
+    _check("nsup", nsup, (Dv, N), torch.int32, dev)
+    _check("ensup", ensup, (Dd, N), torch.int32, dev)
+    fn = getattr(build(), f"qtk_cg_assemble_{_suffix(dt)}")
+    r = torch.empty((R, N), dtype=dt, device=dev)
+    _launch("cg_assemble", fn,
+            [_ptr(cv), _ptr(d), _ptr(nsup), _ptr(ensup), _ptr(r), R, Dv, Dd,
+             N, E, nE], dev)
     return r

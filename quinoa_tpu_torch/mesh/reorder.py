@@ -1,6 +1,6 @@
-"""Hilbert element reordering, jax-free.
+"""Hilbert element and first-touch node reordering, jax-free.
 
-Port of quinoa_tpu/mesh/reorder.py:32-96.  That module cannot be imported
+Port of quinoa_tpu/mesh/reorder.py:32-132.  That module cannot be imported
 here: it imports quinoa_tpu.parallel.partition, whose package imports jax.
 The Hilbert order keeps face neighbours close in element rank (the
 reference's Sorter/Reorder locality pass), which on the card keeps the
@@ -74,3 +74,33 @@ def hilbert_element_reorder(mesh: UnsMesh) -> Tuple[UnsMesh, np.ndarray]:
     out.bface = dict(mesh.bface)
     out.bnode = mesh.bnode
     return out, eorder
+
+
+def first_touch_node_reorder(mesh: UnsMesh) -> Tuple[UnsMesh, np.ndarray]:
+    """Renumber NODES by first appearance in element order (elements
+    untouched); port of quinoa_tpu/mesh/reorder.py:99-132.
+
+    With Hilbert-ordered elements each element's node ids sit near a
+    sliding frontier, so the node gathers and slot sums of the CG kernels
+    read nearby addresses (the reference's Sorter start-vector node
+    order).  Returns (new mesh, nperm) with nperm old->new: nodal fields
+    map as u_new[:, nperm] = u_old.
+    """
+    flat = mesh.inpoel.reshape(-1)
+    first = np.full(mesh.nnode, -1, np.int64)
+    # each node's first flat index, ranked: the sequential first-touch
+    # scan without a Python loop
+    uniq, fidx = np.unique(flat, return_index=True)
+    order = np.argsort(fidx, kind="stable")
+    first[uniq[order]] = np.arange(len(uniq))
+    # isolated nodes (no element) keep their order at the end
+    rest = np.nonzero(first < 0)[0]
+    first[rest] = len(uniq) + np.arange(len(rest))
+    nperm = first
+    coords = np.empty_like(mesh.coords)
+    coords[nperm] = mesh.coords
+    out = UnsMesh(coords=coords, inpoel=nperm[mesh.inpoel])
+    # bface triangles and bnode sets carry NODE ids: renumber both
+    out.bface = {k: nperm[np.asarray(v)] for k, v in mesh.bface.items()}
+    out.bnode = {k: nperm[np.asarray(v)] for k, v in mesh.bnode.items()}
+    return out, nperm

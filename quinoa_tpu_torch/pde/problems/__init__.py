@@ -1,6 +1,6 @@
 """Problem policies: initial and analytic solutions."""
 
-from .compflow import SedovBlastwave
-from .transport import GaussHump
+from .compflow import SedovBlastwave, VorticalFlow
+from .transport import GaussHump, SlotCyl
 
-__all__ = ["GaussHump", "SedovBlastwave"]
+__all__ = ["GaussHump", "SedovBlastwave", "SlotCyl", "VorticalFlow"]

@@ -36,6 +36,10 @@ pytestmark = pytest.mark.cuda
 #: kernel and plain version share operation order and build without
 #: fused multiply-adds: they agree to a few ulp of the largest entry
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+#: every kernel's launch count at zero
+ZERO = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0, "nbr_bounds": 0,
+        "face_gather": 0, "face_accum": 0, "alecg_vol": 0, "alecg_vol_cf": 0,
+        "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0}
 
 
 @pytest.fixture(scope="module")
@@ -80,9 +84,8 @@ def test_kernels_match_plain_versions(card, dtype):
            face_to_elem_plain(g, *face_flux_plain(system, g, ulim), rv),
            dtype)
     torch.cuda.synchronize()
-    assert kernels.launches == {"limit_vol": 1, "face_flux": 1,
-                                "face_to_elem": 1, "nbr_bounds": 0,
-                                "face_gather": 0, "face_accum": 0}
+    assert kernels.launches == {**ZERO, "limit_vol": 1, "face_flux": 1,
+                                "face_to_elem": 1}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -106,9 +109,8 @@ def test_face_gp_kernels_match_plain_versions(card, dtype):
         assert torch.equal(accumulate_faces(g, cL, cR, b),
                            accumulate_faces_plain(g, cL, cR, b))
     torch.cuda.synchronize()
-    assert kernels.launches == {"limit_vol": 0, "face_flux": 0,
-                                "face_to_elem": 0, "nbr_bounds": 1,
-                                "face_gather": 2, "face_accum": 2}
+    assert kernels.launches == {**ZERO, "nbr_bounds": 1, "face_gather": 2,
+                                "face_accum": 2}
 
 
 def test_face_kernel_pad_faces(card):
@@ -173,3 +175,74 @@ def test_new_paths_on_card_match_cpu(card, case):
             "gausshump": ("face_gather", "face_accum"),
             "gausshump_pdg": ("face_gather", "face_accum")}[case]
     assert {k for k, v in kernels.launches.items() if v} == set(path)
+
+
+def _alecg(case, device, dtype=torch.float64):
+    """The ALECG solvers of chip_smoke.py's card-vs-CPU checks."""
+    from quinoa_tpu_torch.inciter.alecg import make_alecg
+    from quinoa_tpu_torch.mesh import first_touch_node_reorder
+    from quinoa_tpu_torch.pde.cg import CGTransport
+    from quinoa_tpu_torch.pde.cg_compflow import CGCompFlow
+    from quinoa_tpu_torch.pde.problems import SlotCyl, VorticalFlow
+
+    if case == "slotcyl":
+        mesh = box_tet_mesh(10, 10, 5, hi=(1.0, 1.0, 0.5))
+        system, cfl = CGTransport(SlotCyl()), 0.8
+    else:
+        mesh = box_tet_mesh(8, 8, 8, lo=(-0.5, -0.5, -0.5),
+                            hi=(0.5, 0.5, 0.5))
+        system, cfl = CGCompFlow(VorticalFlow()), 0.6
+    mesh, _ = first_touch_node_reorder(hilbert_element_reorder(mesh)[0])
+    return make_alecg(system, mesh, cfl=cfl, bcnodes=mesh.all_bnodes(),
+                      dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["slotcyl", "vortical"])
+def test_alecg_kernels_match_plain_versions(card, case, dtype):
+    """K7, K8 and K9 of each flavour against their plain versions on a
+    perturbed state: bit for bit (the same expressions in the same order,
+    sums in slot-level order)."""
+    from quinoa_tpu_torch.ops.alecg_fused import (alecg_edge,
+                                                  alecg_edge_plain,
+                                                  alecg_rhs, alecg_vol,
+                                                  alecg_vol_plain,
+                                                  cg_assemble,
+                                                  cg_assemble_plain)
+
+    s = _alecg(case, card, dtype)
+    g, e, rows, sy = s.geom, s.edget, s.rows, s.system
+    gen = torch.Generator(device=card).manual_seed(11)
+    u = s.initial_state().u
+    u = (u * (1.0 + 0.01 * torch.rand(u.shape, generator=gen, device=card,
+                                       dtype=dtype))).contiguous()
+    kernels.reset_launches()
+    cv = alecg_vol(sy, g, rows, u)
+    assert torch.equal(cv, alecg_vol_plain(sy, g, rows, u))
+    d = alecg_edge(sy, e, rows, u)
+    assert torch.equal(d, alecg_edge_plain(sy, e, rows, u))
+    r = cg_assemble(cv, d, g.nsup, e.ensup)
+    assert torch.equal(r, cg_assemble_plain(cv, d, g.nsup, e.ensup))
+    assert torch.equal(alecg_rhs(sy, g, e, rows, u), r)
+    torch.cuda.synchronize()
+    sfx = "" if case == "slotcyl" else "_cf"
+    assert kernels.launches == {**ZERO, "alecg_vol" + sfx: 2,
+                                "alecg_edge" + sfx: 2, "cg_assemble": 2}
+
+
+@pytest.mark.parametrize("case", ["slotcyl", "vortical"])
+def test_alecg_on_card_matches_cpu(card, case):
+    """Two float64 ALECG steps on the card against the CPU with every
+    boundary node pinned: u atol 1e-11, dt rtol 1e-12, 3 launches of each
+    of the flavour's kernels a step and no other kernel."""
+    a, b = _alecg(case, card), _alecg(case, "cpu")
+    kernels.reset_launches()
+    sa = a.nsteps(a.initial_state(), 2)
+    sb = b.nsteps(b.initial_state(), 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(sa.u).all())
+    assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11
+    assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
+    sfx = "" if case == "slotcyl" else "_cf"
+    assert kernels.launches == {**ZERO, "alecg_vol" + sfx: 6,
+                                "alecg_edge" + sfx: 6, "cg_assemble": 6}
