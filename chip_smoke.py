@@ -2,8 +2,9 @@
 """Smoke test of quinoa_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
 Drives the port's three DG(P1) paths and its two ALECG paths at 48^3
-(663,552 tets; 117,649 nodes and 795,024 edges) in float32 through their
-hand-written CUDA kernels:
+(663,552 tets; 117,649 nodes and 795,024 edges) and its two DiagCG + FCT
+paths (SlotCyl at 64^3: 1,572,864 tets and 274,625 nodes; VorticalFlow at
+48^3) in float32 through their hand-written CUDA kernels:
 
 1. card    the name and power limit from nvidia-smi;
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -14,10 +15,16 @@ hand-written CUDA kernels:
            with a CUDA-event time for kernel and plain version at 48^3;
            K7-K9 (both flavours of K7 and K8) on the SlotCyl and
            VorticalFlow initial states, alone and as the stage rhs;
-           then six small float64 solvers on the card against the same
-           solvers on the CPU (Sedov P1, Sedov pdg, GaussHump, GaussHump
-           pdg, ALECG SlotCyl, ALECG VorticalFlow: 2 steps, u atol 1e-11,
-           dt rtol 1e-12, ndofel equal where the state has one);
+           K10 (1 and 5 rows) and K11 (sum rows, max rows, both at once,
+           a NaN in a max row) on the DiagCG meshes; each timed kernel
+           also gets its bound (bytes of its inputs read once and outputs
+           written once over 3.35 TB/s, or its operations over 67 TFLOP/s,
+           whichever is larger) and, where one PyTorch call computes the
+           same function, that call's time; then eight small float64
+           solvers on the card against the same solvers on the CPU (Sedov
+           P1, Sedov pdg, GaussHump, GaussHump pdg, ALECG and DiagCG
+           SlotCyl and VorticalFlow: 2 steps, u atol 1e-11, dt rtol 1e-12,
+           ndofel equal where the state has one);
 4. p1      the Sedov DG(P1) HLLC + Superbee step (bench.py) from its
            initial_state(): 1 warm-up and 10 timed steps through K1, K2
            and K3, 33 launches each; then the same 11 steps from the
@@ -36,7 +43,15 @@ hand-written CUDA kernels:
            a step; finite, L2(sol) and L2(err) against the JAX package's
            CPU result (JAX_L2);
 8. alecg_cf ALECG VorticalFlow Euler (bench_alecg.py --compflow): the same
-           through K7 alecg_vol_cf, K8 alecg_edge_cf and K9.
+           through K7 alecg_vol_cf, K8 alecg_edge_cf and K9;
+9. diagcg  DiagCG + FCT SlotCyl transport at 64^3 (bench_cg.py): 1 + 10
+           steps through K10 node_gather and K11 node_assemble, 3 launches
+           each a step; finite, L2(sol) and L2(err) against the JAX
+           package's CPU result (JAX_L2), min and max within BOUNDS_ULPS
+           float32 ulps of the initial bounds; then 5 steps under
+           torch.profiler (wall, device busy and idle, launches a step);
+10. diagcg_cf DiagCG + FCT VorticalFlow Euler at 48^3: the same, without
+           the bounds check.
 
 Every path sets the launch counts to 0 just before it and reads them just
 after; a kernel of the path that did not launch as stated, or one that
@@ -68,6 +83,16 @@ ALECG = {"alecg": ("slotcyl", (0.0, 0.0, 0.0), (1.0, 1.0, 1.0), 0.8),
 ALECG_SMALL = {"alecg": ((10, 10, 5), (0.0, 0.0, 0.0), (1.0, 1.0, 0.5), 0.8),
                "alecg_cf": ((8, 8, 8), (-0.5, -0.5, -0.5), (0.5, 0.5, 0.5),
                             0.6)}
+#: DiagCG + FCT legs: (problem, n, box lo, box hi, cfl); SlotCyl is
+#: bench_cg.py at its default n = 64, VorticalFlow the configuration of
+#: tests/test_cg_compflow.py at 48^3; the small float64 card-vs-CPU meshes
+#: are tests/test_diagcg_transport.py's and tests/test_cg_compflow.py's
+DIAGCG = {"diagcg": ("slotcyl", 64, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0), 0.8),
+          "diagcg_cf": ("vortical", 48, (-0.5, -0.5, -0.5), (0.5, 0.5, 0.5),
+                        0.5)}
+DIAGCG_SMALL = {"diagcg": ((16, 16, 4), (0.0, 0.0, 0.0), (1.0, 1.0, 0.25)),
+                "diagcg_cf": ((6, 6, 6), (-0.5, -0.5, -0.5),
+                              (0.5, 0.5, 0.5))}
 #: L2(sol) and L2(err) per component after 11 float32 steps at 48^3 from
 #: initial_state(), from the JAX package on the CPU (its XLA path, x64
 #: off): quinoa_tpu.inciter.alecg.make_alecg on the bench_alecg.py mesh
@@ -81,6 +106,16 @@ JAX_L2 = {
                  "l2err": [2.023221554736665e-07, 1.567408980918117e-05,
                            1.8303720935364254e-05, 2.188024609495187e-06,
                            0.00020845529797952622]},
+    # quinoa_tpu.inciter.DiagCGSolver on the DIAGCG meshes (Hilbert
+    # element and first-touch node order, all boundary nodes pinned,
+    # make_cggeom in float32), 11 step() calls, then Diagnostics
+    "diagcg": {"l2sol": [0.1609799712896347],
+               "l2err": [0.035855941474437714]},
+    "diagcg_cf": {"l2sol": [1.0, 0.2902284264564514, 0.29025334119796753,
+                            0.05776010453701019, 15.083502769470215],
+                  "l2err": [1.0135789096921144e-08, 1.8698386838877923e-07,
+                            1.898314252457567e-07, 2.1582089004823501e-07,
+                            8.071630190897849e-07]},
 }
 JAX_L2_RTOL = 1e-4
 # VorticalFlow is steady, so its L2(err) after 11 steps is float32
@@ -88,6 +123,15 @@ JAX_L2_RTOL = 1e-4
 # evaluations of the manufactured source differ by 9.5e-7.  L2(err) is
 # held to rtol 1e-4 plus this many float32 ulps of the L2(sol) norm.
 L2ERR_ULPS = 8
+# FCT bounds SlotCyl to its initial [0, 0.6] only up to float32 round-off:
+# the JAX package's own float32 run above leaves them by -2.644e-6 (44
+# ulps of 0.6) and +1.55e-6 (26 ulps) within 11 steps.  The diagcg gate
+# allows this many float32 ulps of the initial maximum on either side.
+BOUNDS_ULPS = 64
+#: the card's published peaks (H100 SXM at 700 W): device-memory bytes
+#: per second, float32 operations per second outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 # |kernel - plain| <= TOL * max|plain| per output.  Kernel and plain
 # version evaluate the same expressions in the same order without fused
 # multiply-adds, so they differ only by torch's own reduction order;
@@ -120,6 +164,10 @@ KERNELS = {
                       "quinoa_tpu/ops/alecg_fused.py:214"),
     "cg_assemble": ("quinoa_tpu_torch/csrc/cg_assemble.cu",
                     "quinoa_tpu/ops/window_kernels.py:148"),
+    "node_gather": ("quinoa_tpu_torch/csrc/node_gather.cu",
+                    "quinoa_tpu/ops/node_window.py:261"),
+    "node_assemble": ("quinoa_tpu_torch/csrc/node_assemble.cu",
+                      "quinoa_tpu/ops/node_window.py:347"),
 }
 #: launches per step of each path; every other kernel must launch 0 times
 PATHS = {
@@ -128,13 +176,24 @@ PATHS = {
     "hump": {"face_gather": 8, "face_accum": 3},
     "alecg": {"alecg_vol": 3, "alecg_edge": 3, "cg_assemble": 3},
     "alecg_cf": {"alecg_vol_cf": 3, "alecg_edge_cf": 3, "cg_assemble": 3},
+    "diagcg": {"node_gather": 3, "node_assemble": 3},
+    "diagcg_cf": {"node_gather": 3, "node_assemble": 3},
 }
 #: the path whose launches the kernels line reports for each kernel
 MAIN_PATH = {"limit_vol": "p1", "face_flux": "p1", "face_to_elem": "p1",
              "nbr_bounds": "pdg", "face_gather": "hump",
              "face_accum": "hump", "alecg_vol": "alecg",
              "alecg_edge": "alecg", "cg_assemble": "alecg",
-             "alecg_vol_cf": "alecg_cf", "alecg_edge_cf": "alecg_cf"}
+             "alecg_vol_cf": "alecg_cf", "alecg_edge_cf": "alecg_cf",
+             "node_gather": "diagcg", "node_assemble": "diagcg"}
+#: floating-point operations a kernel does per entity (element, face,
+#: edge or node; per row where it says so), counted from its source and
+#: rounded up.  Every kernel here is bound by bytes by a wide margin.
+OPS = {"limit_vol": 2000, "face_flux": 1000, "face_to_elem": 100,
+       "nbr_bounds": 40, "face_gather": 0, "face_accum_row": 4,
+       "alecg_vol_row": 40, "alecg_vol_cf": 400, "alecg_edge_row": 3,
+       "alecg_edge_cf": 70, "cg_assemble_slot": 1, "node_gather": 0,
+       "node_assemble_slot": 1}
 
 
 def tpu_precision_initial_u(solver, torch):
@@ -235,6 +294,43 @@ def compare(name, got, want, dtype_name):
     return worst
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def measure(torch, name, label, kf, pf, inputs, ops, dtype_name, timed,
+            library=None):
+    """kf() (the kernel) against pf() (its plain version) on the same
+    inputs; when timed, the CUDA-event times of both and of library() (one
+    PyTorch call computing the same function, or None), and the bound:
+    the larger of the bytes of the inputs (each read once) and outputs
+    (each written once) over HBM_BYTES_PER_S and ops over F32_OPS_PER_S.
+    Returns {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}."""
+    got, want = kf(), pf()
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    rec = {"max_abs_err": compare(name, got, want, dtype_name), "ms": None,
+           "plain_ms": None, "bound_ms": None, "bound_by": None,
+           "library_ms": None}
+    msg = (f"{name} {dtype_name} {label}: max|kernel-plain|="
+           f"{rec['max_abs_err']:.3e} (tol {TOL[dtype_name]:g} * max|plain|)")
+    if timed:
+        b = nbytes(*inputs, *got)
+        t_bytes, t_ops = 1e3 * b / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+        rec.update(ms=cuda_ms(torch, kf), plain_ms=cuda_ms(torch, pf),
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=None if library is None
+                   else cuda_ms(torch, library))
+        lib = ("" if library is None
+               else f", one torch call {rec['library_ms']:.4f} ms")
+        msg += (f" kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+                f"ms{lib}; bound {rec['bound_ms']:.4f} ms ({b} bytes, "
+                f"{ops:.4g} ops: {rec['bound_by']})")
+    phase("kernels", msg)
+    return rec
+
+
 def kernel_checks(torch, geom, system, U, dtype_name, timed):
     """Each kernel against its plain version on the same inputs; returns
     {name: (max_abs_err, ms, plain_ms)} (times only when timed)."""
@@ -245,10 +341,11 @@ def kernel_checks(torch, geom, system, U, dtype_name, timed):
     from quinoa_tpu_torch.ops.nbr_bounds import limit_vol_plain
 
     g = geom
+    vole = g.vol * g.emask
 
     def k1():
-        return kernels.limit_vol(U, g.esuelT, g.jacInv, g.vol * g.emask,
-                                 g.ktab, 2.0, system.eos)
+        return kernels.limit_vol(U, g.esuelT, g.jacInv, vole, g.ktab, 2.0,
+                                 system.eos)
 
     def p1():
         return limit_vol_plain(system, g, U)
@@ -271,18 +368,19 @@ def kernel_checks(torch, geom, system, U, dtype_name, timed):
     def p3():
         return face_to_elem_plain(g, cL, cR, mx, rv)
 
-    out = {}
-    for name, kf, pf in (("limit_vol", k1, p1), ("face_flux", k2, p2),
-                         ("face_to_elem", k3, p3)):
-        err = compare(name, kf(), pf(), dtype_name)
-        ms = cuda_ms(torch, kf) if timed else None
-        plain_ms = cuda_ms(torch, pf) if timed else None
-        out[name] = (err, ms, plain_ms)
-        phase("kernels", f"{name} {dtype_name} E={g.nelem} F={g.nface}: "
-              f"max|kernel-plain|={err:.3e} (tol {TOL[dtype_name]:g} * "
-              "max|plain|)"
-              + (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                 if timed else ""))
+    E, F = g.nelem, g.nface
+    cases = (
+        ("limit_vol", k1, p1, (U, g.esuelT, g.jacInv, vole, g.ktab),
+         OPS["limit_vol"] * E),
+        ("face_flux", k2, p2, (ulim, g.el, g.er, g.fn, g.farea, g.fmask,
+                               g.xi_l, g.xi_r, g.bctype, g.ktab),
+         OPS["face_flux"] * F),
+        ("face_to_elem", k3, p3, (cL, cR, mx, g.fose, g.fsideR, rv),
+         OPS["face_to_elem"] * E),
+    )
+    out = {name: measure(torch, name, f"E={E} F={F}", kf, pf, inputs, ops,
+                         dtype_name, timed)
+           for name, kf, pf, inputs, ops in cases}
     # K2 + K3 together, as the step calls them
     got = fused_face_pass(system, g, ulim, vol_rhs=rv)
     want = face_to_elem_plain(g, *face_flux_plain(system, g, ulim), rv)
@@ -307,29 +405,30 @@ def face_gp_kernel_checks(torch, geom, U, hump, Uh, dtype_name, timed):
                          dtype=Uh.dtype)
     base = torch.randn((R, hump.nelem), generator=gen, device=Uh.device,
                        dtype=Uh.dtype)
+    # one-call yardsticks: index_select for the gather; index_add_ of every
+    # face's left row to el and every interior face's right row to er
+    el, er = hump.el.long(), hump.er.long()
+    inner = el != er
+    acc = base.clone()
+    src = torch.cat([cL, cR[:, inner]], dim=1)
+    idx = torch.cat([el, er[inner]])
+    E, F = hump.nelem, hump.nface
     cases = (
         ("nbr_bounds", lambda: kernels.nbr_bounds(U, geom.esuelT, 5, 4),
-         lambda: neighbor_mean_bounds_plain(geom, U[::4])),
+         lambda: neighbor_mean_bounds_plain(geom, U[::4]),
+         (U[::4], geom.esuelT), OPS["nbr_bounds"] * geom.nelem, None),
         ("face_gather", lambda: kernels.face_gather(Uh, hump.el),
-         lambda: face_gather_plain(Uh, hump.el)),
+         lambda: face_gather_plain(Uh, hump.el), (Uh, hump.el), 0,
+         lambda: torch.index_select(Uh, 1, hump.el)),
         ("face_accum",
          lambda: kernels.face_accum(cL, cR, hump.fose, hump.fsideR, base),
-         lambda: accumulate_faces_plain(hump, cL, cR, base)),
+         lambda: accumulate_faces_plain(hump, cL, cR, base),
+         (cL, cR, hump.fose, hump.fsideR, base),
+         OPS["face_accum_row"] * R * E, lambda: acc.index_add_(1, idx, src)),
     )
-    out = {}
-    for name, kf, pf in cases:
-        got, want = kf(), pf()
-        if not isinstance(got, tuple):
-            got, want = (got,), (want,)
-        err = compare(name, got, want, dtype_name)
-        ms = cuda_ms(torch, kf) if timed else None
-        plain_ms = cuda_ms(torch, pf) if timed else None
-        out[name] = (err, ms, plain_ms)
-        phase("kernels", f"{name} {dtype_name} E={hump.nelem} "
-              f"F={hump.nface} rows={R}: max|kernel-plain|={err:.3e} "
-              f"(tol {TOL[dtype_name]:g} * max|plain|)"
-              + (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                 if timed else ""))
+    out = {name: measure(torch, name, f"E={E} F={F} rows={R}", kf, pf,
+                         inputs, ops, dtype_name, timed, library)
+           for name, kf, pf, inputs, ops, library in cases}
     err = compare("face_gather er", (kernels.face_gather(Uh, hump.er),),
                   (face_gather_plain(Uh, hump.er),), dtype_name)
     phase("kernels", f"face_gather er {dtype_name}: max|kernel-plain|="
@@ -375,29 +474,135 @@ def alecg_kernel_checks(torch, solver, dtype_name, timed):
     cv = alecg_vol_plain(sy, g, rows, u)
     d = alecg_edge_plain(sy, e, rows, u)
     sfx = "" if sy.flavour == "transport" else "_cf"
+    R, N, E, nE = u.shape[0], g.nnode, g.nelem, e.edges.shape[1]
+    if sfx:
+        vol_in, vol_ops = (u, g.inpoelT, g.grad, rows.w), OPS["alecg_vol_cf"]
+        edge_in, edge_ops = (u, e.edges, rows.ew), OPS["alecg_edge_cf"]
+    else:
+        vol_in = (u, g.inpoelT, g.grad, rows.w, rows.vel)
+        vol_ops = OPS["alecg_vol_row"] * R
+        edge_in, edge_ops = (u, e.edges, rows.ew), OPS["alecg_edge_row"] * R
+    # one-call yardstick of K9: index_add_ of cv at its four corners and
+    # of +d/-d at the edge endpoints
+    acc = torch.zeros((R, N), dtype=u.dtype, device=u.device)
+    src = torch.cat([cv.repeat(1, 4), d, -d], dim=1)
+    idx = torch.cat([g.inpoelT.reshape(-1), e.edges.reshape(-1)]).long()
+    slots = int(g.nsup.shape[0] + e.ensup.shape[0]) * N
     cases = (
         ("alecg_vol" + sfx, lambda: alecg_vol(sy, g, rows, u),
-         lambda: alecg_vol_plain(sy, g, rows, u)),
+         lambda: alecg_vol_plain(sy, g, rows, u), vol_in, vol_ops * E, None),
         ("alecg_edge" + sfx, lambda: alecg_edge(sy, e, rows, u),
-         lambda: alecg_edge_plain(sy, e, rows, u)),
+         lambda: alecg_edge_plain(sy, e, rows, u), edge_in, edge_ops * nE,
+         None),
         ("cg_assemble", lambda: cg_assemble(cv, d, g.nsup, e.ensup),
-         lambda: cg_assemble_plain(cv, d, g.nsup, e.ensup)),
+         lambda: cg_assemble_plain(cv, d, g.nsup, e.ensup),
+         (cv, d, g.nsup, e.ensup), OPS["cg_assemble_slot"] * R * slots,
+         lambda: acc.index_add_(1, idx, src)),
     )
-    out = {}
-    for name, kf, pf in cases:
-        err = compare(name, (kf(),), (pf(),), dtype_name)
-        ms = cuda_ms(torch, kf) if timed else None
-        plain_ms = cuda_ms(torch, pf) if timed else None
-        out[name] = (err, ms, plain_ms)
-        phase("kernels", f"{name} {dtype_name} N={g.nnode} E={g.nelem} "
-              f"nE={e.edges.shape[1]} rows={u.shape[0]}: max|kernel-plain|="
-              f"{err:.3e} (tol {TOL[dtype_name]:g} * max|plain|)"
-              + (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                 if timed else ""))
+    out = {name: measure(torch, name, f"N={N} E={E} nE={nE} rows={R}", kf,
+                         pf, inputs, ops, dtype_name, timed, library)
+           for name, kf, pf, inputs, ops, library in cases}
     err = compare("stage rhs K7+K8+K9", (alecg_rhs(sy, g, e, rows, u),),
                   (cg_assemble_plain(cv, d, g.nsup, e.ensup),), dtype_name)
     phase("kernels", f"K7+K8+K9{sfx} {dtype_name}: max|kernel-plain|="
           f"{err:.3e} (tol {TOL[dtype_name]:g} * max|plain|)")
+    return out
+
+
+def diagcg_solver(name, dtype, device, small=False):
+    """The DiagCG + FCT solver of one DIAGCG leg (DIAGCG_SMALL when small)
+    on a box in Hilbert element and first-touch node order, every boundary
+    node pinned."""
+    from quinoa_tpu_torch.inciter import DiagCGSolver
+    from quinoa_tpu_torch.mesh import (box_tet_mesh, first_touch_node_reorder,
+                                       hilbert_element_reorder)
+    from quinoa_tpu_torch.pde.cg import CGTransport, make_cggeom
+    from quinoa_tpu_torch.pde.cg_compflow import CGCompFlow
+    from quinoa_tpu_torch.pde.problems import SlotCyl, VorticalFlow
+
+    problem, n, lo, hi, cfl = DIAGCG[name]
+    n = (n,) * 3
+    if small:
+        n, lo, hi = DIAGCG_SMALL[name]
+    system = (CGTransport(SlotCyl()) if problem == "slotcyl"
+              else CGCompFlow(VorticalFlow()))
+    mesh, _ = hilbert_element_reorder(box_tet_mesh(*n, lo=lo, hi=hi))
+    mesh, _ = first_touch_node_reorder(mesh)
+    return DiagCGSolver(system, make_cggeom(mesh, dtype=dtype, device=device),
+                        cfl=cfl, bcnodes=mesh.all_bnodes())
+
+
+def diagcg_kernel_checks(torch, solver, dtype_name, timed):
+    """K10 on the solver's initial state (and on 2C rows, as the limiter's
+    gather) and K11 as the step calls it: the rhs + diffusion sums (2C
+    rows), the P sums and Q maxima (2C + 2C rows, Q one row per element),
+    the limited A (C rows), and max rows alone; then a NaN in a max row.
+    Returns {name: record} of K10 at C rows and K11 at the rhs pass (times
+    only when timed); the other shapes are timed into the log."""
+    from quinoa_tpu_torch.ops.node_window import (node_assemble,
+                                                  node_assemble_plain,
+                                                  node_gather,
+                                                  node_gather_plain)
+
+    g = solver.geom
+    u = solver.initial_state().u
+    C, N, E, D = u.shape[0], g.nnode, g.nelem, g.nsup.shape[0]
+    gen = torch.Generator(device=u.device).manual_seed(17)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=u.device,
+                           dtype=u.dtype)
+
+    u2 = randn(2 * C, N)
+    xa2, xa1 = randn(4, 2 * C, E), randn(4, C, E)
+    xm = randn(1, 2 * C, E)
+    idx = g.inpoelT.reshape(-1).long()
+    low = torch.finfo(u.dtype).min
+
+    def add_call(x):
+        acc = torch.zeros((x.shape[1], N), dtype=x.dtype, device=x.device)
+        src = x.permute(1, 0, 2).reshape(x.shape[1], 4 * E)
+        return lambda: acc.index_add_(1, idx, src)
+
+    amax = torch.full((2 * C, N), low, dtype=u.dtype, device=u.device)
+    msrc = xm.expand(4, -1, -1).permute(1, 0, 2).reshape(2 * C, 4 * E)
+    midx = idx[None].expand(2 * C, -1).contiguous()
+    out = {}
+    for rows, U in ((C, u), (2 * C, u2)):
+        rec = measure(torch, "node_gather", f"N={N} E={E} rows={rows}",
+                      lambda U=U: node_gather(U, g.inpoelT),
+                      lambda U=U: node_gather_plain(U, g.inpoelT),
+                      (U, g.inpoelT), 0, dtype_name, timed,
+                      lambda U=U: torch.index_select(U, 1, idx))
+        out.setdefault("node_gather", rec)
+    slots = OPS["node_assemble_slot"] * D * N
+    for label, xa, m, lib in (
+            ("rhs+diffusion sums", xa2, None, add_call(xa2)),
+            ("P sums + Q maxima", xa2, xm, None),
+            ("limited A sums", xa1, None, add_call(xa1)),
+            ("Q maxima", None, xm,
+             lambda: amax.scatter_reduce_(1, midx, msrc, "amax"))):
+        rows = (0 if xa is None else xa.shape[1]) + (
+            0 if m is None else m.shape[1])
+        rec = measure(torch, "node_assemble",
+                      f"{label} N={N} E={E} D={D} rows={rows}",
+                      lambda xa=xa, m=m: node_assemble(xa, m, g.nsup),
+                      lambda xa=xa, m=m: node_assemble_plain(xa, m, g.nsup),
+                      [t for t in (xa, m, g.nsup) if t is not None],
+                      slots * rows, dtype_name, timed, lib)
+        out.setdefault("node_assemble", rec)
+    bad = xm.clone()
+    bad[0, 2 * C - 1, E // 3] = float("nan")
+    got = node_assemble(xa2, bad, g.nsup)
+    want = node_assemble_plain(xa2, bad, g.nsup)
+    nan = torch.isnan(got)
+    if not (bool(torch.equal(nan, torch.isnan(want)))
+            and int(nan[2 * C:].sum()) == 4 and int(nan[:2 * C].sum()) == 0):
+        raise AssertionError(f"node_assemble {dtype_name}: a NaN slot gives "
+                             f"{int(nan.sum())} NaN maxima, the plain version "
+                             f"{int(torch.isnan(want).sum())}")
+    phase("kernels", f"node_assemble {dtype_name}: a NaN element row "
+          "propagates to the maxima of its 4 nodes, as in the plain version")
     return out
 
 
@@ -446,8 +651,9 @@ def drive(torch, solver, name, card, state=None):
     if not bool(torch.isfinite(state.u).all()):
         raise AssertionError(f"{name}: non-finite state after "
                              f"{NSTEPS + 1} steps")
-    if name in ALECG:
-        unit, n = "node-updates/s", solver.geom.nnode    # bench_alecg.py:66
+    if name in ALECG or name in DIAGCG:
+        # bench_alecg.py:66, bench_cg.py:57
+        unit, n = "node-updates/s", solver.geom.nnode
     else:
         unit, n = "cell-updates/s", solver.geom.nelem
     phase(name, f"{n * NSTEPS / wall:.1f} {unit}, "
@@ -456,7 +662,7 @@ def drive(torch, solver, name, card, state=None):
     return state, counts, wall
 
 
-def alecg_gate(name, solver, state):
+def l2_gate(name, solver, state):
     """L2(sol) and L2(err) after 11 float32 steps against JAX_L2."""
     from quinoa_tpu_torch.inciter.diagnostics import Diagnostics
 
@@ -473,6 +679,70 @@ def alecg_gate(name, solver, state):
           f", L2(err) + {L2ERR_ULPS} f32 ulps of L2(sol))")
     if not ok:
         raise AssertionError(f"{name}: L2 gate failed")
+
+
+def bounds_gate(solver, state, u0):
+    """min and max of u within BOUNDS_ULPS float32 ulps of the initial
+    state's bounds (FCT monotonicity up to round-off)."""
+    lo, hi = float(u0.min()), float(u0.max())
+    slack = BOUNDS_ULPS * float(np.spacing(np.float32(max(abs(lo), abs(hi)))))
+    umin, umax = float(state.u.min()), float(state.u.max())
+    ok = lo - slack <= umin and umax <= hi + slack
+    phase("diagcg", f"after {int(state.it)} steps min {umin:.9e} max "
+          f"{umax:.9e}, initial [{lo:.9e}, {hi:.9e}] +- {slack:.3e} "
+          f"({BOUNDS_ULPS} f32 ulps): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("diagcg: FCT bounds gate failed")
+
+
+def profile_path(torch, solver, name, state, step_s, steps=5):
+    """steps steps under torch.profiler: wall ms/step (host clock around
+    work ending in a synchronize, profiler on), device busy ms/step (the
+    union of the device activity intervals), the idle share against that
+    wall and against step_s (the unprofiled seconds a step of drive()),
+    kernel launches a step (the runtime's launch calls) and the largest
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = solver.step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name, launches = [], {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            a, b = e.time_range.start, e.time_range.end
+            spans.append((a, b))
+            by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
+        elif "LaunchKernel" in e.name:
+            launches += 1
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    if not spans:
+        phase(name, "profiler: no device activity recorded; device busy "
+              "and idle not measured")
+        return state
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    busy_s = busy / 1e6 / steps
+    phase(name, f"profiler over {steps} steps: wall {1e3 * wall / steps:.4f}"
+          f" ms/step, device busy {1e3 * busy_s:.4f} ms/step, idle "
+          f"{100.0 * (1.0 - busy_s * steps / wall):.1f}% of the profiled "
+          f"step and {100.0 * (1.0 - busy_s / step_s):.1f}% of the "
+          f"unprofiled one ({1e3 * step_s:.4f} ms), {launches / steps:.1f}"
+          " launches/step; largest (ms/step): "
+          + ", ".join(f"{k[:40]} {v / 1e3 / steps:.4f}" for k, v in top))
+    return state
 
 
 def main():
@@ -551,6 +821,22 @@ def main():
         alecg_kernel_checks(torch, alecg_solver(name, ALECG_SMALL[name][0],
                                                 torch.float64, dev),
                             "float64", timed=False)
+    t0 = time.perf_counter()
+    diagcg = {name: diagcg_solver(name, torch.float32, dev)
+              for name in DIAGCG}
+    phase("kernels", "DiagCG solvers: " + "; ".join(
+        f"{name} N={s.geom.nnode} E={s.geom.nelem} nsup D="
+        f"{s.geom.nsup.shape[0]} Dirichlet nodes "
+        f"{int(s.bcmask[0].sum())}" for name, s in diagcg.items())
+        + f", {time.perf_counter() - t0:.1f} s on the host")
+    for name in DIAGCG:
+        # K10 and K11 report their times at the transport leg's shapes
+        for k, v in diagcg_kernel_checks(torch, diagcg[name], "float32",
+                                         timed=True).items():
+            stats.setdefault(k, v)
+        diagcg_kernel_checks(torch, diagcg_solver(name, torch.float64, dev,
+                                                  small=True),
+                             "float64", timed=False)
 
     geoms = {}
 
@@ -575,6 +861,9 @@ def main():
         card_vs_cpu(torch, name, lambda d, name=name: alecg_solver(
             name, ALECG_SMALL[name][0], torch.float64,
             dev if d == "card" else "cpu"))
+    for name in DIAGCG:
+        card_vs_cpu(torch, name, lambda d, name=name: diagcg_solver(
+            name, torch.float64, dev if d == "card" else "cpu", small=True))
 
     # 4. the Sedov P1 step
     counts = {}
@@ -619,13 +908,23 @@ def main():
     # 7-8. ALECG SlotCyl transport and VorticalFlow Euler
     for name in ALECG:
         state, counts[name], _ = drive(torch, alecg[name], name, card)
-        alecg_gate(name, alecg[name], state)
+        l2_gate(name, alecg[name], state)
+
+    # 9-10. DiagCG + FCT SlotCyl transport at 64^3, VorticalFlow at 48^3
+    for name, solver in diagcg.items():
+        u0 = solver.initial_state().u
+        state, counts[name], wall = drive(torch, solver, name, card)
+        l2_gate(name, solver, state)
+        if name == "diagcg":
+            bounds_gate(solver, state, u0)
+        profile_path(torch, solver, name, state, wall / NSTEPS)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[MAIN_PATH[name]][name],
-         "max_abs_err": stats[name][0], "ms": stats[name][1],
-         "plain_ms": stats[name][2]}
+         **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,19 +1,18 @@
 """quinoa_tpu_torch: the PyTorch + CUDA port of quinoa_tpu for one H100.
 
 Module paths and public names mirror ``quinoa_tpu/`` so each function has a
-findable counterpart.  The package imports torch, numpy and ctypes, never
-jax; from ``quinoa_tpu`` it imports only the jax-free host modules
-(``quinoa_tpu.mesh.{unsmesh,boxmesh,derived,geometry}`` and
-``quinoa_tpu.native``).
+findable counterpart.  The package imports torch, numpy and ctypes, and
+nothing of jax or of ``quinoa_tpu``: its host mesh passes are its own
+numpy copies (``mesh``).
 
 The port covers single-device DG(P1) (``inciter.dg.DGSolver``): the
 compressible-Euler step with the HLLC flux and the Superbee limiter, its
 p-adaptive variant, and the face Gauss-point path of scalar transport and
-Dirichlet/inlet faces; and single-device ALECG (``inciter.alecg``) for
-scalar transport and compressible Euler.  The TPU kernels of these paths
-are hand-written CUDA kernels under ``csrc/``, built with nvcc at first
-use (``kernels``); on CPU tensors every kernel wrapper runs its plain
-torch version instead.
+Dirichlet/inlet faces; and single-device ALECG (``inciter.alecg``) and
+DiagCG + FCT (``inciter.diagcg``) for scalar transport and compressible
+Euler.  The TPU kernels of these paths are hand-written CUDA kernels
+under ``csrc/``, built with nvcc at first use (``kernels``); on CPU
+tensors every kernel wrapper runs its plain torch version instead.
 """
 
 __version__ = "0.1.0"

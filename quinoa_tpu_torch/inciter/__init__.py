@@ -1,9 +1,9 @@
-"""The DG(P1) and ALECG solvers and their diagnostics."""
+"""The DG(P1), ALECG and DiagCG solvers and their diagnostics."""
 
 from .alecg import ALECGSolver, make_alecg
 from .dg import DGDiagnostics, DGSolver, DGState
-from .diagcg import CGState
+from .diagcg import CGState, DiagCGSolver, diagcg_advance
 from .diagnostics import Diagnostics
 
 __all__ = ["ALECGSolver", "CGState", "DGDiagnostics", "DGSolver", "DGState",
-           "Diagnostics", "make_alecg"]
+           "DiagCGSolver", "Diagnostics", "diagcg_advance", "make_alecg"]

@@ -28,9 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from quinoa_tpu.mesh.derived import _TET_EDGES, gen_inpoed
-from quinoa_tpu.mesh.geometry import tet_geometry
-
+from ..mesh.derived import _TET_EDGES, gen_inpoed
+from ..mesh.geometry import tet_geometry
 from ..ops.alecg_fused import alecg_rhs, build_alecg_rows
 from ..ops.assembly import assemble_add, build_nsup, gather_nodes
 from ..pde.cg import CGGeom, lumped_mass, make_cggeom

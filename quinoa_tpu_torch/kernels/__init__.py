@@ -49,7 +49,8 @@ MAX_ROWS = 8   # csrc/cg_assemble.cu MAXR
 launches = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0,
             "nbr_bounds": 0, "face_gather": 0, "face_accum": 0,
             "alecg_vol": 0, "alecg_vol_cf": 0, "alecg_edge": 0,
-            "alecg_edge_cf": 0, "cg_assemble": 0}
+            "alecg_edge_cf": 0, "cg_assemble": 0, "node_gather": 0,
+            "node_assemble": 0}
 
 _lib = None
 
@@ -180,6 +181,12 @@ def build() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"qtk_cg_assemble_{sfx}")
         fn.argtypes = [P] * 5 + [I, I, I, L, L, L, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_node_gather_{sfx}")
+        fn.argtypes = [P] * 3 + [I, L, L, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_node_assemble_{sfx}")
+        fn.argtypes = [P] * 4 + [I, I, I, I, L, L, P]
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -454,3 +461,54 @@ def cg_assemble(cv, d, nsup, ensup):
             [_ptr(cv), _ptr(d), _ptr(nsup), _ptr(ensup), _ptr(r), R, Dv, Dd,
              N, E, nE], dev)
     return r
+
+
+def node_gather(U, inpoelT):
+    """K10 (csrc/node_gather.cu): (4, R, E) element-corner slabs
+    out[a, c, e] = U[c, inpoelT[a, e]] of the R rows of U (R, N)."""
+    dev = _cuda_device(U)
+    dt = U.dtype
+    R, N = U.shape
+    E = inpoelT.shape[1]
+    if R < 1:
+        raise ValueError("node_gather needs at least one row")
+    _check("U", U, (R, N), dt, dev)
+    _check("inpoelT", inpoelT, (4, E), torch.int32, dev)
+    fn = getattr(build(), f"qtk_node_gather_{_suffix(dt)}")
+    out = torch.empty((4, R, E), dtype=dt, device=dev)
+    _launch("node_gather", fn, [_ptr(U), _ptr(inpoelT), _ptr(out), R, N, E],
+            dev)
+    return out
+
+
+def node_assemble(xa, xm, nsup):
+    """K11 (csrc/node_assemble.cu): (Ra + Rm, N), the sums of xa (4, Ra, E)
+    over each node's slots of nsup (D, N), level by level from level 0,
+    then the maxima of xm (Am, Rm, E), Am = 4 corners or 1 row shared by
+    an element's corners; either slab may be None."""
+    ref = xa if xa is not None else xm
+    if ref is None:
+        raise ValueError("node_assemble needs a sum or a max slab")
+    dev = _cuda_device(ref)
+    dt = ref.dtype
+    E = ref.shape[2]
+    D, N = nsup.shape
+    if D < 1:
+        raise ValueError("node_assemble needs at least one slot level")
+    Ra = 0 if xa is None else xa.shape[1]
+    Rm, Am = (0, 4) if xm is None else (xm.shape[1], xm.shape[0])
+    if xa is not None:
+        _check("xa", xa, (4, Ra, E), dt, dev)
+    if xm is not None:
+        if Am not in (1, 4):
+            raise ValueError(f"xm has {Am} corners, expected 1 or 4")
+        _check("xm", xm, (Am, Rm, E), dt, dev)
+    _check("nsup", nsup, (D, N), torch.int32, dev)
+    fn = getattr(build(), f"qtk_node_assemble_{_suffix(dt)}")
+    out = torch.empty((Ra + Rm, N), dtype=dt, device=dev)
+    null = ctypes.c_void_p(0)
+    _launch("node_assemble", fn,
+            [null if xa is None else _ptr(xa),
+             null if xm is None else _ptr(xm), _ptr(nsup), _ptr(out), Ra, Rm,
+             Am, D, N, E], dev)
+    return out

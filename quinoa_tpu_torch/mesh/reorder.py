@@ -1,8 +1,6 @@
-"""Hilbert element and first-touch node reordering, jax-free.
+"""Hilbert element and first-touch node reordering (numpy).
 
-Port of quinoa_tpu/mesh/reorder.py:32-132.  That module cannot be imported
-here: it imports quinoa_tpu.parallel.partition, whose package imports jax.
-The Hilbert order keeps face neighbours close in element rank (the
+Port of quinoa_tpu/mesh/reorder.py:32-132.  The Hilbert order keeps face neighbours close in element rank (the
 reference's Sorter/Reorder locality pass), which on the card keeps the
 neighbour reads of the limit and face kernels within nearby cache lines.
 """
@@ -13,17 +11,12 @@ from typing import Tuple
 
 import numpy as np
 
-from quinoa_tpu.mesh.unsmesh import UnsMesh
+from .unsmesh import UnsMesh
 
 
 def hilbert_codes(pts: np.ndarray, bits: int = 16) -> np.ndarray:
     """Hilbert-curve index of 3-D points (Skilling's transpose algorithm,
-    vectorized); the native C++ pass gives identical codes when built."""
-    from quinoa_tpu.native import hilbert_codes as _native_hc
-
-    nat = _native_hc(pts, bits)
-    if nat is not None:
-        return nat
+    vectorized); the JAX package's native pass gives the same codes."""
     lo = pts.min(axis=0)
     span = pts.max(axis=0) - lo
     span[span == 0] = 1.0

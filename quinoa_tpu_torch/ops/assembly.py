@@ -1,10 +1,11 @@
 """Gather-based finite-element assembly (feature-major layout).
 
-Port of quinoa_tpu/ops/assembly.py:26-75.  That module cannot be imported
-here: quinoa_tpu/ops/__init__ imports jax.  Fields are component-major, U
-is (C, N) and element slabs are (4, C, E); a node sums its incident slots
-through the padded slot table nsup (D, N), slot level by slot level, so
-the sum has one fixed order (no scatter, no atomics).
+Port of quinoa_tpu/ops/assembly.py.  Fields are component-major, U is
+(C, N) and element slabs are (4, C, E); a node sums (or takes the extreme
+of) its incident slots through the padded slot table nsup (D, N), slot
+level by slot level, so the result has one fixed order (no scatter, no
+atomics).  These are the JAX package's XLA formulations; the kernels K10
+and K11 (ops/node_window.py) compute the same values on the card.
 """
 
 from __future__ import annotations
@@ -19,15 +20,10 @@ def build_nsup(inpoel: np.ndarray, nnode: int):
     inpoel is (E, A): A slots per entity (4 for tets, 2 for edges).
     Returns (nsup (D, N) int32, D): nsup[d, p] is the flattened slot
     a*E + e (local slot a of entity e) that lands on node p, or A*E (a
-    zero pad slot) where node p has fewer than D incident slots.  The
-    native C++ pass of quinoa_tpu.native gives the same table when built.
+    pad slot) where node p has fewer than D incident slots; a node's
+    slots are in increasing slot order, as the JAX package's native pass
+    lists them.
     """
-    from quinoa_tpu.native import build_nsup as _native
-
-    nat = _native(np.asarray(inpoel), nnode)
-    if nat is not None:
-        return nat
-
     E, A = inpoel.shape
     flat = inpoel.T.ravel()  # slot id s = a*E + e holds node inpoel[e, a]
     order = np.argsort(flat, kind="stable")
@@ -58,3 +54,48 @@ def assemble_add(contrib: torch.Tensor, nsup: torch.Tensor) -> torch.Tensor:
     for d in range(1, nsup.shape[0]):
         out = out + flat[:, nsup[d].long()]
     return out
+
+
+def _assemble_extreme(contrib, nsup, op, fill):
+    A, C, E = contrib.shape
+    flat = contrib.permute(1, 0, 2).reshape(C, A * E)
+    flat = torch.cat([flat, flat.new_full((C, 1), fill)], dim=1)
+    out = flat[:, nsup[0].long()]
+    for d in range(1, nsup.shape[0]):
+        out = op(out, flat[:, nsup[d].long()])
+    return out
+
+
+def assemble_max(contrib: torch.Tensor, nsup: torch.Tensor) -> torch.Tensor:
+    """Max of (A, C, E) slot contributions over each node's slots, (C, N);
+    a pad slot reads finfo.min, and a NaN propagates (torch.maximum)."""
+    return _assemble_extreme(contrib, nsup, torch.maximum,
+                             torch.finfo(contrib.dtype).min)
+
+
+def assemble_min(contrib: torch.Tensor, nsup: torch.Tensor) -> torch.Tensor:
+    """Min over each node's slots, (C, N); a pad slot reads finfo.max."""
+    return _assemble_extreme(contrib, nsup, torch.minimum,
+                             torch.finfo(contrib.dtype).max)
+
+
+def assemble_add_max(contribA: torch.Tensor, contribM: torch.Tensor,
+                     nsup: torch.Tensor):
+    """The sum-assembly of contribA (4, Ca, E) and the max-assembly of
+    contribM (4, Cm, E) through one shared gather per slot level:
+    ((Ca, N), (Cm, N)), each in the order of assemble_add/assemble_max."""
+    A, Ca, E = contribA.shape
+    Cm = contribM.shape[1]
+    flat = torch.cat([contribA, contribM], dim=1)
+    flat = flat.permute(1, 0, 2).reshape(Ca + Cm, A * E)
+    pad = torch.cat([contribA.new_zeros((Ca, 1)),
+                     contribM.new_full((Cm, 1),
+                                       torch.finfo(contribM.dtype).min)])
+    flat = torch.cat([flat, pad], dim=1)
+    g = flat[:, nsup[0].long()]
+    outA, outM = g[:Ca], g[Ca:]
+    for d in range(1, nsup.shape[0]):
+        g = flat[:, nsup[d].long()]
+        outA = outA + g[:Ca]
+        outM = torch.maximum(outM, g[Ca:])
+    return outA, outM

@@ -1,16 +1,19 @@
 """Continuous-Galerkin geometry and the scalar-transport system, on torch
 tensors (feature-major layout).
 
-Port of the part of quinoa_tpu/pde/cg.py that ALECG needs: the geometry
-tables, the lumped mass, and CGTransport's initial/analytic solution,
-nodal flux, characteristic speed and dt.  Fields are (C, N), coordinates
-(3, N), per-element tables carry the element axis last.  The tables are
-built on the host in float64 exactly as the JAX make_cggeom builds them
-(the jax-free quinoa_tpu.mesh.geometry and quinoa_tpu.native passes, the
-same nsup slot order), then cast to the requested dtype and device.
+Port of quinoa_tpu/pde/cg.py: the geometry tables, the node gather and
+assemblies, the lumped mass, and CGTransport (initial/analytic solution,
+the Taylor-Galerkin rhs of DiagCG, the ALECG nodal flux and
+characteristic speed, dt).  Fields are (C, N), coordinates (3, N),
+per-element tables carry the element axis last.  The tables are built on
+the host in float64 exactly as the JAX make_cggeom builds them (the same
+geometry arithmetic and nsup slot order), then cast to the requested dtype
+and device.
 
-Not ported here: the window NodePlan (a TPU device: the card gathers
-node values directly) and the Taylor-Galerkin rhs of DiagCG.
+cg_gather, cg_assemble_add and cg_assemble_add_max launch K10 and K11
+(ops/node_window.py) on a CUDA geometry and run their plain versions on a
+CPU one; there is no switch.  Not ported: the window NodePlan (a TPU
+device: the card gathers node values directly) and advection-diffusion.
 """
 
 from __future__ import annotations
@@ -22,9 +25,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from quinoa_tpu.mesh.geometry import nodal_volumes, tet_geometry
-
-from ..ops.assembly import assemble_add, build_nsup
+from ..mesh.geometry import nodal_volumes, tet_geometry
+from ..ops.assembly import build_nsup
+from ..ops.node_window import node_assemble, node_gather
 
 #: geometry fields that are tensors, in the JAX CGGeom's order (without
 #: the TPU-only ``plan``)
@@ -84,16 +87,33 @@ class CGGeom:
         return torch.from_numpy(np.cbrt(x)).to(self.dtype).to(self.device)
 
 
+def cg_gather(geom: CGGeom, U: torch.Tensor) -> torch.Tensor:
+    """Nodal fields U (C, N) -> element-corner slabs (4, C, E) (K10)."""
+    return node_gather(U, geom.inpoelT)
+
+
+def cg_assemble_add(geom: CGGeom, contrib: torch.Tensor) -> torch.Tensor:
+    """Sum element-corner contributions (4, C, E) into nodes (C, N) (K11's
+    sum rows)."""
+    return node_assemble(contrib, None, geom.nsup)
+
+
+def cg_assemble_add_max(geom: CGGeom, contribA: torch.Tensor,
+                        contribM: torch.Tensor):
+    """The sum-assembly of contribA (4, Ca, E) and the max-assembly of
+    contribM (4 or 1, Cm, E; 1 = the same row at all four corners) in one
+    K11 pass: ((Ca, N), (Cm, N))."""
+    out = node_assemble(contribA, contribM, geom.nsup)
+    Ca = contribA.shape[1]
+    return out[:Ca], out[Ca:]
+
+
 def coords_cache_np(coords: np.ndarray, inpoelT: np.ndarray):
     """Host-side static caches from coords (3, N) and inpoelT (4, E):
-    (coords_n (4, 3, E), ctr (3, E)); the native pass when built."""
-    from quinoa_tpu.native import coords_cache as _native_cc
-
-    nat = _native_cc(coords.T, inpoelT.T)
-    if nat is not None:
-        return nat
+    (coords_n (4, 3, E), ctr (3, E)); the centre sums the four corners in
+    order, then divides, as the JAX package's native pass does."""
     cn = np.ascontiguousarray(coords.T[inpoelT].transpose(0, 2, 1))
-    return cn, cn.mean(axis=0)
+    return cn, (((cn[0] + cn[1]) + cn[2]) + cn[3]) / 4.0
 
 
 def make_cggeom(mesh, dtype: torch.dtype = torch.float64,
@@ -127,13 +147,13 @@ def lumped_mass(geom: CGGeom) -> torch.Tensor:
     """Assembled lumped mass diagonal (N,): each element gives V/4 = J/24
     to each of its four nodes (FluxCorrector::lump)."""
     w = (geom.J * geom.emask) / 24.0
-    return assemble_add(w[None, None, :].expand(4, 1, geom.nelem),
-                        geom.nsup)[0]
+    return cg_assemble_add(geom, w[None, None, :].expand(4, 1, geom.nelem)
+                           .contiguous())[0]
 
 
 class CGTransport:
-    """Scalar advection for node-centred schemes: the ALECG callbacks of
-    quinoa_tpu's CGTransport (reference CGTransport.hpp dt 331-395).
+    """Scalar advection for node-centred schemes, two-stage Taylor-Galerkin
+    (reference CGTransport.hpp rhs 183-330, dt 331-395).
     Advection-diffusion (ShearDiff) is not ported."""
 
     flavour = "transport"
@@ -156,6 +176,30 @@ class CGTransport:
 
     def solinc(self, xyz, t, dt):
         return self.problem.solinc(xyz, t, dt)
+
+    def rhs(self, t, dt, geom: CGGeom, U):
+        """Right-hand side (C, N)."""
+        return cg_assemble_add(
+            geom, self.rhs_contrib(t, dt, geom, U, cg_gather(geom, U)))
+
+    def rhs_contrib(self, t, dt, geom: CGGeom, U, un):
+        """Element-corner rhs contributions (4, C, E) from the step's nodal
+        gather un (4, C, E): the element intermediate at t + dt/2 from the
+        corner velocities, then its flux with the centre velocity."""
+        C, E = self.ncomp, geom.nelem
+        cn = geom.coords_n
+        vel_n = [self.problem.velocity(cn[a], t) for a in range(4)]
+        adv = torch.zeros((C, E), dtype=U.dtype, device=U.device)
+        for a in range(4):
+            for j in range(3):
+                adv = adv + geom.grad[a, j] * vel_n[a][:, j, :] * un[a]
+        ue = un.mean(dim=0) - 0.5 * dt * adv                  # (C, E)
+
+        vel_c = self.problem.velocity(geom.ctr, t)            # (C, 3, E)
+        d = dt * geom.J * geom.emask / 6.0
+        vdotg = [sum(geom.grad[a, j] * vel_c[:, j, :] for j in range(3))
+                 for a in range(4)]
+        return torch.stack([d * g * ue for g in vdotg])
 
     def flux_at_nodes(self, u, xyz):
         """F_j = v_j(x) u at nodal states u (C, n)."""

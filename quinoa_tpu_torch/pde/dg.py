@@ -22,8 +22,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from quinoa_tpu.mesh.derived import gen_faces, gen_esuel, _TET_FACES
-
+from ..mesh.derived import _TET_FACES, gen_esuel, gen_faces
 from ..ops.basis import eval_basis_cm, eval_basis_np, eval_dbdxi, mass_diag
 from ..ops.quadrature import gauss_tet, gauss_tri, ng_vol, ng_face, ng_init
 
@@ -167,6 +166,46 @@ def _make_tables(ndof: int) -> dict:
     )
 
 
+def face_xi(coords, inpofa, shp, jacInv, n0, el, er):
+    """Reference coordinates (F, G, 3) of the face Gauss points in the left
+    and right elements: xi = jacInv[e] (gp - n0[e]), gp = sum_i shp[g, i]
+    x_i, each sum in the order of the JAX package's native face_xi."""
+    p = coords[inpofa]                                         # (F, 3, 3)
+    gp = (shp[None, :, 0, None] * p[:, None, 0]
+          + shp[None, :, 1, None] * p[:, None, 1]
+          + shp[None, :, 2, None] * p[:, None, 2])             # (F, G, 3)
+
+    def xi(e):
+        Ji = jacInv[e][:, None]                                # (F,1,3,3)
+        d = gp - n0[e][:, None, :]
+        return (Ji[..., 0] * d[..., 0, None] + Ji[..., 1] * d[..., 1, None]
+                + Ji[..., 2] * d[..., 2, None])
+
+    return xi(el), xi(er)
+
+
+def build_fose(el: np.ndarray, er: np.ndarray, nelem: int):
+    """Faces of each element, (fose (4, E) int32, fsideR (4, E)): an
+    element's four slots list its faces in face order, fsideR 1.0 where
+    it is the face's right side (the sequential slot fill of the JAX
+    build_dggeom, vectorized)."""
+    F = len(el)
+    inner = np.nonzero(er != el)[0]
+    elem = np.concatenate([el, er[inner]])
+    face = np.concatenate([np.arange(F), inner])
+    side = np.concatenate([np.zeros(F), np.ones(len(inner))])
+    order = np.lexsort((face, elem))
+    counts = np.bincount(elem, minlength=nelem)
+    if not (counts == 4).all():
+        raise ValueError("every tet must own exactly 4 face slots")
+    fose = np.empty((4, nelem), dtype=np.int32)
+    fsideR = np.empty((4, nelem))
+    slot = np.arange(len(order)) % 4   # sorted by element: 4 per element
+    fose[slot, elem[order]] = face[order]
+    fsideR[slot, elem[order]] = side[order]
+    return fose, fsideR
+
+
 def build_dggeom(
     mesh,
     ndof: int,
@@ -179,9 +218,6 @@ def build_dggeom(
     bc_sidesets maps side-set id -> BC code; unlisted boundary faces
     default to extrapolate.
     """
-    from quinoa_tpu.native import build_fose as _native_fose
-    from quinoa_tpu.native import face_xi as _native_face_xi
-
     coords, inpoel = mesh.coords, mesh.inpoel
     E = mesh.nelem
 
@@ -217,13 +253,7 @@ def build_dggeom(
     shp = np.stack([1.0 - tp[:, 0] - tp[:, 1], tp[:, 0], tp[:, 1]], axis=1)
     el = esuf[:, 0].astype(np.int64)
     er = np.where(esuf[:, 1] < 0, el, esuf[:, 1]).astype(np.int64)
-    nat = _native_face_xi(coords, inpofa, shp, jacInv, n0, el, er)
-    if nat is not None:  # the C++ host kernel: same values, one pass
-        xi_l, xi_r = nat
-    else:
-        gp = np.einsum("gi,fid->fgd", shp, coords[inpofa])  # (F,G,3)
-        xi_l = np.einsum("fij,fgj->fgi", jacInv[el], gp - n0[el][:, None, :])
-        xi_r = np.einsum("fij,fgj->fgi", jacInv[er], gp - n0[er][:, None, :])
+    xi_l, xi_r = face_xi(coords, inpofa, shp, jacInv, n0, el, er)
 
     bctype = np.zeros(F, dtype=np.int32)
     bctype[:nbfac] = BC_EXTRAPOLATE
@@ -243,25 +273,7 @@ def build_dggeom(
     xi_l, xi_r = xi_l[forder], xi_r[forder]
     bctype = bctype[forder]
 
-    natf = _native_fose(el, er, E)
-    if natf is not None:
-        fose, fsideR = natf
-    else:
-        fose = np.zeros((4, E), dtype=np.int32)
-        fsideR = np.zeros((4, E))
-        slot = np.zeros(E, dtype=np.int64)
-        for f in range(F):
-            e = el[f]
-            fose[slot[e], e] = f
-            slot[e] += 1
-            if er[f] != el[f]:
-                e2 = er[f]
-                fose[slot[e2], e2] = f
-                fsideR[slot[e2], e2] = 1.0
-                slot[e2] += 1
-        if not (slot == 4).all():
-            raise ValueError("every tet must own exactly 4 face slots")
-
+    fose, fsideR = build_fose(el, er, E)
     esuel = gen_esuel(inpoel, mesh.nnode)
 
     arrays = dict(

@@ -54,6 +54,14 @@ class CompFlowProblem:
     def analytic(self, xyz, t):
         return self.solution(xyz, t)
 
+    def solinc(self, xyz, t, dt):
+        """Dirichlet increment U(t + dt) - U(t), (5, n): exactly zero for a
+        steady problem, which is returned without evaluating U."""
+        if self.steady:
+            return torch.zeros((5,) + tuple(xyz.shape[1:]), dtype=xyz.dtype,
+                               device=xyz.device)
+        return self.solution(xyz, t + dt) - self.solution(xyz, t)
+
     def src(self, xyz, t):
         """Manufactured source S = dU/dt + div F(U), or zeros: (5, n)."""
         if not self.manufactured:

@@ -214,16 +214,20 @@ def test_gather_and_assemble_exact(slots):
         np.asarray(j_gather_nodes(jnp.asarray(U), jnp.asarray(inpoelT))))
 
 
-def test_numpy_build_nsup_matches_native(monkeypatch):
-    """The copied numpy fallback builds the native pass's table."""
-    import quinoa_tpu.native as native
+def test_numpy_build_nsup_matches_native():
+    """The port's numpy build_nsup builds the JAX package's native table
+    (its numpy fallback where the library is not built), for element and
+    edge slots."""
+    from quinoa_tpu.mesh.derived import gen_inpoed as j_gen_inpoed
+    from quinoa_tpu.ops.assembly import build_nsup as j_build_nsup
 
     mesh = _ordered(3, 3, 2)
-    want, D = build_nsup(mesh.inpoel, mesh.nnode)
-    monkeypatch.setattr(native, "build_nsup", lambda *a: None)
-    got, D2 = build_nsup(mesh.inpoel, mesh.nnode)
-    assert D == D2
-    np.testing.assert_array_equal(got, want)
+    for inc in (mesh.inpoel, j_gen_inpoed(mesh.inpoel).astype(np.int32)):
+        got, D = build_nsup(inc, mesh.nnode)
+        want, D2 = j_build_nsup(inc, mesh.nnode)
+        assert D == D2
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("t", [0.0, 0.37, 2.9])

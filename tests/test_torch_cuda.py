@@ -39,7 +39,8 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 #: every kernel's launch count at zero
 ZERO = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0, "nbr_bounds": 0,
         "face_gather": 0, "face_accum": 0, "alecg_vol": 0, "alecg_vol_cf": 0,
-        "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0}
+        "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0,
+        "node_gather": 0, "node_assemble": 0}
 
 
 @pytest.fixture(scope="module")
@@ -246,3 +247,74 @@ def test_alecg_on_card_matches_cpu(card, case):
     sfx = "" if case == "slotcyl" else "_cf"
     assert kernels.launches == {**ZERO, "alecg_vol" + sfx: 6,
                                 "alecg_edge" + sfx: 6, "cg_assemble": 6}
+
+
+def _diagcg(case, device, dtype=torch.float64):
+    """The DiagCG solvers of chip_smoke.py's card-vs-CPU checks."""
+    from quinoa_tpu_torch.inciter import DiagCGSolver
+    from quinoa_tpu_torch.mesh import first_touch_node_reorder
+    from quinoa_tpu_torch.pde.cg import CGTransport, make_cggeom
+    from quinoa_tpu_torch.pde.cg_compflow import CGCompFlow
+    from quinoa_tpu_torch.pde.problems import SlotCyl, VorticalFlow
+
+    if case == "slotcyl":
+        mesh = box_tet_mesh(16, 16, 4, hi=(1.0, 1.0, 0.25))
+        system, cfl = CGTransport(SlotCyl()), 0.8
+    else:
+        mesh = box_tet_mesh(6, 6, 6, lo=(-0.5, -0.5, -0.5),
+                            hi=(0.5, 0.5, 0.5))
+        system, cfl = CGCompFlow(VorticalFlow()), 0.5
+    mesh, _ = first_touch_node_reorder(hilbert_element_reorder(mesh)[0])
+    return DiagCGSolver(system, make_cggeom(mesh, dtype=dtype,
+                                            device=device),
+                        cfl=cfl, bcnodes=mesh.all_bnodes())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows", [1, 2, 5, 10])
+def test_node_kernels_match_plain_versions(card, rows, dtype):
+    """K10 and K11 (sum-only, max-only with 4 and with 1 corner, mixed)
+    against their plain versions bit for bit; a NaN slot propagates
+    through K11's max rows."""
+    from quinoa_tpu_torch.ops.node_window import (node_assemble,
+                                                  node_assemble_plain,
+                                                  node_gather,
+                                                  node_gather_plain)
+
+    g = _diagcg("slotcyl", card, dtype).geom
+    gen = torch.Generator(device=card).manual_seed(13)
+    U = torch.randn((rows, g.nnode), generator=gen, device=card, dtype=dtype)
+    xa = torch.randn((4, rows, g.nelem), generator=gen, device=card,
+                     dtype=dtype)
+    xm = torch.randn((4, rows, g.nelem), generator=gen, device=card,
+                     dtype=dtype)
+    kernels.reset_launches()
+    assert torch.equal(node_gather(U, g.inpoelT),
+                       node_gather_plain(U, g.inpoelT))
+    for a, m in ((xa, None), (None, xm), (None, xm[:1]), (xa, xm),
+                 (xa, xm[:1])):
+        assert torch.equal(node_assemble(a, m, g.nsup),
+                           node_assemble_plain(a, m, g.nsup))
+    xm[1, rows - 1, 7] = float("nan")
+    got = node_assemble(xa, xm, g.nsup)
+    want = node_assemble_plain(xa, xm, g.nsup)
+    assert int(torch.isnan(got).sum()) == 1
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.cuda.synchronize()
+    assert kernels.launches == {**ZERO, "node_gather": 1, "node_assemble": 6}
+
+
+@pytest.mark.parametrize("case", ["slotcyl", "vortical"])
+def test_diagcg_on_card_matches_cpu(card, case):
+    """Two float64 DiagCG + FCT steps on the card against the CPU with
+    every boundary node pinned: u atol 1e-11, dt rtol 1e-12, 3 K10 and 3
+    K11 launches a step and no other kernel."""
+    a, b = _diagcg(case, card), _diagcg(case, "cpu")
+    kernels.reset_launches()
+    sa = a.nsteps(a.initial_state(), 2)
+    sb = b.nsteps(b.initial_state(), 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(sa.u).all())
+    assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11
+    assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
+    assert kernels.launches == {**ZERO, "node_gather": 6, "node_assemble": 6}
