@@ -2,9 +2,10 @@
 """Smoke test of quinoa_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
 Drives the port's three DG(P1) paths and its two ALECG paths at 48^3
-(663,552 tets; 117,649 nodes and 795,024 edges) and its two DiagCG + FCT
+(663,552 tets; 117,649 nodes and 795,024 edges), its two DiagCG + FCT
 paths (SlotCyl at 64^3: 1,572,864 tets and 274,625 nodes; VorticalFlow at
-48^3) in float32 through their hand-written CUDA kernels:
+48^3) and its DG(P2) path (TaylorGreen at 32^3: 196,608 tets, 399,360
+faces) in float32 through their hand-written CUDA kernels:
 
 1. card    the name and power limit from nvidia-smi;
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -16,15 +17,18 @@ paths (SlotCyl at 64^3: 1,572,864 tets and 274,625 nodes; VorticalFlow at
            K7-K9 (both flavours of K7 and K8) on the SlotCyl and
            VorticalFlow initial states, alone and as the stage rhs;
            K10 (1 and 5 rows) and K11 (sum rows, max rows, both at once,
-           a NaN in a max row) on the DiagCG meshes; each timed kernel
+           a NaN in a max row) on the DiagCG meshes; K12 and K13 on the
+           32^3 P2 TaylorGreen initial state (float64 on a small P2 mesh),
+           and K12 + K13 at P1 against K2 + K3 on the Sedov state (their
+           difference and both times); each timed kernel
            also gets its bound (bytes of its inputs read once and outputs
            written once over 3.35 TB/s, or its operations over 67 TFLOP/s,
            whichever is larger) and, where one PyTorch call computes the
-           same function, that call's time; then eight small float64
+           same function, that call's time; then nine small float64
            solvers on the card against the same solvers on the CPU (Sedov
            P1, Sedov pdg, GaussHump, GaussHump pdg, ALECG and DiagCG
-           SlotCyl and VorticalFlow: 2 steps, u atol 1e-11, dt rtol 1e-12,
-           ndofel equal where the state has one);
+           SlotCyl and VorticalFlow, P2 TaylorGreen: 2 steps, u atol
+           1e-11, dt rtol 1e-12, ndofel equal where the state has one);
 4. p1      the Sedov DG(P1) HLLC + Superbee step (bench.py) from its
            initial_state(): 1 warm-up and 10 timed steps through K1, K2
            and K3, 33 launches each; then the same 11 steps from the
@@ -51,7 +55,13 @@ paths (SlotCyl at 64^3: 1,572,864 tets and 274,625 nodes; VorticalFlow at
            float32 ulps of the initial bounds; then 5 steps under
            torch.profiler (wall, device busy and idle, launches a step);
 10. diagcg_cf DiagCG + FCT VorticalFlow Euler at 48^3: the same, without
-           the bounds check.
+           the bounds check;
+11. p2      DG(P2) TaylorGreen (bench.py --dgp2: HLLC, symmetry walls, cfl
+           0.5, no limiter) at 32^3: 1 + 10 steps through K12 face_wflux
+           and K13 basis_accum, 3 launches each a step; finite, L2(sol)
+           and L2(err) against the JAX package's CPU result (JAX_L2); then
+           5 steps under torch.profiler and the host time of a stage's
+           volume integral, source and face pass.
 
 Every path sets the launch counts to 0 just before it and reads them just
 after; a kernel of the path that did not launch as stated, or one that
@@ -73,6 +83,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_BIG = 48                      # the bench box: 48^3 hexes, 6 tets each
+N_P2 = 32                       # bench.py --dgp2's box
+P2_SMALL = (4, 4, 3)            # float64 P2 mesh (tests/test_torch_dgp2.py)
 SMALL = (6, 6, 4)               # float64 Sedov parity mesh
 HUMP_SMALL = (10, 10, 2)        # float64 GaussHump mesh (tests/test_dg.py)
 L2_RTOL = 5e-4                  # bench.py's gate
@@ -116,6 +128,15 @@ JAX_L2 = {
                   "l2err": [1.0135789096921144e-08, 1.8698386838877923e-07,
                             1.898314252457567e-07, 2.1582089004823501e-07,
                             8.071630190897849e-07]},
+    # quinoa_tpu.inciter.dg.DGSolver on bench.py --dgp2's mesh and
+    # configuration (build_dggeom in float32), 11 step() calls, then
+    # DGDiagnostics
+    "p2": {"l2sol": [1.0000001192092896, 0.5000001192092896,
+                     0.5000001192092896, 6.455498464674747e-07,
+                     15.255122184753418],
+           "l2err": [2.340200495609679e-07, 1.983560423468589e-06,
+                     1.974215820155223e-06, 6.455498464674747e-07,
+                     7.111129889381118e-06]},
 }
 JAX_L2_RTOL = 1e-4
 # VorticalFlow is steady, so its L2(err) after 11 steps is float32
@@ -123,6 +144,12 @@ JAX_L2_RTOL = 1e-4
 # evaluations of the manufactured source differ by 9.5e-7.  L2(err) is
 # held to rtol 1e-4 plus this many float32 ulps of the L2(sol) norm.
 L2ERR_ULPS = 8
+# TaylorGreen's rho*w is zero in the exact solution, so on the p2 path its
+# L2(sol) (= its L2(err)) is round-off of the pressure terms: 6.455e-7
+# after 11 steps in the JAX package's CPU float32 run, 6.305e-7 in the
+# port's own CPU float32 run.  There L2(sol) and L2(err) both get the
+# allowance, in ulps of the largest L2(sol) component (the energy's).
+ULPS_OF_LARGEST = {"p2"}
 # FCT bounds SlotCyl to its initial [0, 0.6] only up to float32 round-off:
 # the JAX package's own float32 run above leaves them by -2.644e-6 (44
 # ulps of 0.6) and +1.55e-6 (26 ulps) within 11 steps.  The diagcg gate
@@ -168,6 +195,10 @@ KERNELS = {
                     "quinoa_tpu/ops/node_window.py:261"),
     "node_assemble": ("quinoa_tpu_torch/csrc/node_assemble.cu",
                       "quinoa_tpu/ops/node_window.py:347"),
+    "face_wflux": ("quinoa_tpu_torch/csrc/face_wflux.cu",
+                   "quinoa_tpu/ops/face_fused.py:333"),
+    "basis_accum": ("quinoa_tpu_torch/csrc/basis_accum.cu",
+                    "quinoa_tpu/ops/face_fused.py:253"),
 }
 #: launches per step of each path; every other kernel must launch 0 times
 PATHS = {
@@ -178,6 +209,7 @@ PATHS = {
     "alecg_cf": {"alecg_vol_cf": 3, "alecg_edge_cf": 3, "cg_assemble": 3},
     "diagcg": {"node_gather": 3, "node_assemble": 3},
     "diagcg_cf": {"node_gather": 3, "node_assemble": 3},
+    "p2": {"face_wflux": 3, "basis_accum": 3},
 }
 #: the path whose launches the kernels line reports for each kernel
 MAIN_PATH = {"limit_vol": "p1", "face_flux": "p1", "face_to_elem": "p1",
@@ -185,7 +217,8 @@ MAIN_PATH = {"limit_vol": "p1", "face_flux": "p1", "face_to_elem": "p1",
              "face_accum": "hump", "alecg_vol": "alecg",
              "alecg_edge": "alecg", "cg_assemble": "alecg",
              "alecg_vol_cf": "alecg_cf", "alecg_edge_cf": "alecg_cf",
-             "node_gather": "diagcg", "node_assemble": "diagcg"}
+             "node_gather": "diagcg", "node_assemble": "diagcg",
+             "face_wflux": "p2", "basis_accum": "p2"}
 #: floating-point operations a kernel does per entity (element, face,
 #: edge or node; per row where it says so), counted from its source and
 #: rounded up.  Every kernel here is bound by bytes by a wide margin.
@@ -193,7 +226,9 @@ OPS = {"limit_vol": 2000, "face_flux": 1000, "face_to_elem": 100,
        "nbr_bounds": 40, "face_gather": 0, "face_accum_row": 4,
        "alecg_vol_row": 40, "alecg_vol_cf": 400, "alecg_edge_row": 3,
        "alecg_edge_cf": 70, "cg_assemble_slot": 1, "node_gather": 0,
-       "node_assemble_slot": 1}
+       "node_assemble_slot": 1,
+       # K12 per face, K13 per element, at P1 (K = 4) and P2 (K = 10)
+       "face_wflux": {4: 1000, 10: 3500}, "basis_accum": {4: 700, 10: 5000}}
 
 
 def tpu_precision_initial_u(solver, torch):
@@ -337,7 +372,7 @@ def kernel_checks(torch, geom, system, U, dtype_name, timed):
     from quinoa_tpu_torch import kernels
     from quinoa_tpu_torch.ops.face_fused import (face_flux_plain,
                                                  face_to_elem_plain,
-                                                 fused_face_pass)
+                                                 fused_face_pass_nearfar)
     from quinoa_tpu_torch.ops.nbr_bounds import limit_vol_plain
 
     g = geom
@@ -382,12 +417,106 @@ def kernel_checks(torch, geom, system, U, dtype_name, timed):
                          dtype_name, timed)
            for name, kf, pf, inputs, ops in cases}
     # K2 + K3 together, as the step calls them
-    got = fused_face_pass(system, g, ulim, vol_rhs=rv)
+    got = fused_face_pass_nearfar(system, g, ulim, vol_rhs=rv)
     want = face_to_elem_plain(g, *face_flux_plain(system, g, ulim), rv)
     err = compare("face pass K2+K3", got, want, dtype_name)
     phase("kernels", f"K2+K3 {dtype_name}: max|kernel-plain|={err:.3e} "
           f"(tol {TOL[dtype_name]:g} * max|plain|)")
     return out
+
+
+def p2_geom(n, dtype, device):
+    """DG(P2) geometry of bench.py --dgp2: a Hilbert-ordered box with
+    symmetry on all six sides, the unit cube at 32^3 (nz/nx high on the
+    small box)."""
+    from quinoa_tpu_torch.mesh import box_tet_mesh, hilbert_element_reorder
+    from quinoa_tpu_torch.pde.dg import BC_SYMMETRY, build_dggeom
+
+    nx, ny, nz = n
+    mesh, _ = hilbert_element_reorder(box_tet_mesh(nx, ny, nz,
+                                                   hi=(1.0, 1.0, nz / nx)))
+    return build_dggeom(mesh, ndof=10,
+                        bc_sidesets={i: BC_SYMMETRY for i in range(1, 7)},
+                        dtype=dtype, device=device)
+
+
+def single_stream_checks(torch, geom, system, U, rv, dtype_name, timed):
+    """K12 and K13 against their plain versions on the state U (C*K, E)
+    of geom (P1 or P2) with the volume term rv, then both as the step
+    calls them; returns {name: record} (times only when timed)."""
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
+                                                 face_wflux_plain,
+                                                 fused_face_pass)
+
+    g, K = geom, geom.ndof
+
+    def k12():
+        return kernels.face_wflux(U, g.el, g.er, g.fn, g.farea, g.fmask,
+                                  g.xi_l, g.xi_r, g.bctype, g.w_face,
+                                  system.eos)
+
+    def p12():
+        return face_wflux_plain(system, g, U)
+
+    wfl, mx = p12()
+
+    def k13():
+        return kernels.basis_accum(wfl, mx, g.fose, g.fsideR, g.xi_l,
+                                   g.xi_r, K, rv)
+
+    def p13():
+        return basis_accum_plain(g, wfl, mx, rv)
+
+    E, F = g.nelem, g.nface
+    cases = (
+        ("face_wflux", k12, p12, (U, g.el, g.er, g.fn, g.farea, g.fmask,
+                                  g.xi_l, g.xi_r, g.bctype, g.w_face),
+         OPS["face_wflux"][K] * F),
+        ("basis_accum", k13, p13, (wfl, mx, g.fose, g.fsideR, g.xi_l,
+                                   g.xi_r, rv),
+         OPS["basis_accum"][K] * E),
+    )
+    out = {name: measure(torch, name, f"K={K} E={E} F={F}", kf, pf, inputs,
+                         ops, dtype_name, timed)
+           for name, kf, pf, inputs, ops in cases}
+    got = fused_face_pass(system, g, U, vol_rhs=rv)
+    want = basis_accum_plain(g, *face_wflux_plain(system, g, U), rv)
+    err = compare("face pass K12+K13", got, want, dtype_name)
+    phase("kernels", f"K12+K13 K={K} {dtype_name}: max|kernel-plain|="
+          f"{err:.3e} (tol {TOL[dtype_name]:g} * max|plain|); no single "
+          "PyTorch call computes either kernel's function")
+    return out
+
+
+def single_stream_vs_nearfar(torch, geom, system, U):
+    """DG(P1): K12 + K13 against K2 + K3 on the limited Sedov state and
+    its volume term: max|difference| of the rhs and of delt, and the
+    CUDA-event time of each pair, taken in turns (K2 + K3, K12 + K13,
+    K12 + K13, K2 + K3)."""
+    from quinoa_tpu_torch.ops.face_fused import (fused_face_pass,
+                                                 fused_face_pass_nearfar)
+    from quinoa_tpu_torch.ops.nbr_bounds import limit_vol_plain
+
+    ulim, rv = limit_vol_plain(system, geom, U)
+
+    def single():
+        return fused_face_pass(system, geom, ulim, vol_rhs=rv)
+
+    def nearfar():
+        return fused_face_pass_nearfar(system, geom, ulim, vol_rhs=rv)
+
+    diff = [float((a - b).abs().max()) for a, b in zip(single(), nearfar())]
+    nf = [cuda_ms(torch, nearfar)]
+    ss = [cuda_ms(torch, single), cuda_ms(torch, single)]
+    nf.append(cuda_ms(torch, nearfar))
+    phase("kernels", f"P1 E={geom.nelem} F={geom.nface}: K12+K13 vs K2+K3 "
+          f"max|dr|={diff[0]:.3e} max|ddelt|={diff[1]:.3e}; K12+K13 "
+          f"{ss[0]:.4f}, {ss[1]:.4f} ms, K2+K3 {nf[0]:.4f}, {nf[1]:.4f} ms "
+          "(turns: K2+K3, K12+K13, K12+K13, K2+K3)")
+    if not all(d <= TOL["float32"] * float(w.abs().max())
+               for d, w in zip(diff, nearfar())):
+        raise AssertionError("K12+K13 and K2+K3 disagree at P1")
 
 
 def face_gp_kernel_checks(torch, geom, U, hump, Uh, dtype_name, timed):
@@ -664,19 +793,34 @@ def drive(torch, solver, name, card, state=None):
 
 def l2_gate(name, solver, state):
     """L2(sol) and L2(err) after 11 float32 steps against JAX_L2."""
+    from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
     from quinoa_tpu_torch.inciter.diagnostics import Diagnostics
 
-    row = Diagnostics(solver.system, solver.geom).compute(state)
+    if isinstance(solver, DGSolver):
+        l2sol, l2err, _ = DGDiagnostics(solver.system,
+                                        solver.geom).compute(state)
+    else:
+        row = Diagnostics(solver.system, solver.geom).compute(state)
+        l2sol, l2err = row.l2sol, row.l2err
     want = JAX_L2[name]
     eps = float(np.finfo(np.float32).eps)
-    ok = (np.allclose(row.l2sol, want["l2sol"], rtol=JAX_L2_RTOL, atol=0.0)
-          and all(abs(a - b) <= JAX_L2_RTOL * abs(b) + L2ERR_ULPS * eps * s
-                  for a, b, s in zip(row.l2err, want["l2err"],
-                                     want["l2sol"])))
-    phase(name, f"after {row.it} steps t={row.t:.9e}: L2(sol) {row.l2sol} "
-          f"vs JAX {want['l2sol']}; L2(err) {row.l2err} vs JAX "
+    if name in ULPS_OF_LARGEST:
+        scale = [max(want["l2sol"])] * len(want["l2sol"])
+        sol_ulps, rule = L2ERR_ULPS, "both + {} f32 ulps of max L2(sol)"
+    else:
+        scale, sol_ulps = want["l2sol"], 0
+        rule = "L2(err) + {} f32 ulps of L2(sol)"
+
+    def close(got, ref, ulps):
+        return all(abs(a - b) <= JAX_L2_RTOL * abs(b) + ulps * eps * s
+                   for a, b, s in zip(got, ref, scale))
+
+    ok = (close(l2sol, want["l2sol"], sol_ulps)
+          and close(l2err, want["l2err"], L2ERR_ULPS))
+    phase(name, f"after {int(state.it)} steps t={float(state.t):.9e}: "
+          f"L2(sol) {l2sol} vs JAX {want['l2sol']}; L2(err) {l2err} vs JAX "
           f"{want['l2err']}: {'ok' if ok else 'FAIL'} (rtol {JAX_L2_RTOL:g}"
-          f", L2(err) + {L2ERR_ULPS} f32 ulps of L2(sol))")
+          f", {rule.format(L2ERR_ULPS)})")
     if not ok:
         raise AssertionError(f"{name}: L2 gate failed")
 
@@ -745,6 +889,34 @@ def profile_path(torch, solver, name, state, step_s, steps=5):
     return state
 
 
+def p2_breakdown(torch, solver, state, reps=5):
+    """Host-clock ms of one P2 stage's parts, each call ending in a
+    synchronize (median of reps): the volume integral with its source,
+    the source alone, and the face pass K12 + K13."""
+    from quinoa_tpu_torch.ops.face_fused import fused_face_pass
+    from quinoa_tpu_torch.pde.dg import volume_rhs
+
+    g, sy, u, t = solver.geom, solver.system, state.u, state.t
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(times)
+
+    vol = wall(lambda: volume_rhs(sy, g, u, t))
+    src = wall(lambda: sy.src(g.vol_gp, t))
+    face = wall(lambda: fused_face_pass(sy, g, u))
+    phase("p2", f"one stage's parts (host clock to a synchronize, median of "
+          f"{reps}): volume integral with source {vol:.3f} ms, of it the "
+          f"source {src:.3f} ms; face pass K12 + K13 {face:.3f} ms")
+
+
 def main():
     import torch
 
@@ -754,8 +926,10 @@ def main():
     from quinoa_tpu_torch import kernels
     from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
     from quinoa_tpu_torch.pde.dg import BC_DIRICHLET, BC_SYMMETRY
+    from quinoa_tpu_torch.pde.dg import volume_rhs
     from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow, DGTransport
-    from quinoa_tpu_torch.pde.problems import GaussHump, SedovBlastwave
+    from quinoa_tpu_torch.pde.problems import (GaussHump, SedovBlastwave,
+                                               TaylorGreen)
 
     # full float32 matmuls (dg_initialize's einsums); TF32 is off by
     # default, set here so the run does not depend on the default
@@ -783,6 +957,7 @@ def main():
 
     system = DGCompFlow(SedovBlastwave(), riemann_flux="hllc")
     transport = DGTransport(GaussHump())
+    taylor = DGCompFlow(TaylorGreen(), riemann_flux="hllc")
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -804,6 +979,24 @@ def main():
     Uh64 = DGSolver(transport, hump_small).initial_state().u
     face_gp_kernel_checks(torch, small, U64, hump_small, Uh64, "float64",
                           timed=False)
+    single_stream_vs_nearfar(torch, big, system, U)
+    single_stream_checks(torch, small, system, U64,
+                         volume_rhs(system, small, U64), "float64",
+                         timed=False)
+    t0 = time.perf_counter()
+    p2 = p2_geom((N_P2,) * 3, torch.float32, dev)
+    phase("kernels", f"32^3 P2 geometry (TaylorGreen): E={p2.nelem} "
+          f"F={p2.nface}, {time.perf_counter() - t0:.1f} s on the host")
+    p2_solver = DGSolver(taylor, p2, cfl=0.5, limiter=None)
+    U2 = p2_solver.initial_state().u
+    stats.update(single_stream_checks(torch, p2, taylor, U2,
+                                      volume_rhs(taylor, p2, U2), "float32",
+                                      timed=True))
+    p2_small = p2_geom(P2_SMALL, torch.float64, dev)
+    U2s = DGSolver(taylor, p2_small).initial_state().u
+    single_stream_checks(torch, p2_small, taylor, U2s,
+                         volume_rhs(taylor, p2_small, U2s), "float64",
+                         timed=False)
     t0 = time.perf_counter()
     alecg = {name: alecg_solver(name, (N_BIG,) * 3, torch.float32, dev)
              for name in ALECG}
@@ -842,11 +1035,13 @@ def main():
 
     def geom(name, device):
         if (name, device) not in geoms:
-            bc = BC_SYMMETRY if name == "sedov" else BC_DIRICHLET
-            n = SMALL if name == "sedov" else HUMP_SMALL
-            geoms[name, device] = box_geom(n, bc, torch.float64,
-                                           dev if device == "card" else
-                                           "cpu")
+            where = dev if device == "card" else "cpu"
+            if name == "p2":
+                geoms[name, device] = p2_geom(P2_SMALL, torch.float64, where)
+            else:
+                bc = BC_SYMMETRY if name == "sedov" else BC_DIRICHLET
+                n = SMALL if name == "sedov" else HUMP_SMALL
+                geoms[name, device] = box_geom(n, bc, torch.float64, where)
         return geoms[name, device]
 
     card_vs_cpu(torch, "sedov_p1", lambda d: DGSolver(
@@ -857,6 +1052,8 @@ def main():
         transport, geom("hump", d), cfl=0.8))
     card_vs_cpu(torch, "gausshump_pdg", lambda d: DGSolver(
         transport, geom("hump", d), cfl=0.8, pref=True))
+    card_vs_cpu(torch, "taylorgreen_p2", lambda d: DGSolver(
+        taylor, geom("p2", d), cfl=0.5))
     for name in ALECG:
         card_vs_cpu(torch, name, lambda d, name=name: alecg_solver(
             name, ALECG_SMALL[name][0], torch.float64,
@@ -918,6 +1115,12 @@ def main():
         if name == "diagcg":
             bounds_gate(solver, state, u0)
         profile_path(torch, solver, name, state, wall / NSTEPS)
+
+    # 11. DG(P2) TaylorGreen at 32^3
+    state, counts["p2"], wall = drive(torch, p2_solver, "p2", card)
+    l2_gate("p2", p2_solver, state)
+    state = profile_path(torch, p2_solver, "p2", state, wall / NSTEPS)
+    p2_breakdown(torch, p2_solver, state)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -5,14 +5,16 @@ findable counterpart.  The package imports torch, numpy and ctypes, and
 nothing of jax or of ``quinoa_tpu``: its host mesh passes are its own
 numpy copies (``mesh``).
 
-The port covers single-device DG(P1) (``inciter.dg.DGSolver``): the
+The port covers single-device DG (``inciter.dg.DGSolver``): the DG(P1)
 compressible-Euler step with the HLLC flux and the Superbee limiter, its
-p-adaptive variant, and the face Gauss-point path of scalar transport and
-Dirichlet/inlet faces; and single-device ALECG (``inciter.alecg``) and
-DiagCG + FCT (``inciter.diagcg``) for scalar transport and compressible
-Euler.  The TPU kernels of these paths are hand-written CUDA kernels
-under ``csrc/``, built with nvcc at first use (``kernels``); on CPU
-tensors every kernel wrapper runs its plain torch version instead.
+p-adaptive variant, the face Gauss-point path of scalar transport and
+Dirichlet/inlet faces, and unlimited DG(P2) with a manufactured source;
+and single-device ALECG (``inciter.alecg``) and DiagCG + FCT
+(``inciter.diagcg``) for scalar transport and compressible Euler.  The
+TPU kernels of these paths are hand-written CUDA kernels under
+``csrc/``, built with nvcc at first use (``kernels``); on CPU tensors
+every kernel wrapper runs its plain torch version instead.  The builders
+put their tensors on the card unless given another device (``device``).
 """
 
 __version__ = "0.1.0"

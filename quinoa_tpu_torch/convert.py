@@ -11,7 +11,8 @@ for a CG one), so this module never imports jax:
     arrays["tables"] = dict(g.tables)
     geom = geom_from_arrays(arrays, device="cuda", dtype=torch.float32)
 
-Floating fields take ``dtype``; index fields stay int32.  Fields the port
+Floating fields take ``dtype``; index fields stay int32.  Every
+``*_from_arrays`` builds on the card unless ``device`` says otherwise.  Fields the port
 does not carry (the CG window ``plan``) are ignored.
 """
 
@@ -20,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import DEFAULT_DEVICE, resolve_device
 from .pde import cg
 from .pde.dg import DGGeom, GEOM_INT_FIELDS, GEOM_TENSOR_FIELDS
 
@@ -43,11 +45,12 @@ def _tensors(arrays, names, device, dtype, what):
     missing = [k for k in names if k not in arrays]
     if missing:
         raise KeyError(f"{what} dict lacks {missing}")
+    device = resolve_device(device)
     return {k: _tensor(arrays[k], k, device, dtype).contiguous()
             for k in names}
 
 
-def geom_from_arrays(arrays: dict, device="cpu",
+def geom_from_arrays(arrays: dict, device=DEFAULT_DEVICE,
                      dtype: torch.dtype = torch.float64) -> DGGeom:
     """A DGGeom on ``device`` from a dict of numpy arrays."""
     missing = [k for k in ("ndof", "tables") if k not in arrays]
@@ -70,7 +73,7 @@ def geom_to_arrays(geom: DGGeom) -> dict:
     return out
 
 
-def state_from_arrays(arrays: dict, device="cpu",
+def state_from_arrays(arrays: dict, device=DEFAULT_DEVICE,
                       dtype: torch.dtype = torch.float64):
     """A DGState on ``device`` from a dict of numpy arrays."""
     from .inciter.dg import DGState
@@ -83,7 +86,7 @@ def state_to_arrays(state) -> dict:
     return {k: getattr(state, k).cpu().numpy() for k in STATE_FIELDS}
 
 
-def cg_geom_from_arrays(arrays: dict, device="cpu",
+def cg_geom_from_arrays(arrays: dict, device=DEFAULT_DEVICE,
                         dtype: torch.dtype = torch.float64) -> cg.CGGeom:
     """A CGGeom on ``device`` from a dict of numpy arrays."""
     if "nnode" not in arrays:
@@ -99,7 +102,7 @@ def cg_geom_to_arrays(geom: cg.CGGeom) -> dict:
     return out
 
 
-def edge_tables_from_arrays(arrays: dict, device="cpu",
+def edge_tables_from_arrays(arrays: dict, device=DEFAULT_DEVICE,
                             dtype: torch.dtype = torch.float64):
     """ALECG EdgeTables on ``device`` from a dict of numpy arrays."""
     from .inciter.alecg import EdgeTables
@@ -113,7 +116,7 @@ def edge_tables_to_arrays(edget) -> dict:
     return {k: getattr(edget, k).cpu().numpy() for k in EDGE_FIELDS}
 
 
-def cg_state_from_arrays(arrays: dict, device="cpu",
+def cg_state_from_arrays(arrays: dict, device=DEFAULT_DEVICE,
                          dtype: torch.dtype = torch.float64):
     """A CGState on ``device`` from a dict of numpy arrays."""
     from .inciter.diagcg import CGState

@@ -12,7 +12,9 @@
 namespace qtk {
 
 // DG(P1) compressible Euler: C components, K modes, G face and GV volume
-// quadrature points.  The wrappers check the shapes against these.
+// quadrature points.  The wrappers check the shapes against these.  The
+// face kernels of either order (K12, K13) take K and G as template
+// parameters of those names, which hide the P1 values below.
 constexpr int C = 5;
 constexpr int K = 4;
 constexpr int CK = C * K;
@@ -73,6 +75,34 @@ __device__ __forceinline__ void basis_p1(T x, T e, T z, T* B) {
   B[1] = T(2) * x + e + z - T(1);
   B[2] = T(3) * e + z - T(1);
   B[3] = T(4) * z - T(1);
+}
+
+// P2 Dubiner basis at reference point (x, e, z): the P1 modes, then the
+// six quadratic modes of ops/basis.py _basis_list, each written as the
+// torch expression is evaluated (left to right, no fused multiply-adds)
+template <typename T>
+__device__ __forceinline__ void basis_p2(T x, T e, T z, T* B) {
+  basis_p1(x, e, z, B);
+  B[4] = T(6) * x * x + e * e + z * z + T(6) * x * e + T(6) * x * z +
+         T(2) * e * z - T(6) * x - T(2) * e - T(2) * z + T(1);
+  B[5] = T(5) * e * e + z * z + T(10) * x * e + T(2) * x * z +
+         T(6) * e * z - T(2) * x - T(6) * e - T(2) * z + T(1);
+  B[6] = T(6) * z * z + T(12) * x * z + T(6) * e * z - T(2) * x - e -
+         T(7) * z + T(1);
+  B[7] = T(10) * e * e + z * z + T(8) * e * z - T(8) * e - T(2) * z + T(1);
+  B[8] = T(6) * z * z + T(18) * e * z - T(3) * e - T(7) * z + T(1);
+  B[9] = T(15) * z * z - T(10) * z + T(1);
+}
+
+// the NB-mode basis (NB = 4: P1, 10: P2) of the face kernels K12/K13
+template <typename T, int NB>
+__device__ __forceinline__ void basis_at(T x, T e, T z, T* B) {
+  static_assert(NB == 4 || NB == 10, "the face kernels take P1 or P2");
+  if constexpr (NB == 4) {
+    basis_p1(x, e, z, B);
+  } else {
+    basis_p2(x, e, z, B);
+  }
 }
 
 // sum_k B[k] * u[c*K + k] for one component, summed in k order

@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..mesh.derived import _TET_EDGES, gen_inpoed
 from ..mesh.geometry import tet_geometry
 from ..ops.alecg_fused import alecg_rhs, build_alecg_rows
@@ -82,7 +83,10 @@ def edge_arrays_np(coords: np.ndarray, inpoel: np.ndarray, nnode: int):
 
 
 def build_edge_tables(mesh, dtype: torch.dtype = torch.float64,
-                      device="cpu") -> EdgeTables:
+                      device=DEFAULT_DEVICE) -> EdgeTables:
+    """ALECG edge tables of a host UnsMesh, on the card unless ``device``
+    says otherwise."""
+    device = resolve_device(device)
     edges, A, ensup, _ = edge_arrays_np(mesh.coords, mesh.inpoel, mesh.nnode)
     xyz = np.stack([mesh.coords[edges[:, 0]].T, mesh.coords[edges[:, 1]].T])
     return EdgeTables(
@@ -222,9 +226,9 @@ class ALECGSolver:
 
 
 def make_alecg(system, mesh, cfl=0.5, const_dt=None, bcnodes=None,
-               dtype: torch.dtype = torch.float64, device="cpu"):
+               dtype: torch.dtype = torch.float64, device=DEFAULT_DEVICE):
     """Geometry + edge tables + solver, as quinoa_tpu's make_alecg, in
-    ``dtype`` on ``device``."""
+    ``dtype`` on ``device`` (the card unless the caller asks for another)."""
     geom = make_cggeom(mesh, dtype=dtype, device=device)
     edget = build_edge_tables(mesh, dtype=dtype, device=device)
     return ALECGSolver(system, geom, edget, cfl=cfl, const_dt=const_dt,

@@ -1,9 +1,9 @@
 """DG time stepping: SSP-RK3 with Superbee limiting and p-adaptivity, on
 torch.
 
-Port of quinoa_tpu/inciter/dg.py for DG(P1).  Each of the three RK
-stages limits, (stage 0) evaluates the p-adaptive dofs and the dt, takes
-the rhs and applies
+Port of quinoa_tpu/inciter/dg.py for DG(P1) and unlimited DG(P2).  Each of
+the three RK stages limits, (stage 0) evaluates the p-adaptive dofs and
+the dt, takes the rhs and applies
 
     u = rk0[s]*un + rk1[s]*(u + dt*r/M)
 
@@ -19,7 +19,11 @@ on a TPU:
   extrapolate, outlet faces): the fused face pass (K2 + K3) on the state
   masked by the dofmask, whose charvel gives the stage-0 dt;
 - otherwise the face Gauss-point path of dg_rhs (gathers K5, accumulation
-  K6) and, at stage 0, the dg_dt face sweep.
+  K6) and, at stage 0, the dg_dt face sweep;
+- DG(P2) (compressible Euler, no limiter, faces that need no coordinates):
+  the XLA-formulation volume integral with the source at the step's start
+  time in torch, then the single-stream face pass (K12 + K13), whose
+  charvel gives the stage-0 dt.
 
 p-adaptive runs (pref) re-evaluate ndofel at stage 0 (sticky indicator,
 one-ring promotion), zero the coarsened dofs at stage 0, and restore the
@@ -36,13 +40,13 @@ from typing import Optional
 import torch
 
 from ..ops.basis import eval_basis_np
-from ..ops.face_fused import fused_face_pass
+from ..ops.face_fused import fused_face_pass, fused_face_pass_nearfar
 from ..ops.nbr_bounds import (neighbor_mean_bounds, superbee_limit_window,
                               volume_rhs_plain)
 from ..ops.quadrature import gauss_tet, ng_diag
 from ..pde.dg import (DGGeom, _phys_gp, dg_dt, dg_dt_from_delt,
                       dg_initialize, dg_rhs, eval_ndof_sticky, needs_face_gp,
-                      propagate_ndof, require_slice, uview)
+                      propagate_ndof, require_slice, uview, volume_rhs)
 from ..pde.limiter import superbee_p1
 
 RK0 = (0.0, 3.0 / 4.0, 1.0 / 3.0)
@@ -59,16 +63,17 @@ class DGState:
 
 
 class DGSolver:
-    """Cell-centered DG(P1) solver on one device.
+    """Cell-centered DG(P1) and DG(P2) solver on one device.
 
-    limiter : None | 'superbeep1'
+    limiter : None | 'superbeep1' (P1 only)
     pref    : p-adaptive DG (P1 <-> P0 by gradient indicator,
               DG.cpp:1088-1163); tolref is the threshold.
 
     The signature mirrors quinoa_tpu's DGSolver without the WENO weight;
     what lies outside the port raises NotImplementedError: the WENO
-    limiter, rDG (evolve_ndof), P0/P2, source terms and a compressible
-    Euler flux other than HLLC on the fused face pass.
+    limiter, rDG (evolve_ndof), P0, a P2 limiter, p-adaptive P2, P2 on
+    the face Gauss-point path, source terms at P1 and a compressible
+    Euler flux other than HLLC on the fused face passes.
     """
 
     def __init__(
@@ -89,13 +94,17 @@ class DGSolver:
         if evolve_ndof not in (None, geom.ndof):
             raise NotImplementedError("rDG (evolve_ndof) is not ported")
         require_slice(system, geom)
+        if geom.ndof == 10 and (limiter is not None or pref):
+            raise NotImplementedError("DG(P2) is ported unlimited and "
+                                      "without p-adaptivity")
         self.system = system
         self.geom = geom
         self.cfl = cfl
         self.limiter = limiter
         self.pref = pref
         self.tolref = tolref
-        self.cflscale = 1.0 / 3.0   # 1/(2p+1) for p = 1
+        p = {4: 1.0, 10: 2.0}[geom.ndof]
+        self.cflscale = 1.0 / (2.0 * p + 1.0)
         self.const_dt = None if const_dt is None else torch.tensor(
             const_dt, dtype=geom.dtype, device=geom.device)
         self.face_gp = needs_face_gp(system, geom)
@@ -159,12 +168,20 @@ class DGSolver:
                 r = dg_rhs(system, g, u, dofmask, state.t, face_gp=True,
                            vol_rhs=rv)
             else:
-                # the fused pass sees the masked state; the rows it
-                # writes for inactive dofs are dropped by the restore
-                uf = u if dm is None or s == 0 else u * dm
-                if rv is None:
-                    rv = volume_rhs_plain(system, g, uf)
-                r, delt = fused_face_pass(system, g, uf, vol_rhs=rv)
+                if g.ndof == 10:
+                    # the source at the step's start time, as the JAX
+                    # step passes it to every stage's rhs
+                    r, delt = fused_face_pass(
+                        system, g, u, vol_rhs=volume_rhs(system, g, u,
+                                                         state.t))
+                else:
+                    # the fused pass sees the masked state; the rows it
+                    # writes for inactive dofs are dropped by the restore
+                    uf = u if dm is None or s == 0 else u * dm
+                    if rv is None:
+                        rv = volume_rhs_plain(system, g, uf)
+                    r, delt = fused_face_pass_nearfar(system, g, uf,
+                                                      vol_rhs=rv)
                 if s == 0 and self.const_dt is None:
                     dt = dg_dt_from_delt(g, delt) * (
                         self.cfl * self.cflscale)

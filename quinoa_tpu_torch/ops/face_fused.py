@@ -1,17 +1,23 @@
-"""The DG(P1) face pass: surface integral and the dt sweep's charvel.
+"""The DG face pass: surface integral and the dt sweep's charvel.
 
-Port of quinoa_tpu/ops/face_fused.py fused_face_pass_nearfar.  The TPU
-version splits faces into near/far streams and accumulates through
-one-hot window matmuls because a TPU core cannot gather or scatter in HBM.
-Here the pass is two kernels:
+Port of quinoa_tpu/ops/face_fused.py's two face passes.  The TPU versions
+split faces into near/far streams or el- and er-sorted tile passes and
+accumulate through one-hot window matmuls because a TPU core cannot gather
+or scatter in HBM.  Here each pass is two kernels, a thread per face and
+a thread per element:
 
-- K2 face_flux (csrc/face_flux.cu), one thread per face: the per-face
-  contributions contribL/contribR (C*K, F) and the weighted charvel mx (F,);
-- K3 face_to_elem (csrc/face_to_elem.cu), one thread per element: the sum
-  of its four faces through fose/fsideR, plus the volume term.
+- fused_face_pass_nearfar (DG(P1)): K2 face_flux (csrc/face_flux.cu), the
+  contracted per-face contributions contribL/contribR (C*K, F) and the
+  weighted charvel mx (F,); K3 face_to_elem (csrc/face_to_elem.cu), the
+  sum of an element's four faces through fose/fsideR plus the volume term;
+- fused_face_pass (DG(P1) and DG(P2), the single-stream pass): K12
+  face_wflux (csrc/face_wflux.cu), the weighted flux (C*G, F) and mx; K13
+  basis_accum (csrc/basis_accum.cu), each element contracting its faces'
+  weighted flux with its own basis and summing them.  At P2 the weighted
+  flux is 30 rows a face against K2's 100.
 
-On a CPU tensor each runs its plain torch version (face_flux_plain,
-face_to_elem_plain), the gather formulation of quinoa_tpu/pde/dg.py.
+On a CPU tensor each runs its plain torch version, in the kernel's
+operation order.
 """
 
 from __future__ import annotations
@@ -24,9 +30,10 @@ from .basis import eval_basis_cm
 from .face_accum import accumulate_faces_plain
 
 
-def face_flux_plain(system, geom, U):
-    """K2's plain version: (contribL, contribR, mx), summed over the G
-    face points in point order as the kernel does."""
+def _face_points(system, geom, U):
+    """Per face point g, in point order: (g, B_l (K, F), B_r (K, F), the
+    HLLC flux fl (C, F), the weight wt = w_g * area * fmask (F,), the
+    weighted charvel (F,)), the arithmetic K2 and K12 share."""
     C, K = system.ncomp, geom.ndof
     Uv = uview(U, C, K)
     UvL = Uv[:, :, geom.el.long()]                       # (C,K,F)
@@ -38,7 +45,6 @@ def face_flux_plain(system, geom, U):
     fa = geom.farea * geom.fmask
     wface = geom.tables["w_face"]
     fn = geom.fn
-    cL = cR = mx = None
     for g in range(len(wface)):
         sL = B_l[0, g] * UvL[:, 0]
         sR = B_r[0, g] * UvR[:, 0]
@@ -55,9 +61,18 @@ def face_flux_plain(system, geom, U):
         vl = system.charvel(sL, fn)
         vr = system.charvel(sR, fn)
         m = wt * torch.where(interior, torch.maximum(vl, vr), vl)
+        yield g, B_l[:, g], B_r[:, g], fl, wt, m
+
+
+def face_flux_plain(system, geom, U):
+    """K2's plain version: (contribL, contribR, mx), summed over the G
+    face points in point order as the kernel does."""
+    C, K = system.ncomp, geom.ndof
+    cL = cR = mx = None
+    for g, Bl, Br, fl, wt, m in _face_points(system, geom, U):
         wfl = fl * wt                                    # (C,F)
-        tl = B_l[:, g][None] * wfl[:, None]              # (C,K,F)
-        tr = B_r[:, g][None] * wfl[:, None]
+        tl = Bl[None] * wfl[:, None]                     # (C,K,F)
+        tr = Br[None] * wfl[:, None]
         if g == 0:
             cL, cR, mx = tl, tr, m
         else:
@@ -81,10 +96,49 @@ def delt_plain(geom, mx):
     return delt
 
 
-def fused_face_pass(system, geom, U, vol_rhs=None):
-    """U (C*K, E) -> (acc (C*K, E), delt (E,)): the accumulated surface
-    integral (plus vol_rhs when given, so acc is then the full rhs) and
-    the per-element summed charvel of the dt sweep."""
+def face_wflux_plain(system, geom, U):
+    """K12's plain version: (wfl (C*G, F), mx (F,)), the weighted flux at
+    each face point, row c*G + g as the JAX package's fused kernel writes
+    it (quinoa_tpu/ops/face_fused.py:181), and the weighted charvel summed
+    in point order."""
+    wfl, mx = [], None
+    for g, _, _, fl, wt, m in _face_points(system, geom, U):
+        wfl.append(fl * wt)
+        mx = m if g == 0 else mx + m
+    return torch.stack(wfl, dim=1).reshape(-1, geom.nface), mx
+
+
+def basis_accum_plain(geom, wfl, mx, rv=None):
+    """K13's plain version: (acc (C*K, E), delt (E,)).  Each side's
+    contraction sum_g B[:, g] * wfl[c*G + g] (in point order), then each
+    element's four faces in slot order: plus on faces where it is the
+    right side, minus where it is the left, on top of rv when given."""
+    K = geom.ndof
+    G = len(geom.tables["w_face"])
+    C = wfl.shape[0] // G
+    w = wfl.reshape(C, G, -1)
+    sides = []
+    for xi in (geom.xi_l, geom.xi_r):
+        B = eval_basis_cm(K, xi)                         # (K,G,F)
+        s = None
+        for g in range(G):
+            t = B[:, g][None] * w[:, g][:, None]         # (C,K,F)
+            s = t if g == 0 else s + t
+        sides.append(s.reshape(C * K, -1))
+    sL, sR = sides
+    acc = rv if rv is not None else wfl.new_zeros((C * K, geom.nelem))
+    for i in range(4):
+        f = geom.fose[i].long()
+        acc = torch.where(geom.fsideR[i] > 0, acc + sR[:, f],
+                          acc - sL[:, f])
+    return acc, delt_plain(geom, mx)
+
+
+def fused_face_pass_nearfar(system, geom, U, vol_rhs=None):
+    """DG(P1): U (C*K, E) -> (acc (C*K, E), delt (E,)) through K2 + K3:
+    the accumulated surface integral (plus vol_rhs when given, so acc is
+    then the full rhs) and the per-element summed charvel of the dt
+    sweep."""
     require_fused_physics(system, geom, face_pass=True)
     if U.device.type == "cpu":
         cL, cR, mx = face_flux_plain(system, geom, U)
@@ -93,3 +147,18 @@ def fused_face_pass(system, geom, U, vol_rhs=None):
                                    geom.fmask, geom.xi_l, geom.xi_r,
                                    geom.bctype, geom.ktab, system.eos)
     return kernels.face_to_elem(cL, cR, mx, geom.fose, geom.fsideR, vol_rhs)
+
+
+def fused_face_pass(system, geom, U, vol_rhs=None):
+    """The single-stream face pass, DG(P1) or DG(P2): U (C*K, E) -> (acc
+    (C*K, E), delt (E,)) through K12 + K13, as fused_face_pass_nearfar
+    returns them."""
+    require_fused_physics(system, geom, face_pass=True, ndofs=(4, 10))
+    if U.device.type == "cpu":
+        wfl, mx = face_wflux_plain(system, geom, U)
+        return basis_accum_plain(geom, wfl, mx, vol_rhs)
+    wfl, mx = kernels.face_wflux(U, geom.el, geom.er, geom.fn, geom.farea,
+                                 geom.fmask, geom.xi_l, geom.xi_r,
+                                 geom.bctype, geom.w_face, system.eos)
+    return kernels.basis_accum(wfl, mx, geom.fose, geom.fsideR, geom.xi_l,
+                               geom.xi_r, geom.ndof, vol_rhs)

@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..mesh.geometry import nodal_volumes, tet_geometry
 from ..ops.assembly import build_nsup
 from ..ops.node_window import node_assemble, node_gather
@@ -117,9 +118,11 @@ def coords_cache_np(coords: np.ndarray, inpoelT: np.ndarray):
 
 
 def make_cggeom(mesh, dtype: torch.dtype = torch.float64,
-                device="cpu") -> CGGeom:
+                device=DEFAULT_DEVICE) -> CGGeom:
     """Single-device CGGeom from a host UnsMesh (no padding).  Geometry is
-    derived in float64 on the host and cast to ``dtype`` on ``device``."""
+    derived in float64 on the host and cast to ``dtype`` on ``device``
+    (the card unless the caller asks for another)."""
+    device = resolve_device(device)
     J, grad = tet_geometry(mesh.coords, mesh.inpoel)
     if not (J > 0).all():
         raise ValueError("mesh has non-positive element Jacobians")

@@ -1,9 +1,10 @@
 """Discontinuous-Galerkin core: geometry tables and operators on torch
 tensors (feature-major layout).
 
-Port of quinoa_tpu/pde/dg.py for DG(P1): the fused face pass of
-coordinate-free compressible Euler, the face Gauss-point path (transport,
-Dirichlet and inlet faces), the p-adaptive dofmask and its indicator.
+Port of quinoa_tpu/pde/dg.py for DG(P1) and DG(P2): the fused face passes
+of coordinate-free compressible Euler, the volume integral with a
+manufactured source, the face Gauss-point path (transport, Dirichlet and
+inlet faces; P1), the p-adaptive dofmask and its indicator (P1).
 Layout as in the JAX package: the modal state is U (C*K, E) with row
 c*K+k, per-face slabs are (rows, F) and coordinates (3, n); the element or
 face axis is always last.
@@ -22,6 +23,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..mesh.derived import _TET_FACES, gen_esuel, gen_faces
 from ..ops.basis import eval_basis_cm, eval_basis_np, eval_dbdxi, mass_diag
 from ..ops.quadrature import gauss_tet, gauss_tri, ng_vol, ng_face, ng_init
@@ -112,6 +114,13 @@ class DGGeom:
         from ..kernels import pack_tables
 
         return pack_tables(self.tables, self.dtype, self.device)
+
+    @functools.cached_property
+    def w_face(self) -> torch.Tensor:
+        """The face quadrature weights (G,) in the geometry's dtype and
+        device, as the face kernels K12/K13 read them."""
+        return torch.as_tensor(self.tables["w_face"], dtype=self.dtype,
+                               device=self.device)
 
     @functools.cached_property
     def face_gp(self) -> torch.Tensor:
@@ -211,13 +220,15 @@ def build_dggeom(
     ndof: int,
     bc_sidesets: Optional[Dict[int, int]] = None,
     dtype: torch.dtype = torch.float64,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> DGGeom:
-    """Build single-device DG geometry from a host UnsMesh.
+    """Build single-device DG geometry from a host UnsMesh, on the card
+    unless ``device`` says otherwise.
 
     bc_sidesets maps side-set id -> BC code; unlisted boundary faces
     default to extrapolate.
     """
+    device = resolve_device(device)
     coords, inpoel = mesh.coords, mesh.inpoel
     E = mesh.nelem
 
@@ -330,32 +341,49 @@ def needs_face_gp(system, geom: DGGeom) -> bool:
 
 
 def require_slice(system, geom: DGGeom):
-    """Raise for what the port does not cover: anything but DG(P1),
-    source terms, and on the fused face pass (compressible Euler on faces
-    that need no coordinates) a flux other than HLLC."""
-    if geom.ndof != 4:
-        raise NotImplementedError(f"ndof={geom.ndof}: only DG(P1) is ported")
-    if system.has_src:
-        raise NotImplementedError("source terms are not ported")
-    if not needs_face_gp(system, geom):
-        require_fused_physics(system, geom, face_pass=True)
+    """Raise for what the port does not cover: anything but DG(P1) and
+    DG(P2); DG(P2) off the single-stream face pass (systems or faces that
+    need face coordinates); source terms at P1 (its volume integral is
+    the limit + volume kernel's, which has none); and on the fused face
+    passes (compressible Euler on faces that need no coordinates) a flux
+    other than HLLC."""
+    if geom.ndof not in (4, 10):
+        raise NotImplementedError(f"ndof={geom.ndof}: only DG(P1) and "
+                                  "DG(P2) are ported")
+    face_gp = needs_face_gp(system, geom)
+    if geom.ndof == 10 and face_gp:
+        raise NotImplementedError("DG(P2) runs the single-stream face pass "
+                                  "only: its face Gauss-point path is not "
+                                  "ported")
+    if system.has_src and geom.ndof != 10:
+        raise NotImplementedError("source terms are ported on the DG(P2) "
+                                  "route only")
+    if not face_gp:
+        require_fused_physics(system, geom, face_pass=True, ndofs=(4, 10))
 
 
-def require_fused_physics(system, geom: DGGeom, face_pass: bool = False):
-    """Raise unless kernel K1 (with face_pass: K2 + K3) covers the case:
-    DG(P1) source-free compressible Euler; the face kernel implements
-    HLLC on faces whose ghost needs no coordinates."""
-    if geom.ndof != 4:
-        raise NotImplementedError(f"ndof={geom.ndof}: only DG(P1) is ported")
-    if not getattr(system, "coord_free_flux", False) or system.has_src:
-        raise NotImplementedError("the fused kernels implement source-free "
-                                  "compressible Euler only")
+def require_fused_physics(system, geom: DGGeom, face_pass: bool = False,
+                          ndofs=(4,)):
+    """Raise unless the fused kernels cover the case, compressible Euler
+    with a coordinate-free flux at an ndof in ndofs: kernel K1 (the limit
+    + volume pass, DG(P1) without a source); with face_pass the face
+    passes (K2 + K3, or K12 + K13 at P1 and P2), which implement HLLC on
+    faces whose ghost needs no coordinates."""
+    if geom.ndof not in ndofs:
+        raise NotImplementedError(f"ndof={geom.ndof}: the fused kernels "
+                                  f"here take ndof in {tuple(ndofs)}")
+    if not getattr(system, "coord_free_flux", False):
+        raise NotImplementedError("the fused kernels implement compressible "
+                                  "Euler only")
     if face_pass:
         if getattr(system, "riemann_flux", "hllc") != "hllc":
             raise NotImplementedError("the face kernel implements HLLC only")
         if geom.has_coord_bc:
             raise NotImplementedError("the face kernel has no Dirichlet/"
                                       "inlet ghost (face Gauss-point path)")
+    elif system.has_src:
+        raise NotImplementedError("the limit + volume kernel has no source "
+                                  "term")
 
 
 # -- operators ---------------------------------------------------------------
@@ -384,32 +412,66 @@ def _face_states(geom: DGGeom, Um, C):
     return out
 
 
+def volume_rhs(system, geom: DGGeom, U, t=0.0):
+    """Volume and source integrals (C*K, E) of U, scaled by vol*emask, in
+    the JAX package's XLA formulation (quinoa_tpu/pde/dg.py:342-370):
+    einsums over the (G, K) tables, the flux columns at the volume points,
+    the jacInv contraction, and w*B times the source at (gp, t) when the
+    system has one.  The DG(P2) route's volume term: products the JAX
+    package leaves to XLA, so they stay torch here."""
+    C, K, E = system.ncomp, geom.ndof, U.shape[-1]
+    tb = geom.tables
+    dt_, dev = U.dtype, U.device
+    B_vol = torch.tensor(tb["B_vol"], dtype=dt_, device=dev)       # (G,K)
+    wdB = torch.tensor(tb["w_vol"][:, None, None] * tb["dBdxi_vol"],
+                       dtype=dt_, device=dev)                     # (G,K,3)
+    state = torch.einsum("gk,cke->cge", B_vol, uview(U, C, K))    # (C,G,E)
+    gp = geom.vol_gp                                              # (3,G,E)
+    Fj = system.flux_cols(state, gp, t)
+    J = geom.jacInv
+    Fref = torch.stack([Fj[0] * J[m, 0] + Fj[1] * J[m, 1] + Fj[2] * J[m, 2]
+                        for m in range(3)])                       # (3,C,G,E)
+    Rv = torch.einsum("gkm,mcge->cke", wdB, Fref)
+    if system.has_src:
+        wB = torch.tensor(tb["w_vol"][:, None] * tb["B_vol"], dtype=dt_,
+                          device=dev)                             # (G,K)
+        Rv = Rv + torch.einsum("gk,cge->cke", wB, system.src(gp, t))
+    return (Rv * (geom.vol * geom.emask)).reshape(C * K, E)
+
+
 def dg_rhs(system, geom: DGGeom, U, dofmask=None, t=0.0, face_gp=False,
            want_charvel=False, vol_rhs=None):
     """DG right-hand side (C*K, E): volume + surface integrals.
 
     dofmask (K, E) or None (every dof active): the state is masked and
     so is the result, as in quinoa_tpu/pde/dg.py:330-333, :451-452.
-    face_gp=False takes the fused face pass (kernels K2 + K3 on a card);
-    with want_charvel it also returns delt (E,), the dt sweep's
-    per-element summed charvel.  face_gp=True takes the face Gauss-point
-    path (:396-453): face states through the gather (K5), ghosts and the
-    flux at the face coordinates in torch, element sums through the
-    accumulation (K6).  vol_rhs, when given, replaces the volume
-    integral (the limit + volume pass made it).  t is the time the
-    boundary ghosts and the flux see.
+    The volume integral includes the system's source, if any (the
+    XLA formulation, volume_rhs; without a source at P1 the sum order of
+    the limit + volume kernel, volume_rhs_plain).  face_gp=False takes a
+    fused face pass: at P1 K2 + K3 on a card (fused_face_pass_nearfar),
+    at P2 K12 + K13 (fused_face_pass); with want_charvel it
+    also returns delt (E,), the dt sweep's per-element summed charvel.
+    face_gp=True takes the face Gauss-point path (:396-453): face states
+    through the gather (K5), ghosts and the flux at the face coordinates
+    in torch, element sums through the accumulation (K6).  vol_rhs, when
+    given, replaces the volume integral (the limit + volume pass made it).
+    t is the time the boundary ghosts, the flux and the source see.
     """
     if face_gp and want_charvel:
         raise ValueError("the face Gauss-point path has no charvel: use "
                          "dg_dt")
     from ..ops.face_accum import accumulate_faces
-    from ..ops.face_fused import fused_face_pass
+    from ..ops.face_fused import fused_face_pass, fused_face_pass_nearfar
     from ..ops.nbr_bounds import volume_rhs_plain
 
     C, K = system.ncomp, geom.ndof
     Um = _masked(U, dofmask, C)
-    Rv = volume_rhs_plain(system, geom, Um, t) if vol_rhs is None \
-        else vol_rhs
+    if vol_rhs is not None:
+        Rv = vol_rhs
+    elif K == 4 and not system.has_src:
+        Rv = volume_rhs_plain(system, geom, Um, t)   # K1's sum order
+    else:
+        Rv = volume_rhs(system, geom, Um, t)
     if face_gp:
         sL, B_l, sR, B_r = _face_states(geom, Um, C)
         gpf, fnf = geom.face_gp, geom.fn[:, None, :]
@@ -430,7 +492,8 @@ def dg_rhs(system, geom: DGGeom, U, dofmask=None, t=0.0, face_gp=False,
                              cR.reshape(C * K, -1), Rv)
         delt = None
     else:
-        r, delt = fused_face_pass(system, geom, Um, vol_rhs=Rv)
+        face_pass = fused_face_pass if K == 10 else fused_face_pass_nearfar
+        r, delt = face_pass(system, geom, Um, vol_rhs=Rv)
     if dofmask is not None:
         r = r * dofmask.repeat(C, 1)
     return (r, delt) if want_charvel else r

@@ -1,6 +1,7 @@
 """Problem policies: initial and analytic solutions."""
 
-from .compflow import SedovBlastwave, VorticalFlow
+from .compflow import SedovBlastwave, TaylorGreen, VorticalFlow
 from .transport import GaussHump, SlotCyl
 
-__all__ = ["GaussHump", "SedovBlastwave", "SlotCyl", "VorticalFlow"]
+__all__ = ["GaussHump", "SedovBlastwave", "SlotCyl", "TaylorGreen",
+           "VorticalFlow"]

@@ -3,7 +3,8 @@
 Port of the part of quinoa_tpu/pde/problems/compflow.py the port's paths
 need: the problem base class with its manufactured source, SedovBlastwave
 (reference SedovBlastwave.cpp:28-100), VorticalFlow (VorticalFlow.cpp:
-28-64, the ALECG compflow leg) and the inviscid flux column.  Coordinates
+28-64, the ALECG compflow leg), TaylorGreen (TaylorGreen.cpp:28-90, the
+DG(P2) leg) and the inviscid flux column.  Coordinates
 arrive as (3, n); solutions are (5, n) with conservative components
 (rho, rho*u, rho*v, rho*w, rhoE).
 
@@ -17,6 +18,7 @@ three coordinate directions.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch.func import jvp
@@ -128,3 +130,25 @@ class VorticalFlow(CompFlowProblem):
             self.p0 - 2.0 * a * a * z * z
         ) / (g - 1.0)
         return torch.stack([torch.ones_like(x), ru, rv, rw, rE])
+
+
+@dataclasses.dataclass(frozen=True)
+class TaylorGreen(CompFlowProblem):
+    """Steady 2-D Taylor-Green vortex (TaylorGreen.cpp:28-90); the closed
+    form of its energy source assumes gamma=5/3, which all reference decks
+    set."""
+
+    eos: StiffenedGas = StiffenedGas(gamma=5.0 / 3.0)
+    manufactured: bool = True
+    steady: bool = True
+
+    def solution(self, xyz, t):
+        x, y = xyz[0], xyz[1]
+        r = torch.ones_like(x)
+        pr = 10.0 + (torch.cos(2 * math.pi * x)
+                     + torch.cos(2 * math.pi * y)) / 4.0
+        u = torch.sin(math.pi * x) * torch.cos(math.pi * y)
+        v = -torch.cos(math.pi * x) * torch.sin(math.pi * y)
+        w = torch.zeros_like(x)
+        rE = self.eos.totalenergy(r, u, v, w, pr)
+        return torch.stack([r, r * u, r * v, r * w, rE])

@@ -116,7 +116,8 @@ def case(request):
     mesh = _ordered(**meshkw)
     jsys, tsys = systems()
     js = j_make_alecg(jsys, mesh, cfl=cfl, bcnodes=mesh.all_bnodes())
-    ts = make_alecg(tsys, mesh, cfl=cfl, bcnodes=mesh.all_bnodes())
+    ts = make_alecg(tsys, mesh, cfl=cfl, bcnodes=mesh.all_bnodes(),
+                    device="cpu")
     return request.param, mesh, js, ts, nsteps
 
 
@@ -156,12 +157,13 @@ def test_cggeom_and_lumped_mass_match(case):
                                rtol=GEOM_RTOL, atol=0)
     arrays = {f.name: np.asarray(getattr(jg, f.name))
               for f in dataclasses.fields(jg) if f.name != "plan"}
-    back = convert.cg_geom_to_arrays(convert.cg_geom_from_arrays(arrays))
+    back = convert.cg_geom_to_arrays(
+        convert.cg_geom_from_arrays(arrays, device="cpu"))
     for k, v in back.items():
         np.testing.assert_array_equal(v, arrays[k])
     with pytest.raises(KeyError):
         convert.cg_geom_from_arrays({k: v for k, v in arrays.items()
-                                     if k != "nsup"})
+                                     if k != "nsup"}, device="cpu")
 
 
 def test_edge_tables_match(case):
@@ -178,7 +180,7 @@ def test_edge_tables_match(case):
     arrays = {k: np.asarray(getattr(je, k))
               for k in ("edges", "A", "ensup", "xyz")}
     back = convert.edge_tables_to_arrays(
-        convert.edge_tables_from_arrays(arrays))
+        convert.edge_tables_from_arrays(arrays, device="cpu"))
     for k, v in back.items():
         np.testing.assert_array_equal(v, arrays[k])
 
@@ -330,7 +332,7 @@ def test_stage_rhs_matches_pallas(name):
     mesh = _ordered(6, 6, 4, lo=lo, hi=hi)
     jsys, tsys = systems()
     js = j_make_alecg(jsys, mesh, cfl=cfl)
-    ts = make_alecg(tsys, mesh, cfl=cfl)
+    ts = make_alecg(tsys, mesh, cfl=cfl, device="cpu")
     fp = build_alecg_fused_plan(jsys, js.geom, js.edget)
     assert fp is not None and fp.kind == ("transport" if name == "slotcyl"
                                           else "compflow")
@@ -367,7 +369,8 @@ def test_solver_matches_jax(case):
                  (rt.linferr, rj.linferr)):
         np.testing.assert_allclose(x, y, rtol=1e-10, atol=1e-14)
     st = convert.cg_state_from_arrays(
-        {k: np.asarray(getattr(a, k)) for k in ("u", "t", "it", "dt")})
+        {k: np.asarray(getattr(a, k)) for k in ("u", "t", "it", "dt")},
+        device="cpu")
     for k, v in convert.cg_state_to_arrays(st).items():
         np.testing.assert_array_equal(v, np.asarray(getattr(a, k)))
 
@@ -378,7 +381,8 @@ def test_const_dt_matches_jax():
     bc = mesh.all_bnodes()
     js = j_make_alecg(JTransport(JSlotCyl()), mesh, const_dt=1e-3,
                       bcnodes=bc)
-    ts = make_alecg(CGTransport(SlotCyl()), mesh, const_dt=1e-3, bcnodes=bc)
+    ts = make_alecg(CGTransport(SlotCyl()), mesh, const_dt=1e-3, bcnodes=bc,
+                    device="cpu")
     a = js.nsteps(js.initial_state(), 3)
     b = ts.nsteps(ts.initial_state(), 3)
     assert float(b.dt) == 1e-3 and abs(float(b.t) - 3e-3) < 1e-15

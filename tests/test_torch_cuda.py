@@ -20,16 +20,20 @@ from quinoa_tpu_torch.mesh import box_tet_mesh, hilbert_element_reorder
 from quinoa_tpu_torch.ops.face_accum import (accumulate_faces,
                                              accumulate_faces_plain,
                                              face_gather, face_gather_plain)
-from quinoa_tpu_torch.ops.face_fused import (face_flux_plain,
+from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
+                                             face_flux_plain,
                                              face_to_elem_plain,
-                                             fused_face_pass)
+                                             face_wflux_plain,
+                                             fused_face_pass,
+                                             fused_face_pass_nearfar)
 from quinoa_tpu_torch.ops.nbr_bounds import (limit_vol_plain,
                                              neighbor_mean_bounds,
                                              neighbor_mean_bounds_plain,
                                              superbee_limit_window)
 from quinoa_tpu_torch.pde.dg import BC_DIRICHLET, BC_SYMMETRY, build_dggeom
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow, DGTransport
-from quinoa_tpu_torch.pde.problems import GaussHump, SedovBlastwave
+from quinoa_tpu_torch.pde.problems import (GaussHump, SedovBlastwave,
+                                           TaylorGreen)
 
 pytestmark = pytest.mark.cuda
 
@@ -40,7 +44,8 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 ZERO = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0, "nbr_bounds": 0,
         "face_gather": 0, "face_accum": 0, "alecg_vol": 0, "alecg_vol_cf": 0,
         "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0,
-        "node_gather": 0, "node_assemble": 0}
+        "node_gather": 0, "node_assemble": 0, "face_wflux": 0,
+        "basis_accum": 0}
 
 
 @pytest.fixture(scope="module")
@@ -51,10 +56,10 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _geom(device, dtype):
+def _geom(device, dtype, ndof=4):
     mesh, _ = hilbert_element_reorder(
         box_tet_mesh(6, 6, 4, hi=(0.6, 0.6, 0.4)))
-    return build_dggeom(mesh, 4, {i: BC_SYMMETRY for i in range(1, 7)},
+    return build_dggeom(mesh, ndof, {i: BC_SYMMETRY for i in range(1, 7)},
                         dtype=dtype, device=device)
 
 
@@ -80,7 +85,7 @@ def test_kernels_match_plain_versions(card, dtype):
     kernels.reset_launches()
     ulim, rv = superbee_limit_window(g, U, system)
     _close((ulim, rv), limit_vol_plain(system, g, U), dtype)
-    r, delt = fused_face_pass(system, g, ulim, rv)
+    r, delt = fused_face_pass_nearfar(system, g, ulim, rv)
     _close((r, delt),
            face_to_elem_plain(g, *face_flux_plain(system, g, ulim), rv),
            dtype)
@@ -176,6 +181,60 @@ def test_new_paths_on_card_match_cpu(card, case):
             "gausshump": ("face_gather", "face_accum"),
             "gausshump_pdg": ("face_gather", "face_accum")}[case]
     assert {k for k, v in kernels.launches.items() if v} == set(path)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ndof", [4, 10])
+def test_single_stream_kernels_match_plain_versions(card, ndof, dtype):
+    """K12 and K13 at P1 and P2 against their plain versions bit for bit
+    (the same expressions in the same order, sums in point and slot
+    order), alone and as fused_face_pass."""
+    system = DGCompFlow(SedovBlastwave())
+    g = _geom(card, dtype, ndof)
+    rng = np.random.default_rng(9)
+    U = rng.random((5 * ndof, g.nelem)) * 0.01
+    U[0] += 1.0
+    U[4 * ndof] += 2.5
+    U = torch.as_tensor(U).to(dtype).to(card)
+    rv = torch.as_tensor(rng.standard_normal(U.shape)).to(dtype).to(card)
+    kernels.reset_launches()
+    wfl, mx = kernels.face_wflux(U, g.el, g.er, g.fn, g.farea, g.fmask,
+                                 g.xi_l, g.xi_r, g.bctype, g.w_face,
+                                 system.eos)
+    pw, pm = face_wflux_plain(system, g, U)
+    assert torch.equal(wfl, pw) and torch.equal(mx, pm)
+    for base in (None, rv):
+        got = kernels.basis_accum(wfl, mx, g.fose, g.fsideR, g.xi_l, g.xi_r,
+                                  ndof, base)
+        for a, b in zip(got, basis_accum_plain(g, pw, pm, base)):
+            assert torch.equal(a, b)
+    for a, b in zip(fused_face_pass(system, g, U, rv),
+                    basis_accum_plain(g, pw, pm, rv)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**ZERO, "face_wflux": 2, "basis_accum": 3}
+
+
+def test_p2_solver_on_card_matches_cpu(card):
+    """Two float64 DG(P2) TaylorGreen steps on the card against the CPU:
+    u atol 1e-11, dt rtol 1e-12, 3 launches each of K12 and K13 a step and
+    no other kernel."""
+    def solver(device):
+        mesh, _ = hilbert_element_reorder(
+            box_tet_mesh(4, 4, 3, hi=(1.0, 1.0, 0.75)))
+        g = build_dggeom(mesh, 10, {i: BC_SYMMETRY for i in range(1, 7)},
+                         dtype=torch.float64, device=device)
+        return DGSolver(DGCompFlow(TaylorGreen()), g, cfl=0.5)
+
+    a, b = solver(card), solver("cpu")
+    kernels.reset_launches()
+    sa = a.nsteps(a.initial_state(), 2)
+    sb = b.nsteps(b.initial_state(), 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(sa.u).all())
+    assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11
+    assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
+    assert kernels.launches == {**ZERO, "face_wflux": 6, "basis_accum": 6}
 
 
 def _alecg(case, device, dtype=torch.float64):

@@ -196,7 +196,7 @@ def pair(request):
     mesh, _ = j_hilbert(mesh)
     mesh, _ = j_first_touch(mesh)
     jsys, tsys = _systems(request.param)
-    jg, tg = j_make_cggeom(mesh), make_cggeom(mesh)
+    jg, tg = j_make_cggeom(mesh), make_cggeom(mesh, device="cpu")
     rng = np.random.default_rng(12)
     u0 = np.asarray(jsys.initialize(jg.coords, 0.0))
     u = u0 * (1.0 + 0.05 * rng.random(u0.shape))
@@ -284,7 +284,7 @@ def test_solver_matches_jax(run):
     jsys, tsys = _systems(system)
     js = JSolver(jsys, j_make_cggeom(mesh), cfl=cfl,
                  bcnodes=mesh.all_bnodes(), **kw)
-    ts = DiagCGSolver(tsys, make_cggeom(mesh), cfl=cfl,
+    ts = DiagCGSolver(tsys, make_cggeom(mesh, device="cpu"), cfl=cfl,
                       bcnodes=mesh.all_bnodes(), **kw)
     a, b = js.initial_state(), ts.initial_state()
     np.testing.assert_array_equal(b.u.numpy(), np.asarray(a.u))
@@ -310,7 +310,7 @@ def test_solver_matches_jax(run):
 def test_conservative_without_bc():
     """Without Dirichlet nodes TG + FCT conserves sum(u vol) to 1e-12."""
     mesh = box_tet_mesh(10, 10, 3, hi=(1.0, 1.0, 0.3))
-    geom = make_cggeom(mesh)
+    geom = make_cggeom(mesh, device="cpu")
     s = DiagCGSolver(CGTransport(SlotCyl()), geom, cfl=0.5, bcnodes=None)
     st = s.initial_state()
     m0 = float((st.u[0] * geom.vol).sum())
@@ -322,8 +322,8 @@ def test_conservative_without_bc():
 def test_fct_monotone():
     """FCT keeps SlotCyl within its initial bounds (1e-10) over 20 steps."""
     mesh = box_tet_mesh(16, 16, 4, hi=(1.0, 1.0, 0.25))
-    s = DiagCGSolver(CGTransport(SlotCyl()), make_cggeom(mesh), cfl=0.8,
-                     bcnodes=mesh.all_bnodes())
+    s = DiagCGSolver(CGTransport(SlotCyl()), make_cggeom(mesh, device="cpu"),
+                     cfl=0.8, bcnodes=mesh.all_bnodes())
     u0 = s.initial_state().u
     u = s.nsteps(s.initial_state(), 20).u
     assert bool(torch.isfinite(u).all())
@@ -338,7 +338,8 @@ def test_cpu_tensors_launch_no_kernel():
     for name in ("slotcyl", "vortical"):
         meshkw, system, cfl, _ = RUNS[name]
         mesh = box_tet_mesh(**dict(meshkw, nx=4, ny=4, nz=3))
-        s = DiagCGSolver(_systems(system)[1], make_cggeom(mesh), cfl=cfl,
+        s = DiagCGSolver(_systems(system)[1],
+                         make_cggeom(mesh, device="cpu"), cfl=cfl,
                          bcnodes=mesh.all_bnodes())
         s.nsteps(s.initial_state(), 1)
         g = s.geom

@@ -27,7 +27,8 @@ from quinoa_tpu.pde.dg_compflow import DGCompFlow as JCompFlow
 from quinoa_tpu.pde.problems import SedovBlastwave as JSedov
 
 from quinoa_tpu_torch import convert
-from quinoa_tpu_torch.ops.face_fused import face_flux_plain, fused_face_pass
+from quinoa_tpu_torch.ops.face_fused import (face_flux_plain,
+                                             fused_face_pass_nearfar)
 from quinoa_tpu_torch.ops.nbr_bounds import volume_rhs_plain
 from quinoa_tpu_torch.pde.dg import dg_dt, dg_dt_from_delt, dg_rhs
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow as TCompFlow
@@ -46,7 +47,7 @@ def case():
     arrays = {f.name: np.asarray(getattr(jg, f.name))
               for f in dataclasses.fields(jg) if f.name != "tables"}
     arrays["tables"] = dict(jg.tables)
-    tg = convert.geom_from_arrays(arrays)
+    tg = convert.geom_from_arrays(arrays, device="cpu")
     rng = np.random.default_rng(3)
     E, K = jg.nelem, 4
     U0 = np.zeros((5 * K, E))
@@ -58,8 +59,8 @@ def case():
             U0[ck] = 0.01 * rng.random(E)
     tsys = TCompFlow(TSedov())
     tU = torch.as_tensor(U0)
-    r, delt = fused_face_pass(tsys, tg, tU,
-                              vol_rhs=volume_rhs_plain(tsys, tg, tU))
+    r, delt = fused_face_pass_nearfar(tsys, tg, tU,
+                                      vol_rhs=volume_rhs_plain(tsys, tg, tU))
     return jg, tg, U0, r.numpy(), delt
 
 

@@ -68,7 +68,7 @@ def test_build_dggeom_tables_equal(meshes, bc):
     _, mesh = meshes
     jg = jax_geom_arrays(j_build(mesh, ndof=4, bc_sidesets=bc))
     tg = convert.geom_to_arrays(t_build(mesh, ndof=4, bc_sidesets=bc,
-                                        dtype=torch.float64))
+                                        dtype=torch.float64, device="cpu"))
     for name in GEOM_TENSOR_FIELDS:
         assert tg[name].shape == jg[name].shape, name
         assert tg[name].dtype == jg[name].dtype, name
@@ -89,10 +89,11 @@ def test_convert_round_trip(meshes):
     bc = {i: BC_SYMMETRY for i in range(1, 7)}
     jgeom = j_build(mesh, ndof=4, bc_sidesets=bc)
     arrays = jax_geom_arrays(jgeom)
-    back = convert.geom_to_arrays(convert.geom_from_arrays(arrays))
+    back = convert.geom_to_arrays(convert.geom_from_arrays(arrays,
+                                                           device="cpu"))
     for name in GEOM_TENSOR_FIELDS:
         np.testing.assert_array_equal(back[name], arrays[name], err_msg=name)
-    g32 = convert.geom_from_arrays(arrays, dtype=torch.float32)
+    g32 = convert.geom_from_arrays(arrays, dtype=torch.float32, device="cpu")
     assert g32.vol.dtype == torch.float32 and g32.fose.dtype == torch.int32
     np.testing.assert_array_equal(g32.xi_l.numpy(),
                                   arrays["xi_l"].astype(np.float32))
@@ -100,7 +101,7 @@ def test_convert_round_trip(meshes):
     js = JSolver(JCompFlow(JSedov()), jgeom, cfl=0.5, limiter="superbeep1")
     st = js.initial_state()
     sarr = {k: np.asarray(getattr(st, k)) for k in convert.STATE_FIELDS}
-    tstate = convert.state_from_arrays(sarr)
+    tstate = convert.state_from_arrays(sarr, device="cpu")
     assert tstate.u.shape == sarr["u"].shape
     for k, v in convert.state_to_arrays(tstate).items():
         np.testing.assert_array_equal(v, sarr[k], err_msg=k)
@@ -112,8 +113,54 @@ def test_dg_initialize_matches(meshes):
     _, mesh = meshes
     bc = {i: BC_SYMMETRY for i in range(1, 7)}
     jg = j_build(mesh, ndof=4, bc_sidesets=bc)
-    tg = convert.geom_from_arrays(jax_geom_arrays(jg))
+    tg = convert.geom_from_arrays(jax_geom_arrays(jg), device="cpu")
     uj = np.asarray(j_init(JCompFlow(JSedov()), jg, 0.0))
     ut = t_init(TCompFlow(TSedov()), tg, 0.0).numpy()
     assert np.abs(uj).max() > 1e3  # the hot corner is inside the box
     np.testing.assert_allclose(ut, uj, rtol=0, atol=1e-12)
+
+
+def _builder_calls(mesh):
+    """Each port builder called without a device, on small inputs."""
+    from quinoa_tpu_torch.inciter.alecg import build_edge_tables, make_alecg
+    from quinoa_tpu_torch.pde.cg import CGTransport, make_cggeom
+    from quinoa_tpu_torch.pde.problems import SlotCyl
+
+    g = t_build(mesh, 4, {i: BC_SYMMETRY for i in range(1, 7)},
+                device="cpu")
+    garr = convert.geom_to_arrays(g)
+    cg = make_cggeom(mesh, device="cpu")
+    cgarr = convert.cg_geom_to_arrays(cg)
+    u = np.zeros((20, g.nelem))
+    sarr = {"u": u, "ndofel": np.full(g.nelem, 4), "t": 0.0, "it": 0,
+            "dt": 0.0}
+    carr = {"u": np.zeros((1, cg.nnode)), "t": 0.0, "it": 0, "dt": 0.0}
+    earr = convert.edge_tables_to_arrays(build_edge_tables(mesh,
+                                                           device="cpu"))
+    return {
+        "build_dggeom": lambda: t_build(mesh, 4, {1: BC_SYMMETRY}),
+        "make_cggeom": lambda: make_cggeom(mesh),
+        "build_edge_tables": lambda: build_edge_tables(mesh),
+        "make_alecg": lambda: make_alecg(CGTransport(SlotCyl()), mesh),
+        "geom_from_arrays": lambda: convert.geom_from_arrays(garr),
+        "state_from_arrays": lambda: convert.state_from_arrays(sarr),
+        "cg_geom_from_arrays": lambda: convert.cg_geom_from_arrays(cgarr),
+        "edge_tables_from_arrays":
+            lambda: convert.edge_tables_from_arrays(earr),
+        "cg_state_from_arrays": lambda: convert.cg_state_from_arrays(carr),
+    }
+
+
+@pytest.mark.parametrize("builder", [
+    "build_dggeom", "make_cggeom", "build_edge_tables", "make_alecg",
+    "geom_from_arrays", "state_from_arrays", "cg_geom_from_arrays",
+    "edge_tables_from_arrays", "cg_state_from_arrays"])
+def test_builders_default_to_the_card(monkeypatch, builder):
+    """Called without a device, every builder targets CUDA: with no CUDA
+    device it raises instead of building on the CPU."""
+    from quinoa_tpu_torch.mesh import box_tet_mesh as t_box
+
+    call = _builder_calls(t_box(2, 2, 2))[builder]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()

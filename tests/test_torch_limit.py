@@ -52,7 +52,7 @@ def case():
     mesh = box_tet_mesh(6, 6, 4, hi=(0.6, 0.6, 0.4))
     bc = {i: BC_SYMMETRY for i in range(1, 7)}
     jg = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    tg = convert.geom_from_arrays(_arrays(jg))
+    tg = convert.geom_from_arrays(_arrays(jg), device="cpu")
     rng = np.random.default_rng(5)
     U0 = rng.standard_normal((C * K, jg.nelem)) * 0.1
     U0[[c * K for c in range(C)]] += 2.0

@@ -61,7 +61,7 @@ def case():
     mesh = box_tet_mesh(6, 6, 4, hi=(0.6, 0.6, 0.4))
     bc = {i: BC_SYMMETRY for i in range(1, 7)}
     jg = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    tg = convert.geom_from_arrays(_arrays(jg))
+    tg = convert.geom_from_arrays(_arrays(jg), device="cpu")
     rng = np.random.default_rng(21)
     E = jg.nelem
     U0 = rng.standard_normal((C * K, E)) * 0.1
@@ -130,7 +130,7 @@ def sedov_pdg():
         box_tet_mesh(6, 6, 4, hi=(0.6, 0.6, 0.4)))
     bc = {i: BC_SYMMETRY for i in range(1, 7)}
     jg = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    tg = convert.geom_from_arrays(_arrays(jg))
+    tg = convert.geom_from_arrays(_arrays(jg), device="cpu")
     kw = dict(cfl=0.5, limiter="superbeep1", pref=True)
     js = JSolver(JCompFlow(JSedov()), jg, **kw)
     ts = DGSolver(TCompFlow(TSedov()), tg, **kw)

@@ -66,7 +66,7 @@ def geoms():
     mesh = box_tet_mesh(10, 10, 2, hi=(1.0, 1.0, 0.2))
     jg = build_dggeom(mesh, ndof=4,
                       bc_sidesets={i: BC_DIRICHLET for i in range(1, 7)})
-    return jg, convert.geom_from_arrays(_arrays(jg))
+    return jg, convert.geom_from_arrays(_arrays(jg), device="cpu")
 
 
 def _hump_state(E, seed, C=1):
@@ -142,7 +142,7 @@ def test_compflow_dirichlet_face_gp_rhs_matches_jax(flux):
     bc = {i: BC_DIRICHLET for i in range(1, 4)}
     bc.update({i: BC_SYMMETRY for i in range(4, 7)})
     jg = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
-    tg = convert.geom_from_arrays(_arrays(jg))
+    tg = convert.geom_from_arrays(_arrays(jg), device="cpu")
     rng = np.random.default_rng(9)
     U = rng.random((5 * K, jg.nelem)) * 0.01
     U[0] += 1.0
