@@ -4,8 +4,9 @@
 Drives the port's three DG(P1) paths and its two ALECG paths at 48^3
 (663,552 tets; 117,649 nodes and 795,024 edges), its two DiagCG + FCT
 paths (SlotCyl at 64^3: 1,572,864 tets and 274,625 nodes; VorticalFlow at
-48^3) and its DG(P2) path (TaylorGreen at 32^3: 196,608 tets, 399,360
-faces) in float32 through their hand-written CUDA kernels:
+48^3), its DG(P2) path (TaylorGreen at 32^3: 196,608 tets, 399,360
+faces), its DG(P0) Sod path and its three multi-material paths (48^3) in
+float32 through their hand-written CUDA kernels:
 
 1. card    the name and power limit from nvidia-smi;
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -20,7 +21,12 @@ faces) in float32 through their hand-written CUDA kernels:
            a NaN in a max row) on the DiagCG meshes; K12 and K13 on the
            32^3 P2 TaylorGreen initial state (float64 on a small P2 mesh),
            and K12 + K13 at P1 against K2 + K3 on the Sedov state (their
-           difference and both times); each timed kernel
+           difference and both times); K12 and K13 at (K, G) = (1, 1) on a
+           perturbed 48^3 Sod state, K14 mm_face_wflux (nmat 2 at P0 and
+           P1, nmat 3 at P0) and K13 at its 16 and 22 rows on perturbed
+           multimat states, K4 at mm_p1's 9 components, K5 on
+           mm_iface's 12 rows and K6 on its Dirichlet face rows (22)
+           (float64 on small meshes); each timed kernel
            also gets its bound (bytes of its inputs read once and outputs
            written once over 3.35 TB/s, or its operations over 67 TFLOP/s,
            whichever is larger) and, where one PyTorch call computes the
@@ -28,7 +34,9 @@ faces) in float32 through their hand-written CUDA kernels:
            solvers on the card against the same solvers on the CPU (Sedov
            P1, Sedov pdg, GaussHump, GaussHump pdg, ALECG and DiagCG
            SlotCyl and VorticalFlow, P2 TaylorGreen: 2 steps, u atol
-           1e-11, dt rtol 1e-12, ndofel equal where the state has one);
+           1e-11, dt rtol 1e-12, ndofel equal where the state has one),
+           and four more (P0 Sod and the three multimat paths; u atol
+           1e-11 of max(1, max|u|));
 4. p1      the Sedov DG(P1) HLLC + Superbee step (bench.py) from its
            initial_state(): 1 warm-up and 10 timed steps through K1, K2
            and K3, 33 launches each; then the same 11 steps from the
@@ -61,7 +69,22 @@ faces) in float32 through their hand-written CUDA kernels:
            and K13 basis_accum, 3 launches each a step; finite, L2(sol)
            and L2(err) against the JAX package's CPU result (JAX_L2); then
            5 steps under torch.profiler and the host time of a stage's
-           volume integral, source and face pass.
+           volume integral, source and face pass;
+12. p0      Euler DG(P0) SodShocktube at 48^3 (extrapolate on the x faces,
+           symmetry on the others, cfl 0.5): 1 + 10 steps through K12 and
+           K13 at (1, 1), 3 launches each a step;
+13. mm_p0   two-material MMSodShocktube, MultiMatSolver DG(P0), same mesh
+           and faces, cfl 0.5: through K14 and K13 (16 rows);
+14. mm_p1   the same at DG(P1) with consistent Superbee: K4, K14, K13;
+15. mm_iface three-material MMInterfaceAdvection at DG(P0), Dirichlet on
+           all six sides, cfl 0.4: the Dirichlet route, K5 (8 a step) and
+           K6 (3 a step).
+           Paths 12-15 gate L2(sol) after 11 steps against the JAX
+           package's CPU float32 run (JAX_L2, jax_reference_l2.py) and,
+           for multimat, the cell-mean fractions' minimum and sum; each
+           ends with a torch.profiler window, mm_p1 also with the host
+           time of a stage's limiter, volume integral, face pass,
+           non-conservative terms and alpha closure.
 
 Every path sets the launch counts to 0 just before it and reads them just
 after; a kernel of the path that did not launch as stated, or one that
@@ -137,19 +160,61 @@ JAX_L2 = {
            "l2err": [2.340200495609679e-07, 1.983560423468589e-06,
                      1.974215820155223e-06, 6.455498464674747e-07,
                      7.111129889381118e-06]},
+    # paths 12-15 (jax_reference_l2.py: the JAX package's DGSolver or
+    # MultiMatSolver on the Hilbert-ordered 48^3 box, build_dggeom in
+    # float32, 11 step() calls from initial_state(), then DGDiagnostics;
+    # L2(sol) only is gated; t after 11 steps 5.932412e-3, 5.657528e-3,
+    # 2.078030e-3 and 1.792473e-5)
+    "p0": {"l2sol": [0.7100173234939575, 0.030790921300649643,
+                     0.00250361324287951, 0.00250361324287951,
+                     1.7688935995101929]},
+    "mm_p0": {"l2sol": [0.7074539065361023, 0.7043488025665283,
+                        0.7048956751823425, 0.0884728729724884,
+                        0.030825775116682053, 0.002838805550709367,
+                        0.0028388036880642176, 1.760284423828125,
+                        0.1799716204404831]},
+    "mm_p1": {"l2sol": [0.7071330547332764, 0.7064740657806396,
+                        0.7065096497535706, 0.08839767426252365,
+                        0.01432048249989748, 0.0007387085352092981,
+                        0.0007394818239845335, 1.7656757831573486,
+                        0.17788128554821014]},
+    "mm_iface": {"l2sol": [0.5937113761901855, 0.1765287220478058,
+                           0.7846028804779053, 5.937352180480957,
+                           0.20502761006355286, 0.9112696647644043,
+                           42.50482940673828, 42.50482940673828,
+                           8.062566848821007e-06, 148724.765625,
+                           44142.44140625, 196196.3125]},
 }
 JAX_L2_RTOL = 1e-4
-# VorticalFlow is steady, so its L2(err) after 11 steps is float32
-# round-off (2e-7 for rho = 1): the JAX package's own jitted and eager
-# evaluations of the manufactured source differ by 9.5e-7.  L2(err) is
-# held to rtol 1e-4 plus this many float32 ulps of the L2(sol) norm.
-L2ERR_ULPS = 8
-# TaylorGreen's rho*w is zero in the exact solution, so on the p2 path its
-# L2(sol) (= its L2(err)) is round-off of the pressure terms: 6.455e-7
-# after 11 steps in the JAX package's CPU float32 run, 6.305e-7 in the
-# port's own CPU float32 run.  There L2(sol) and L2(err) both get the
-# allowance, in ulps of the largest L2(sol) component (the energy's).
-ULPS_OF_LARGEST = {"p2"}
+# Each L2 gate holds a component to rtol JAX_L2_RTOL plus L2_ULPS float32
+# ulps of a scale, which L2_SCALE names per path:
+# - "own" (the default): only L2(err) gets the ulps, of the component's own
+#   L2(sol).  VorticalFlow is steady, so its L2(err) after 11 steps is
+#   float32 round-off (2e-7 for rho = 1): the JAX package's own jitted and
+#   eager evaluations of the manufactured source differ by 9.5e-7.
+# - "largest": L2(sol) and L2(err) both get ulps of the largest L2(sol)
+#   component (the energy's).  TaylorGreen's rho*w is zero in the exact
+#   solution, so on the p2 path its L2(sol) (= its L2(err)) is round-off
+#   of the pressure terms: 6.455e-7 after 11 steps in the JAX package's CPU
+#   float32 run, 6.305e-7 in the port's own CPU float32 run.
+# - "kind": L2(sol) and L2(err) both get ulps of the largest L2(sol) among
+#   the component's kind (Euler: density, momentum, energy; multimat:
+#   fractions, partial densities, momentum, material energies).  Transverse
+#   momentum is round-off next to the axial one (the interface advection's
+#   z momentum, 8.1e-6 against 42.5), and the energies (1.96e5 there) are
+#   no scale for a fraction.
+# L2(err) is gated where JAX_L2 holds it.
+L2_ULPS = 8
+L2_SCALE = {"p2": "largest", "p0": "kind", "mm_p0": "kind", "mm_p1": "kind",
+            "mm_iface": "kind"}
+# The multimat cell-mean fractions after 11 steps: min alpha above
+# -ALPHA_MIN_ULPS float32 ulps of 1 and |sum alpha - 1| below
+# ALPHA_SUM_TOL.  The JAX package's own CPU float32 run of mm_p0 reaches
+# min alpha = -1.564e-6 (13 ulps): the P0 scheme keeps a trace fraction
+# (1e-12) positive only to round-off of the O(1) face sums, so no bound
+# tighter than a few ulps holds; its sum error is 1.9e-6.
+ALPHA_MIN_ULPS = 32
+ALPHA_SUM_TOL = 1e-5
 # FCT bounds SlotCyl to its initial [0, 0.6] only up to float32 round-off:
 # the JAX package's own float32 run above leaves them by -2.644e-6 (44
 # ulps of 0.6) and +1.55e-6 (26 ulps) within 11 steps.  The diagcg gate
@@ -199,7 +264,30 @@ KERNELS = {
                    "quinoa_tpu/ops/face_fused.py:333"),
     "basis_accum": ("quinoa_tpu_torch/csrc/basis_accum.cu",
                     "quinoa_tpu/ops/face_fused.py:253"),
+    "mm_face_wflux": ("quinoa_tpu_torch/csrc/mm_face_wflux.cu",
+                      "quinoa_tpu/ops/face_fused.py:762"),
 }
+#: the kernel instances of paths 12-15, listed in the kernels line beside
+#: the kernels above: (entry, launch counter, path); the source and the
+#: replaced TPU kernel are KERNELS[counter]'s, except that at P0 and for
+#: multimat the TPU runs the near/far kernels B2-B5 (NEARFAR)
+INSTANCES = (
+    ("face_wflux (K=1)", "face_wflux", "p0"),
+    ("basis_accum (R=5, K=1)", "basis_accum", "p0"),
+    ("basis_accum (R=16, K=1)", "basis_accum", "mm_p0"),
+    ("mm_face_wflux (K=4)", "mm_face_wflux", "mm_p1"),
+    ("basis_accum (R=16, K=4)", "basis_accum", "mm_p1"),
+    ("nbr_bounds (C=9, K=4)", "nbr_bounds", "mm_p1"),
+    ("face_gather (R=12)", "face_gather", "mm_iface"),
+    ("face_accum (R=22)", "face_accum", "mm_iface"),
+)
+NEARFAR = {"face_wflux": "quinoa_tpu/ops/face_fused.py:762",
+           "basis_accum": "quinoa_tpu/ops/face_fused.py:839"}
+#: paths 12-15: (problem, ndof, cfl); faces SOD_BC, or Dirichlet on all six
+#: sides for mm_iface
+MM = {"p0": ("sod", 1, 0.5), "mm_p0": ("mm_sod", 1, 0.5),
+      "mm_p1": ("mm_sod", 4, 0.5), "mm_iface": ("mm_iface", 1, 0.4)}
+MM_SMALL = (8, 3, 2)            # float64 card-vs-CPU and kernel meshes
 #: launches per step of each path; every other kernel must launch 0 times
 PATHS = {
     "p1": {"limit_vol": 3, "face_flux": 3, "face_to_elem": 3},
@@ -210,6 +298,10 @@ PATHS = {
     "diagcg": {"node_gather": 3, "node_assemble": 3},
     "diagcg_cf": {"node_gather": 3, "node_assemble": 3},
     "p2": {"face_wflux": 3, "basis_accum": 3},
+    "p0": {"face_wflux": 3, "basis_accum": 3},
+    "mm_p0": {"mm_face_wflux": 3, "basis_accum": 3},
+    "mm_p1": {"nbr_bounds": 3, "mm_face_wflux": 3, "basis_accum": 3},
+    "mm_iface": {"face_gather": 8, "face_accum": 3},
 }
 #: the path whose launches the kernels line reports for each kernel
 MAIN_PATH = {"limit_vol": "p1", "face_flux": "p1", "face_to_elem": "p1",
@@ -218,17 +310,22 @@ MAIN_PATH = {"limit_vol": "p1", "face_flux": "p1", "face_to_elem": "p1",
              "alecg_edge": "alecg", "cg_assemble": "alecg",
              "alecg_vol_cf": "alecg_cf", "alecg_edge_cf": "alecg_cf",
              "node_gather": "diagcg", "node_assemble": "diagcg",
-             "face_wflux": "p2", "basis_accum": "p2"}
+             "face_wflux": "p2", "basis_accum": "p2",
+             "mm_face_wflux": "mm_p0"}
 #: floating-point operations a kernel does per entity (element, face,
 #: edge or node; per row where it says so), counted from its source and
 #: rounded up.  Every kernel here is bound by bytes by a wide margin.
 OPS = {"limit_vol": 2000, "face_flux": 1000, "face_to_elem": 100,
-       "nbr_bounds": 40, "face_gather": 0, "face_accum_row": 4,
+       "nbr_bounds_row": 8, "face_gather": 0, "face_accum_row": 4,
        "alecg_vol_row": 40, "alecg_vol_cf": 400, "alecg_edge_row": 3,
        "alecg_edge_cf": 70, "cg_assemble_slot": 1, "node_gather": 0,
        "node_assemble_slot": 1,
-       # K12 per face, K13 per element, at P1 (K = 4) and P2 (K = 10)
-       "face_wflux": {4: 1000, 10: 3500}, "basis_accum": {4: 700, 10: 5000}}
+       # K12 per face and K13 per element at K modes (K13 also by its
+       # rows R); K14 per face by (nmat, K)
+       "face_wflux": {1: 300, 4: 1000, 10: 3500},
+       "basis_accum": {(5, 1): 100, (5, 4): 700, (5, 10): 5000,
+                       (16, 1): 300, (16, 4): 2000, (22, 1): 400},
+       "mm_face_wflux": {(2, 1): 400, (2, 4): 1500, (3, 1): 500}}
 
 
 def tpu_precision_initial_u(solver, torch):
@@ -281,10 +378,9 @@ def box_geom(n, bc_code, dtype, device):
                         device=device)
 
 
-def perturbed_state(E, seed):
-    """Physical Sedov-like modal state with perturbed P1 dofs (the
+def perturbed_state(E, seed, K=4):
+    """Physical Sedov-like modal state with perturbed higher dofs (the
     construction of tests/test_dg.py's fused-pass parity test)."""
-    K = 4
     rng = np.random.default_rng(seed)
     U0 = np.zeros((5 * K, E))
     U0[0] = 1.0 + 0.05 * rng.random(E)
@@ -469,13 +565,15 @@ def single_stream_checks(torch, geom, system, U, rv, dtype_name, timed):
         return basis_accum_plain(g, wfl, mx, rv)
 
     E, F = g.nelem, g.nface
+    # at P0 the basis is 1: neither kernel reads the Gauss coordinates
+    xi = (g.xi_l, g.xi_r) if K > 1 else ()
     cases = (
         ("face_wflux", k12, p12, (U, g.el, g.er, g.fn, g.farea, g.fmask,
-                                  g.xi_l, g.xi_r, g.bctype, g.w_face),
+                                  *xi, g.bctype, g.w_face),
          OPS["face_wflux"][K] * F),
-        ("basis_accum", k13, p13, (wfl, mx, g.fose, g.fsideR, g.xi_l,
-                                   g.xi_r, rv),
-         OPS["basis_accum"][K] * E),
+        ("basis_accum", k13, p13, tuple(
+            t for t in (wfl, mx, g.fose, g.fsideR, *xi, rv) if t is not None),
+         OPS["basis_accum"][5, K] * E),
     )
     out = {name: measure(torch, name, f"K={K} E={E} F={F}", kf, pf, inputs,
                          ops, dtype_name, timed)
@@ -486,6 +584,115 @@ def single_stream_checks(torch, geom, system, U, rv, dtype_name, timed):
     phase("kernels", f"K12+K13 K={K} {dtype_name}: max|kernel-plain|="
           f"{err:.3e} (tol {TOL[dtype_name]:g} * max|plain|); no single "
           "PyTorch call computes either kernel's function")
+    return out
+
+
+def mm_geom(name, n, dtype, device):
+    """DG geometry of path 12-15 `name` on a Hilbert-ordered box of n =
+    (nx, ny, nz) cells spanning (1, ny/nx, nz/nx): the Sod tube's faces
+    (extrapolate on the x faces, symmetry on the others), or Dirichlet on
+    all six sides for mm_iface."""
+    from quinoa_tpu_torch.mesh import box_tet_mesh, hilbert_element_reorder
+    from quinoa_tpu_torch.pde.dg import (BC_DIRICHLET, BC_EXTRAPOLATE,
+                                         BC_SYMMETRY, build_dggeom)
+
+    nx, ny, nz = n
+    mesh, _ = hilbert_element_reorder(box_tet_mesh(
+        nx, ny, nz, hi=(1.0, ny / nx, nz / nx)))
+    if name == "mm_iface":
+        bc = {i: BC_DIRICHLET for i in range(1, 7)}
+    else:
+        bc = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
+              **{i: BC_SYMMETRY for i in range(3, 7)}}
+    return build_dggeom(mesh, ndof=MM[name][1], bc_sidesets=bc, dtype=dtype,
+                        device=device)
+
+
+def mm_solver(name, geom, nmat3=False):
+    """The solver of path 12-15 `name` on geom (the interface advection's
+    three materials with nmat3)."""
+    from quinoa_tpu_torch.inciter.dg import DGSolver
+    from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow
+    from quinoa_tpu_torch.pde.multimat import MultiMatSolver, MultiMatSystem
+    from quinoa_tpu_torch.pde.problems import (MMInterfaceAdvection,
+                                               MMSodShocktube, SodShocktube)
+
+    _, ndof, cfl = MM[name]
+    if name == "p0":
+        return DGSolver(DGCompFlow(SodShocktube(), riemann_flux="hllc"),
+                        geom, cfl=cfl)
+    problem = (MMInterfaceAdvection(nmat=3) if name == "mm_iface" or nmat3
+               else MMSodShocktube())
+    return MultiMatSolver(MultiMatSystem(problem), geom, cfl=cfl,
+                          limiter="superbeep1" if ndof == 4 else None)
+
+
+def mm_perturbed(torch, solver, seed=19):
+    """The multimat solver's initial state with its partial densities and
+    energies scaled by up to 2% and a momentum of 0.1 rho randn added to
+    the means (the fractions untouched), then limited (at P1)."""
+    sy, g = solver.system, solver.geom
+    C, K, nmat = sy.ncomp, g.ndof, sy.nmat
+    u = solver.initial_state().u.reshape(C, K, -1).clone()
+    gen = torch.Generator(device=u.device).manual_seed(seed)
+    r = torch.rand(u[nmat:].shape, generator=gen, device=u.device,
+                   dtype=u.dtype)
+    u[nmat:] = u[nmat:] * (1.0 + 0.02 * r)
+    rho = u[nmat:2 * nmat, 0].sum(dim=0)
+    u[2 * nmat:2 * nmat + 3, 0] += 0.1 * rho * torch.randn(
+        (3, u.shape[2]), generator=gen, device=u.device, dtype=u.dtype)
+    return solver._limit(u.reshape(C * K, -1).contiguous())
+
+
+def mm_kernel_checks(torch, solver, dtype_name, timed):
+    """K14 and K13 (at K14's R rows) against their plain versions on
+    mm_perturbed's state of the multimat solver, then both as mm_face_pass;
+    returns {name: record} (times only when timed)."""
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
+                                                 mm_face_pass,
+                                                 mm_face_wflux_plain)
+
+    sy, g = solver.system, solver.geom
+    K, nmat, R = g.ndof, sy.nmat, sy.nrows
+    U = mm_perturbed(torch, solver)
+
+    def k14():
+        return kernels.mm_face_wflux(U, g.el, g.er, g.fn, g.farea, g.fmask,
+                                     g.xi_l, g.xi_r, g.bctype, g.w_face,
+                                     sy.eos)
+
+    def p14():
+        return mm_face_wflux_plain(sy, g, U)
+
+    wfl, mx = p14()
+
+    def k13():
+        return kernels.basis_accum(wfl, mx, g.fose, g.fsideR, g.xi_l,
+                                   g.xi_r, K)
+
+    def p13():
+        return basis_accum_plain(g, wfl, mx)
+
+    E, F = g.nelem, g.nface
+    xi = (g.xi_l, g.xi_r) if K > 1 else ()
+    cases = (
+        ("mm_face_wflux", k14, p14, (U, g.el, g.er, g.fn, g.farea, g.fmask,
+                                     *xi, g.bctype, g.w_face),
+         OPS["mm_face_wflux"][nmat, K] * F),
+        ("basis_accum", k13, p13, (wfl, mx, g.fose, g.fsideR, *xi),
+         OPS["basis_accum"][R, K] * E),
+    )
+    label = f"nmat={nmat} K={K} R={R} E={E} F={F}"
+    out = {name: measure(torch, name, label, kf, pf, inputs, ops, dtype_name,
+                         timed)
+           for name, kf, pf, inputs, ops in cases}
+    err = compare("face pass K14+K13", mm_face_pass(sy, g, U),
+                  basis_accum_plain(g, *mm_face_wflux_plain(sy, g, U)),
+                  dtype_name)
+    phase("kernels", f"K14+K13 {label} {dtype_name}: max|kernel-plain|="
+          f"{err:.3e} (tol {TOL[dtype_name]:g} * max|plain|); no single "
+          "PyTorch call computes AUSM+up with the riemannDeriv rows")
     return out
 
 
@@ -519,50 +726,78 @@ def single_stream_vs_nearfar(torch, geom, system, U):
         raise AssertionError("K12+K13 and K2+K3 disagree at P1")
 
 
-def face_gp_kernel_checks(torch, geom, U, hump, Uh, dtype_name, timed):
-    """K4 on the Sedov state U of geom, K5 and K6 on the transport rows Uh
-    of hump, against their plain versions; returns {name: (max_abs_err,
-    ms, plain_ms)} (times only when timed)."""
+def face_gp_kernel_checks(torch, geom, U, C, fgeom, Uf, cL, cR, base,
+                          dtype_name, timed):
+    """K4 on the C-component state U (C*K, E) of geom, K5 on the rows Uf of
+    fgeom (left and right states), and K6 on its face rows cL, cR (R, F)
+    onto base (or zero), against their plain versions; returns {name:
+    record} of K4, K5 at el and K6 (times only when timed)."""
     from quinoa_tpu_torch import kernels
     from quinoa_tpu_torch.ops.face_accum import (accumulate_faces_plain,
                                                  face_gather_plain)
     from quinoa_tpu_torch.ops.nbr_bounds import neighbor_mean_bounds_plain
 
+    K = geom.ndof
+    R, Rf = cL.shape[0], Uf.shape[0]
+    # one-call yardsticks: index_select for the gather; index_add_ of every
+    # face's left row to el and every interior face's right row to er
+    el, er = fgeom.el.long(), fgeom.er.long()
+    inner = el != er
+    acc = (torch.zeros((R, fgeom.nelem), dtype=cL.dtype, device=cL.device)
+           if base is None else base.clone())
+    src = torch.cat([cL, cR[:, inner]], dim=1)
+    idx = torch.cat([el, er[inner]])
+    E, F = fgeom.nelem, fgeom.nface
+    cases = (
+        ("nbr_bounds", f"E={geom.nelem} C={C} K={K}",
+         lambda: kernels.nbr_bounds(U, geom.esuelT, C, K),
+         lambda: neighbor_mean_bounds_plain(geom, U[::K]),
+         (U[::K], geom.esuelT), OPS["nbr_bounds_row"] * C * geom.nelem,
+         None),
+        ("face_gather", f"E={E} F={F} rows={Rf}",
+         lambda: kernels.face_gather(Uf, fgeom.el),
+         lambda: face_gather_plain(Uf, fgeom.el), (Uf, fgeom.el), 0,
+         lambda: torch.index_select(Uf, 1, fgeom.el)),
+        ("face_accum", f"E={E} F={F} rows={R}",
+         lambda: kernels.face_accum(cL, cR, fgeom.fose, fgeom.fsideR, base),
+         lambda: accumulate_faces_plain(fgeom, cL, cR, base),
+         tuple(t for t in (cL, cR, fgeom.fose, fgeom.fsideR, base)
+               if t is not None),
+         OPS["face_accum_row"] * R * E, lambda: acc.index_add_(1, idx, src)),
+    )
+    out = {name: measure(torch, name, label, kf, pf, inputs, ops, dtype_name,
+                         timed, library)
+           for name, label, kf, pf, inputs, ops, library in cases}
+    err = compare("face_gather er", (kernels.face_gather(Uf, fgeom.er),),
+                  (face_gather_plain(Uf, fgeom.er),), dtype_name)
+    phase("kernels", f"face_gather er rows={Rf} {dtype_name}: "
+          f"max|kernel-plain|={err:.3e}")
+    return out
+
+
+def hump_face_rows(torch, hump, Uh):
+    """Random face rows cL, cR (R, F) and a base (R, E) at the R rows of the
+    GaussHump state Uh (seed 5), for K6 on the hump path's shapes."""
     gen = torch.Generator(device=Uh.device).manual_seed(5)
     R = Uh.shape[0]
     cL, cR = torch.randn((2, R, hump.nface), generator=gen, device=Uh.device,
                          dtype=Uh.dtype)
     base = torch.randn((R, hump.nelem), generator=gen, device=Uh.device,
                        dtype=Uh.dtype)
-    # one-call yardsticks: index_select for the gather; index_add_ of every
-    # face's left row to el and every interior face's right row to er
-    el, er = hump.el.long(), hump.er.long()
-    inner = el != er
-    acc = base.clone()
-    src = torch.cat([cL, cR[:, inner]], dim=1)
-    idx = torch.cat([el, er[inner]])
-    E, F = hump.nelem, hump.nface
-    cases = (
-        ("nbr_bounds", lambda: kernels.nbr_bounds(U, geom.esuelT, 5, 4),
-         lambda: neighbor_mean_bounds_plain(geom, U[::4]),
-         (U[::4], geom.esuelT), OPS["nbr_bounds"] * geom.nelem, None),
-        ("face_gather", lambda: kernels.face_gather(Uh, hump.el),
-         lambda: face_gather_plain(Uh, hump.el), (Uh, hump.el), 0,
-         lambda: torch.index_select(Uh, 1, hump.el)),
-        ("face_accum",
-         lambda: kernels.face_accum(cL, cR, hump.fose, hump.fsideR, base),
-         lambda: accumulate_faces_plain(hump, cL, cR, base),
-         (cL, cR, hump.fose, hump.fsideR, base),
-         OPS["face_accum_row"] * R * E, lambda: acc.index_add_(1, idx, src)),
-    )
-    out = {name: measure(torch, name, f"E={E} F={F} rows={R}", kf, pf,
-                         inputs, ops, dtype_name, timed, library)
-           for name, kf, pf, inputs, ops, library in cases}
-    err = compare("face_gather er", (kernels.face_gather(Uh, hump.er),),
-                  (face_gather_plain(Uh, hump.er),), dtype_name)
-    phase("kernels", f"face_gather er {dtype_name}: max|kernel-plain|="
-          f"{err:.3e}")
-    return out
+    return cL, cR, base
+
+
+def mm_face_gp_checks(torch, p1_solver, iface_solver, dtype_name, timed):
+    """K4 on mm_perturbed's state of the multimat P1 solver (C = 3 nmat + 3
+    components), K5 on the interface advection's perturbed P0 state and K6
+    on the Dirichlet route's face rows of that state (C + 3 nmat + 1), as
+    mm_p1 and mm_iface run them; returns face_gp_kernel_checks' records."""
+    sy, g = iface_solver.system, iface_solver.geom
+    Uf = mm_perturbed(torch, iface_solver)
+    XL, XR = sy.dirichlet_face_rows(g, Uf, 0.0)
+    return face_gp_kernel_checks(
+        torch, p1_solver.geom, mm_perturbed(torch, p1_solver),
+        p1_solver.system.ncomp, g, Uf, XL, XR, None, dtype_name, timed)
 
 
 def alecg_solver(name, n, dtype, device):
@@ -737,7 +972,9 @@ def diagcg_kernel_checks(torch, solver, dtype_name, timed):
 
 def card_vs_cpu(torch, name, make):
     """Two float64 steps of make(device) on the card and on the CPU;
-    ndofel must agree where the state has one (DG)."""
+    ndofel must agree where the state has one (DG).  On paths 12-15 (MM)
+    the atol is SOLVER_ATOL of max(1, max|u|) (the multimat energies reach
+    2.5e5), elsewhere SOLVER_ATOL."""
     on_card, on_cpu = make("card"), make("cpu")
     sa = on_card.nsteps(on_card.initial_state(), 2)
     sb = on_cpu.nsteps(on_cpu.initial_state(), 2)
@@ -745,14 +982,16 @@ def card_vs_cpu(torch, name, make):
     dterr = abs(float(sa.dt) - float(sb.dt))
     dg = hasattr(sb, "ndofel")
     same = not dg or bool(torch.equal(sa.ndofel.cpu(), sb.ndofel))
-    if not (err <= SOLVER_ATOL and dterr <= 1e-12 * float(sb.dt) and same):
+    atol = SOLVER_ATOL * (max(1.0, float(sb.u.abs().max())) if name in MM
+                          else 1.0)
+    if not (err <= atol and dterr <= 1e-12 * float(sb.dt) and same):
         raise AssertionError(f"{name} card vs CPU: |du|={err:.3e} "
                              f"|ddt|={dterr:.3e} ndofel equal: {same}")
     extra = (f", ndofel equal, P1 elements {int((sb.ndofel == 4).sum())}"
              if dg else f", N={on_cpu.geom.nnode}")
     phase("kernels", f"small solver {name} (E={on_cpu.geom.nelem}, f64, 2 "
           f"steps) card vs CPU: max|du|={err:.3e} |ddt|={dterr:.3e}"
-          f"{extra} (atol {SOLVER_ATOL:g}, dt rtol 1e-12)")
+          f"{extra} (atol {atol:g}, dt rtol 1e-12)")
 
 
 def drive(torch, solver, name, card, state=None):
@@ -791,38 +1030,81 @@ def drive(torch, solver, name, card, state=None):
     return state, counts, wall
 
 
+def kinds(name, ncomp):
+    """The component rows of each kind (Euler: density, momentum, energy;
+    multimat: fractions, partial densities, momentum, energies)."""
+    if name == "p0":
+        return [[0], [1, 2, 3], [4]]
+    nmat = (ncomp - 3) // 3
+    return [list(range(nmat)), list(range(nmat, 2 * nmat)),
+            list(range(2 * nmat, 2 * nmat + 3)),
+            list(range(2 * nmat + 3, ncomp))]
+
+
 def l2_gate(name, solver, state):
-    """L2(sol) and L2(err) after 11 float32 steps against JAX_L2."""
-    from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
+    """L2(sol), and L2(err) where JAX_L2 holds it, after 11 float32 steps
+    against JAX_L2 at rtol JAX_L2_RTOL plus L2_ULPS float32 ulps of the
+    path's L2_SCALE."""
+    from quinoa_tpu_torch.inciter.dg import DGDiagnostics
     from quinoa_tpu_torch.inciter.diagnostics import Diagnostics
 
-    if isinstance(solver, DGSolver):
+    if hasattr(state, "ndofel"):
         l2sol, l2err, _ = DGDiagnostics(solver.system,
                                         solver.geom).compute(state)
     else:
         row = Diagnostics(solver.system, solver.geom).compute(state)
         l2sol, l2err = row.l2sol, row.l2err
     want = JAX_L2[name]
-    eps = float(np.finfo(np.float32).eps)
-    if name in ULPS_OF_LARGEST:
-        scale = [max(want["l2sol"])] * len(want["l2sol"])
-        sol_ulps, rule = L2ERR_ULPS, "both + {} f32 ulps of max L2(sol)"
+    sol = want["l2sol"]
+    rule = L2_SCALE.get(name, "own")
+    if rule == "largest":
+        scale = [max(sol)] * len(sol)
+    elif rule == "kind":
+        scale = [0.0] * len(sol)
+        for rows in kinds(name, len(sol)):
+            for j in rows:
+                scale[j] = max(sol[i] for i in rows)
     else:
-        scale, sol_ulps = want["l2sol"], 0
-        rule = "L2(err) + {} f32 ulps of L2(sol)"
+        scale = sol
+    eps = float(np.finfo(np.float32).eps)
 
     def close(got, ref, ulps):
         return all(abs(a - b) <= JAX_L2_RTOL * abs(b) + ulps * eps * s
                    for a, b, s in zip(got, ref, scale))
 
-    ok = (close(l2sol, want["l2sol"], sol_ulps)
-          and close(l2err, want["l2err"], L2ERR_ULPS))
-    phase(name, f"after {int(state.it)} steps t={float(state.t):.9e}: "
-          f"L2(sol) {l2sol} vs JAX {want['l2sol']}; L2(err) {l2err} vs JAX "
-          f"{want['l2err']}: {'ok' if ok else 'FAIL'} (rtol {JAX_L2_RTOL:g}"
-          f", {rule.format(L2ERR_ULPS)})")
+    ok = close(l2sol, sol, 0 if rule == "own" else L2_ULPS)
+    msg = (f"after {int(state.it)} steps t={float(state.t):.9e}: L2(sol) "
+           f"{l2sol} vs JAX {sol}, max rel "
+           f"{max(abs(a - b) / abs(b) for a, b in zip(l2sol, sol)):.3e}")
+    if "l2err" in want:
+        ok = ok and close(l2err, want["l2err"], L2_ULPS)
+        msg += f"; L2(err) {l2err} vs JAX {want['l2err']}"
+    else:
+        msg += f"; L2(err) {l2err} (not gated)"
+    of = {"own": "the component's own L2(sol), on L2(err) only",
+          "largest": "the largest L2(sol)",
+          "kind": "the largest L2(sol) of the component's kind"}[rule]
+    phase(name, f"{msg}: {'ok' if ok else 'FAIL'} (rtol {JAX_L2_RTOL:g} + "
+          f"{L2_ULPS} f32 ulps of {of})")
     if not ok:
         raise AssertionError(f"{name}: L2 gate failed")
+
+
+def alpha_gate(name, solver, state):
+    """The multimat cell-mean fractions after 11 float32 steps: minimum
+    above -ALPHA_MIN_ULPS float32 ulps of 1, |sum - 1| below
+    ALPHA_SUM_TOL."""
+    sy = solver.system
+    al = state.u.reshape(sy.ncomp, solver.geom.ndof, -1)[:sy.nmat, 0]
+    amin = float(al.min())
+    serr = float((al.sum(dim=0) - 1.0).abs().max())
+    ok = (amin > -ALPHA_MIN_ULPS * float(np.finfo(np.float32).eps)
+          and serr < ALPHA_SUM_TOL)
+    phase(name, f"min alpha {amin:.4e} (> -{ALPHA_MIN_ULPS} f32 ulps), "
+          f"max|sum alpha - 1| {serr:.4e} (< {ALPHA_SUM_TOL:g}): "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: fraction gate failed")
 
 
 def bounds_gate(solver, state, u0):
@@ -889,6 +1171,20 @@ def profile_path(torch, solver, name, state, step_s, steps=5):
     return state
 
 
+def host_ms(torch, fn, reps=5):
+    """Median host-clock ms of fn() ending in a synchronize, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
 def p2_breakdown(torch, solver, state, reps=5):
     """Host-clock ms of one P2 stage's parts, each call ending in a
     synchronize (median of reps): the volume integral with its source,
@@ -897,24 +1193,38 @@ def p2_breakdown(torch, solver, state, reps=5):
     from quinoa_tpu_torch.pde.dg import volume_rhs
 
     g, sy, u, t = solver.geom, solver.system, state.u, state.t
-
-    def wall(fn):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return 1e3 * statistics.median(times)
-
-    vol = wall(lambda: volume_rhs(sy, g, u, t))
-    src = wall(lambda: sy.src(g.vol_gp, t))
-    face = wall(lambda: fused_face_pass(sy, g, u))
+    vol = host_ms(torch, lambda: volume_rhs(sy, g, u, t), reps)
+    src = host_ms(torch, lambda: sy.src(g.vol_gp, t), reps)
+    face = host_ms(torch, lambda: fused_face_pass(sy, g, u), reps)
     phase("p2", f"one stage's parts (host clock to a synchronize, median of "
           f"{reps}): volume integral with source {vol:.3f} ms, of it the "
           f"source {src:.3f} ms; face pass K12 + K13 {face:.3f} ms")
+
+
+def mm_breakdown(torch, solver, state, reps=5):
+    """Host-clock ms of one multimat P1 stage's parts, each call ending in
+    a synchronize (median of reps): the consistent Superbee limit (K4 and
+    the torch phi), the volume integral, the face pass K14 + K13, the
+    non-conservative volume terms and the alpha closure."""
+    from quinoa_tpu_torch.ops.face_fused import mm_face_pass
+    from quinoa_tpu_torch.pde.dg import volume_rhs
+    from quinoa_tpu_torch.pde.multimat import clean_alpha_closure
+
+    sy, g, u, t = solver.system, solver.geom, state.u, state.t
+    C, K = sy.ncomp, g.ndof
+    _, dap, divu = sy._split_acc(mm_face_pass(sy, g, u)[0], K)
+    parts = {
+        "limit": lambda: solver._limit(u),
+        "volume integral": lambda: volume_rhs(sy, g, u, t),
+        "face pass K14 + K13": lambda: mm_face_pass(sy, g, u),
+        "non-conservative terms": lambda: sy._nonconservative_ho(
+            g, u.reshape(C, K, -1), dap, divu),
+        "alpha closure": lambda: clean_alpha_closure(u, C, K, sy.nmat),
+    }
+    phase("mm_p1", f"one stage's parts (host clock to a synchronize, median "
+          f"of {reps}): " + ", ".join(
+              f"{name} {host_ms(torch, fn, reps):.3f} ms"
+              for name, fn in parts.items()))
 
 
 def main():
@@ -970,15 +1280,17 @@ def main():
     stats = kernel_checks(torch, big, system, U, "float32", timed=True)
     hump_solver = DGSolver(transport, hump, cfl=0.8)
     Uh = hump_solver.initial_state().u
-    stats.update(face_gp_kernel_checks(torch, big, U, hump, Uh, "float32",
-                                       timed=True))
+    stats.update(face_gp_kernel_checks(torch, big, U, 5, hump, Uh,
+                                       *hump_face_rows(torch, hump, Uh),
+                                       "float32", timed=True))
     small = box_geom(SMALL, BC_SYMMETRY, torch.float64, dev)
     U64 = torch.as_tensor(perturbed_state(small.nelem, 11)).to(dev)
     kernel_checks(torch, small, system, U64, "float64", timed=False)
     hump_small = box_geom(HUMP_SMALL, BC_DIRICHLET, torch.float64, dev)
     Uh64 = DGSolver(transport, hump_small).initial_state().u
-    face_gp_kernel_checks(torch, small, U64, hump_small, Uh64, "float64",
-                          timed=False)
+    face_gp_kernel_checks(torch, small, U64, 5, hump_small, Uh64,
+                          *hump_face_rows(torch, hump_small, Uh64),
+                          "float64", timed=False)
     single_stream_vs_nearfar(torch, big, system, U)
     single_stream_checks(torch, small, system, U64,
                          volume_rhs(system, small, U64), "float64",
@@ -997,6 +1309,49 @@ def main():
     single_stream_checks(torch, p2_small, taylor, U2s,
                          volume_rhs(taylor, p2_small, U2s), "float64",
                          timed=False)
+    # K12 + K13 at (1, 1); K14 + K13 at its R rows (paths 12-14)
+    t0 = time.perf_counter()
+    mmg = {name: mm_geom(name, (N_BIG,) * 3, torch.float32, dev)
+           for name in ("p0", "mm_p1", "mm_iface")}
+    mmg["mm_p0"] = mmg["p0"]
+    mm = {name: mm_solver(name, mmg[name]) for name in MM}
+    phase("kernels", "48^3 P0/multimat geometries: " + ", ".join(
+        f"{name} ndof {g.ndof} E={g.nelem} F={g.nface}"
+        for name, g in mmg.items()) + f", {time.perf_counter() - t0:.1f} s "
+        "on the host")
+    Up0 = torch.as_tensor(perturbed_state(mmg["p0"].nelem, 23, K=1)).to(
+        torch.float32).to(dev)
+    rec = single_stream_checks(torch, mmg["p0"], mm["p0"].system, Up0, None,
+                               "float32", timed=True)
+    stats["face_wflux (K=1)"] = rec["face_wflux"]
+    stats["basis_accum (R=5, K=1)"] = rec["basis_accum"]
+    rec = mm_kernel_checks(torch, mm["mm_p0"], "float32", timed=True)
+    stats["mm_face_wflux"] = rec["mm_face_wflux"]
+    stats["basis_accum (R=16, K=1)"] = rec["basis_accum"]
+    rec = mm_kernel_checks(torch, mm["mm_p1"], "float32", timed=True)
+    stats["mm_face_wflux (K=4)"] = rec["mm_face_wflux"]
+    stats["basis_accum (R=16, K=4)"] = rec["basis_accum"]
+    # nmat 3 (R = 22) on the Sod tube's faces: no path runs it fused
+    mm_kernel_checks(torch, mm_solver("mm_p0", mmg["p0"], nmat3=True),
+                     "float32", timed=True)
+    # K4 at mm_p1's 9 components, K5 and K6 at mm_iface's 12 and 22 rows
+    rec = mm_face_gp_checks(torch, mm["mm_p1"], mm["mm_iface"], "float32",
+                            timed=True)
+    stats["nbr_bounds (C=9, K=4)"] = rec["nbr_bounds"]
+    stats["face_gather (R=12)"] = rec["face_gather"]
+    stats["face_accum (R=22)"] = rec["face_accum"]
+    sm = {name: mm_solver(name, mm_geom(name, MM_SMALL, torch.float64, dev))
+          for name in MM}
+    U64p0 = torch.as_tensor(perturbed_state(sm["p0"].geom.nelem, 29,
+                                            K=1)).to(dev)
+    single_stream_checks(torch, sm["p0"].geom, sm["p0"].system, U64p0, None,
+                         "float64", timed=False)
+    for name in ("mm_p0", "mm_p1"):
+        mm_kernel_checks(torch, sm[name], "float64", timed=False)
+    mm_face_gp_checks(torch, sm["mm_p1"], sm["mm_iface"], "float64",
+                      timed=False)
+    mm_kernel_checks(torch, mm_solver("mm_p0", sm["mm_p0"].geom, nmat3=True),
+                     "float64", timed=False)
     t0 = time.perf_counter()
     alecg = {name: alecg_solver(name, (N_BIG,) * 3, torch.float32, dev)
              for name in ALECG}
@@ -1061,6 +1416,10 @@ def main():
     for name in DIAGCG:
         card_vs_cpu(torch, name, lambda d, name=name: diagcg_solver(
             name, torch.float64, dev if d == "card" else "cpu", small=True))
+    for name in MM:
+        card_vs_cpu(torch, name, lambda d, name=name: mm_solver(
+            name, mm_geom(name, MM_SMALL, torch.float64,
+                          dev if d == "card" else "cpu")))
 
     # 4. the Sedov P1 step
     counts = {}
@@ -1122,13 +1481,26 @@ def main():
     state = profile_path(torch, p2_solver, "p2", state, wall / NSTEPS)
     p2_breakdown(torch, p2_solver, state)
 
+    # 12-15. DG(P0) Sod and the multimat paths at 48^3
+    for name, solver in mm.items():
+        state, counts[name], wall = drive(torch, solver, name, card)
+        l2_gate(name, solver, state)
+        if name != "p0":
+            alpha_gate(name, solver, state)
+        state = profile_path(torch, solver, name, state, wall / NSTEPS)
+        if name == "mm_p1":
+            mm_breakdown(torch, solver, state)
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rows = [(name, name, MAIN_PATH[name]) for name in KERNELS]
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[MAIN_PATH[name]][name],
-         **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by",
-                                        "library_ms")}}
-        for name, (src, rep) in KERNELS.items()]}))
+        {"name": entry, "route": "cuda", "source": KERNELS[counter][0],
+         "replaces": (path in MM and NEARFAR.get(counter)
+                      or KERNELS[counter][1]),
+         "launches": counts[path][counter],
+         **{k: stats[entry][k] for k in keys}}
+        for entry, counter, path in rows + list(INSTANCES)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -8,8 +8,10 @@ numpy copies (``mesh``).
 The port covers single-device DG (``inciter.dg.DGSolver``): the DG(P1)
 compressible-Euler step with the HLLC flux and the Superbee limiter, its
 p-adaptive variant, the face Gauss-point path of scalar transport and
-Dirichlet/inlet faces, and unlimited DG(P2) with a manufactured source;
-and single-device ALECG (``inciter.alecg``) and DiagCG + FCT
+Dirichlet/inlet faces, and unlimited DG(P0) and DG(P2) (with a
+manufactured source where the problem has one); multi-material DG(P0)
+and DG(P1) (``pde.multimat.MultiMatSolver``, AUSM+up); and single-device
+ALECG (``inciter.alecg``) and DiagCG + FCT
 (``inciter.diagcg``) for scalar transport and compressible Euler.  The
 TPU kernels of these paths are hand-written CUDA kernels under
 ``csrc/``, built with nvcc at first use (``kernels``); on CPU tensors

@@ -11,6 +11,9 @@ for a CG one), so this module never imports jax:
     arrays["tables"] = dict(g.tables)
     geom = geom_from_arrays(arrays, device="cuda", dtype=torch.float32)
 
+Geometries of any order (ndof 1, 4 or 10) and states of any component
+count (Euler's 5, multimat's 3*nmat + 3) cross as they are: the arrays
+carry their shapes, and ``ndof`` and the tables come with the geometry.
 Floating fields take ``dtype``; index fields stay int32.  Every
 ``*_from_arrays`` builds on the card unless ``device`` says otherwise.  Fields the port
 does not carry (the CG window ``plan``) are ignored.

@@ -13,8 +13,9 @@ namespace qtk {
 
 // DG(P1) compressible Euler: C components, K modes, G face and GV volume
 // quadrature points.  The wrappers check the shapes against these.  The
-// face kernels of either order (K12, K13) take K and G as template
-// parameters of those names, which hide the P1 values below.
+// face kernels of every order (K12-K14) take K and G as template
+// parameters of those names, which hide the P1 values below; K13 and K14
+// take their row counts as template parameters too, never C.
 constexpr int C = 5;
 constexpr int K = 4;
 constexpr int CK = C * K;
@@ -94,11 +95,15 @@ __device__ __forceinline__ void basis_p2(T x, T e, T z, T* B) {
   B[9] = T(15) * z * z - T(10) * z + T(1);
 }
 
-// the NB-mode basis (NB = 4: P1, 10: P2) of the face kernels K12/K13
+// the NB-mode basis (NB = 1: P0, 4: P1, 10: P2) of the face kernels
+// K12-K14; at P0 the single mode is 1 and the point is not read
 template <typename T, int NB>
 __device__ __forceinline__ void basis_at(T x, T e, T z, T* B) {
-  static_assert(NB == 4 || NB == 10, "the face kernels take P1 or P2");
-  if constexpr (NB == 4) {
+  static_assert(NB == 1 || NB == 4 || NB == 10,
+                "the face kernels take P0, P1 or P2");
+  if constexpr (NB == 1) {
+    B[0] = T(1);
+  } else if constexpr (NB == 4) {
     basis_p1(x, e, z, B);
   } else {
     basis_p2(x, e, z, B);

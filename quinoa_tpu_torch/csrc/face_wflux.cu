@@ -1,6 +1,6 @@
 // K12 face_wflux: the weighted Riemann flux at every face's Gauss points,
-// one thread per face, for DG(P1) (K = 4, G = 3) and DG(P2) (K = 10,
-// G = 6).
+// one thread per face, for DG(P0) (K = 1, G = 1), DG(P1) (K = 4, G = 3)
+// and DG(P2) (K = 10, G = 6).
 //
 // Replaces the per-face work of the TPU single-stream face pass,
 // quinoa_tpu/ops/face_fused.py _make_fused_kernel (fused_face_pass):
@@ -28,7 +28,9 @@
 // Hilbert element order.  Nothing is accumulated here: no atomics.  The
 // template parameters K and G hide common.cuh's DG(P1) constants of those
 // names; at K = 10 the 100 state words a thread may spill (the ptxas report
-// beside the library says).
+// beside the library says).  At P0 the basis is 1 and the Gauss
+// coordinates are not read (basis_at<T, 1>), so a face moves 10 state
+// words, 9 words of face data and writes 6.
 
 #include "common.cuh"
 
@@ -120,7 +122,10 @@ int launch_face_wflux(const void* U, const void* el, const void* er,
                       void* stream) {
   const Eos<T> eos{T(gamma), T(gamma - 1.0), T(pstiff)};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (ndof == 4) {
+  if (ndof == 1) {
+    launch_face_wflux_kg<T, 1, 1>(U, el, er, fn, farea, fmask, xil, xir,
+                                  bctype, wface, eos, wfl, mx, E, F, s);
+  } else if (ndof == 4) {
     launch_face_wflux_kg<T, 4, 3>(U, el, er, fn, farea, fmask, xil, xir,
                                   bctype, wface, eos, wfl, mx, E, F, s);
   } else if (ndof == 10) {

@@ -1,0 +1,337 @@
+// K14 mm_face_wflux: the multimat flavour of K12 (face_wflux.cu).  One
+// thread per face writes, at each of the face's G Gauss points, the
+// weighted AUSM+up flux of the velocity-equilibrium multi-material system
+// and its riemannDeriv rows, for NMAT = 2 or 3 materials at DG(P0) (K = 1,
+// G = 1) and DG(P1) (K = 4, G = 3).
+//
+// Replaces the multimat instance of the TPU near/far face pass:
+// quinoa_tpu/ops/face_fused.py _make_nearfar_kernel, _make_far_rstate_kernel
+// and _make_far_raccum_kernel (B2-B5) tracing quinoa_tpu/pde/multimat.py
+// _FusedMMFacade (riemann, bc_state, charvel).  The accumulation is K13's
+// (basis_accum.cu) at R rows.  Plain version: ops/face_fused.py
+// mm_face_wflux_plain, i.e. pde/multimat.py MultiMatSystem._prim, ausm,
+// bc_state, charvel and _split_mach, evaluated in the same order.
+//
+// Per face: gather the C = 3*NMAT + 3 modal rows of el and er (the TPU
+// state's 3*NMAT + 1 zero carrier rows are not read: they exist only for
+// its generic kernel), evaluate the basis and the states at the G points,
+// substitute a finite unit state on pad faces (their weights are zero),
+// apply the symmetry/extrapolate ghost (the momentum rebuilt as
+// rho * (v - 2 (v.n) n) from the rho-divided velocity), then the
+// primitives, AUSM+up and the charvel, and write, with wt = w_g * area *
+// fmask and R = C + 3*NMAT + 1,
+//   wfl (R*G, F): row r*G + g = [flux (C) | -ap_k*n_i (3*NMAT) | -vriem]*wt,
+//   mx (F,) = sum_g wt * (interior ? max(vl, vr) : vl).
+// The signs make K13's (-left, +right) sums give +dap at the left element
+// and -dap at the right, as _FusedMMFacade.riemann does.
+//
+// Floors and guards, as _prim: alpha and the material density at 50
+// epsilons of the type (float32: 5.96e-6, above ALPHAMIN = 1e-12, so trace
+// materials are floored on every face), the pressure at 1e-30 in the sound
+// speed, mach == 0 guarded in the supersonic pressure split, 1e-16 in the
+// upwind weights of ap.  min/max propagate NaN as torch does (vmin/vmax).
+//
+// Bound on the card: device-memory bytes at P1 (a face reads 2 x 4C state
+// words, 18 Gauss coordinates and 8 words of face data and writes 3R + 1
+// words; AUSM+up is ~300 flops a point), operations at P0 (10 state and 8
+// face words against ~300 flops).  Design: as K12, the states of both
+// sides and each point's primitives stay in registers, and the primitives
+// of a side are evaluated once a point and shared by AUSM+up and the
+// charvel.  The template parameters K and G hide common.cuh's DG(P1)
+// constants of those names; C is never used here.
+
+#include "common.cuh"
+
+namespace qtk {
+
+// per-material stiffened-gas constants, passed by value
+template <typename T>
+struct MMEos {
+  T gamma[3], gm1[3], pstiff[3];
+};
+
+// MultiMatSystem._prim of one face-point state
+template <typename T, int NMAT>
+struct MMPrim {
+  T rho, vel[3], al[NMAT], pm[NMAT], hm[NMAT], am[NMAT];
+};
+
+template <typename T>
+__device__ __forceinline__ T mm_floor() {
+  // 50 * the type's machine epsilon (torch.finfo(dtype).eps)
+  return T(50.0 * (sizeof(T) == 4 ? 1.1920928955078125e-07
+                                  : 2.220446049250313e-16));
+}
+
+template <typename T, int NMAT>
+__device__ __forceinline__ void mm_prim(const MMEos<T>& eos, const T* u,
+                                        MMPrim<T, NMAT>& q) {
+  constexpr int D = NMAT, M = 2 * NMAT, EN = 2 * NMAT + 3;
+  const T floor = mm_floor<T>();
+  T rho = u[D];
+#pragma unroll
+  for (int k = 1; k < NMAT; ++k) rho = rho + u[D + k];
+  q.rho = rho;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) q.vel[i] = u[M + i] / rho;
+#pragma unroll
+  for (int k = 0; k < NMAT; ++k) {
+    const Eos<T> ek{eos.gamma[k], eos.gm1[k], eos.pstiff[k]};
+    const T a = vmax(u[k], floor);
+    const T rk = vmax(u[D + k] / a, floor);
+    const T e = u[EN + k] / a;
+    const T p = pressure(ek, rk, q.vel[0], q.vel[1], q.vel[2], e);
+    q.al[k] = a;
+    q.pm[k] = p;
+    q.hm[k] = u[EN + k] + a * p;
+    q.am[k] = soundspeed(ek, rk, vmax(p, T(1e-30)));
+  }
+}
+
+// AUSM+ split Mach/pressure polynomials (_split_mach), f_a = 1
+template <typename T>
+__device__ __forceinline__ void split_mach(T mach, T& msp, T& msm, T& psp,
+                                           T& psm) {
+  const T am = fabs(mach);
+  const T m1p = T(0.5) * (mach + am);
+  const T m1m = T(0.5) * (mach - am);
+  const T mp1 = mach + T(1), mm1 = mach - T(1);
+  const T m2p = T(0.25) * (mp1 * mp1);
+  const T m2m = T(-0.25) * (mm1 * mm1);
+  const T c = T(16.0 * (3.0 / 16.0));  // 16 alpha
+  const bool sup = am >= T(1);
+  const T msafe = mach == T(0) ? T(1) : mach;
+  msp = sup ? m1p : m2p * (T(1) - T(2) * m2m);
+  msm = sup ? m1m : m2m * (T(1) + T(2) * m2p);
+  psp = sup ? m1p / msafe : m2p * ((T(2) - mach) - c * mach * m2m);
+  psm = sup ? m1m / msafe : m2m * ((T(-2) - mach) + c * mach * m2p);
+}
+
+// AUSM+up flux (C rows) and the riemannDeriv rows -ap_k*n_i, -vriem
+template <typename T, int NMAT>
+__device__ void mm_ausm(const T* n, const T* uL, const T* uR,
+                        const MMPrim<T, NMAT>& L, const MMPrim<T, NMAT>& R,
+                        T* fl) {
+  constexpr int NC = 3 * NMAT + 3;
+  constexpr int D = NMAT, M = 2 * NMAT, EN = 2 * NMAT + 3;
+  T pl = L.al[0] * L.pm[0], pr = R.al[0] * R.pm[0];
+#pragma unroll
+  for (int k = 1; k < NMAT; ++k) {
+    pl = pl + L.al[k] * L.pm[k];
+    pr = pr + R.al[k] * R.pm[k];
+  }
+  // mixture speed of sound from averaged material states
+  const T rho12 = T(0.5) * (L.rho + R.rho);
+  T ac2 = T(0);
+#pragma unroll
+  for (int k = 0; k < NMAT; ++k) {
+    const T al12 = T(0.5) * (L.al[k] + R.al[k]);
+    const T rm12 = T(0.5) * (uL[D + k] / L.al[k] + uR[D + k] / R.al[k]);
+    const T am12 = T(0.5) * (L.am[k] + R.am[k]);
+    const T term = al12 * rm12 * am12 * am12;
+    ac2 = k == 0 ? term : ac2 + term;
+  }
+  const T ac12 = sqrt(ac2 / rho12);
+  const T vnl = dot3(L.vel[0], L.vel[1], L.vel[2], n);
+  const T vnr = dot3(R.vel[0], R.vel[1], R.vel[2], n);
+  T mspl, msml, pspl, psml, mspr, msmr, pspr, psmr;
+  split_mach(vnl / ac12, mspl, msml, pspl, psml);
+  split_mach(vnr / ac12, mspr, msmr, pspr, psmr);
+
+  const T m12 = mspl + msmr;  // k_p = 0
+  const T vriem = ac12 * m12;
+  const T p12 = pspl * pl + psmr * pr;  // k_u = 0
+  const T lp = T(0.5) * (vriem + fabs(vriem));
+  const T lm = T(0.5) * (vriem - fabs(vriem));
+#pragma unroll
+  for (int k = 0; k < NMAT; ++k) {
+    fl[k] = lp * L.al[k] + lm * R.al[k];
+    fl[D + k] = lp * uL[D + k] + lm * uR[D + k];
+    fl[EN + k] = lp * L.hm[k] + lm * R.hm[k];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    fl[M + i] = lp * uL[M + i] + lm * uR[M + i] + p12 * n[i];
+
+  // Riemann-advected partial pressures, upwinded by the sign of vriem
+  const T lpn = lp / (fabs(vriem) + T(1e-16));
+  const T lmn = lm / (fabs(vriem) + T(1e-16));
+#pragma unroll
+  for (int k = 0; k < NMAT; ++k) {
+    const T apl = L.al[k] * L.pm[k];
+    const T apr = R.al[k] * R.pm[k];
+    const T ap = fabs(lpn) > T(1e-10)
+                     ? apl
+                     : (fabs(lmn) > T(1e-10) ? apr : T(0.5) * (apl + apr));
+#pragma unroll
+    for (int i = 0; i < 3; ++i) fl[NC + 3 * k + i] = -(ap * n[i]);
+  }
+  fl[NC + 3 * NMAT] = -vriem;
+}
+
+// |v.n| + the mixture sound speed (MultiMatSystem.charvel)
+template <typename T, int NMAT>
+__device__ __forceinline__ T mm_charvel(const T* u, const MMPrim<T, NMAT>& q,
+                                        const T* n) {
+  constexpr int D = NMAT;
+  T s = T(0);
+#pragma unroll
+  for (int k = 0; k < NMAT; ++k) {
+    const T term = q.al[k] * (u[D + k] / q.al[k]) * (q.am[k] * q.am[k]);
+    s = k == 0 ? term : s + term;
+  }
+  const T ac = sqrt(s / q.rho);
+  return fabs(dot3(q.vel[0], q.vel[1], q.vel[2], n)) + ac;
+}
+
+// ghost state of a boundary face (MultiMatSystem.bc_state): symmetry
+// reflects the rho-divided velocity, every other code copies
+template <typename T, int NMAT>
+__device__ __forceinline__ void mm_bc_state(int bt, const T* sL, const T* n,
+                                            T* sR) {
+  constexpr int NC = 3 * NMAT + 3, D = NMAT, M = 2 * NMAT;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) sR[c] = sL[c];
+  if (bt == BC_SYMMETRY) {
+    T rho = sL[D];
+#pragma unroll
+    for (int k = 1; k < NMAT; ++k) rho = rho + sL[D + k];
+    const T v0 = sL[M] / rho, v1 = sL[M + 1] / rho, v2 = sL[M + 2] / rho;
+    const T vn = dot3(v0, v1, v2, n);
+    sR[M] = rho * (v0 - T(2) * vn * n[0]);
+    sR[M + 1] = rho * (v1 - T(2) * vn * n[1]);
+    sR[M + 2] = rho * (v2 - T(2) * vn * n[2]);
+  }
+}
+
+template <typename T, int NMAT, int K, int G>
+__global__ void __launch_bounds__(128)
+mm_face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
+                     const int* __restrict__ er_, const T* __restrict__ fn,
+                     const T* __restrict__ farea, const T* __restrict__ fmask,
+                     const T* __restrict__ xil, const T* __restrict__ xir,
+                     const int* __restrict__ bctype,
+                     const T* __restrict__ wface, MMEos<T> eos,
+                     T* __restrict__ wfl, T* __restrict__ mxout, long long E,
+                     long long F) {
+  constexpr int NC = 3 * NMAT + 3;
+  constexpr int NR = NC + 3 * NMAT + 1;
+  const long long f = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (f >= F) return;
+  const long long el = el_[f], er = er_[f];
+  T UL[NC * K], UR[NC * K];
+#pragma unroll
+  for (int r = 0; r < NC * K; ++r) {
+    UL[r] = U[r * E + el];
+    UR[r] = U[r * E + er];
+  }
+  const T n[3] = {fn[f], fn[F + f], fn[2 * F + f]};
+  const T fa = farea[f] * fmask[f];
+  const bool valid = fmask[f] > T(0);
+  const int bt = bctype[f];
+  const bool interior = bt == BC_INTERIOR;
+
+  T mx = T(0);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    T Bl[K], Br[K];
+    basis_at<T, K>(xil[g * F + f], xil[(G + g) * F + f],
+                   xil[(2 * G + g) * F + f], Bl);
+    basis_at<T, K>(xir[g * F + f], xir[(G + g) * F + f],
+                   xir[(2 * G + g) * F + f], Br);
+    T sL[NC], sR[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      T a = Bl[0] * UL[c * K], b = Br[0] * UR[c * K];
+#pragma unroll
+      for (int k = 1; k < K; ++k) {
+        a = a + Bl[k] * UL[c * K + k];
+        b = b + Br[k] * UR[c * K + k];
+      }
+      sL[c] = a;
+      sR[c] = b;
+    }
+    if (!valid) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) sL[c] = sR[c] = T(1);
+    }
+    if (!interior) mm_bc_state<T, NMAT>(bt, sL, n, sR);
+    MMPrim<T, NMAT> pL, pR;
+    mm_prim<T, NMAT>(eos, sL, pL);
+    mm_prim<T, NMAT>(eos, sR, pR);
+    T fl[NR];
+    mm_ausm<T, NMAT>(n, sL, sR, pL, pR, fl);
+    const T wt = wface[g] * fa;
+    const T vl = mm_charvel<T, NMAT>(sL, pL, n);
+    const T m =
+        wt * (interior ? vmax(vl, mm_charvel<T, NMAT>(sR, pR, n)) : vl);
+    mx = g == 0 ? m : mx + m;
+#pragma unroll
+    for (int r = 0; r < NR; ++r) wfl[(r * G + g) * F + f] = fl[r] * wt;
+  }
+  mxout[f] = mx;
+}
+
+template <typename T, int NMAT, int K, int G>
+void launch_mm_face_wflux_nkg(const void* U, const void* el, const void* er,
+                              const void* fn, const void* farea,
+                              const void* fmask, const void* xil,
+                              const void* xir, const void* bctype,
+                              const void* wface, const MMEos<T>& eos,
+                              void* wfl, void* mx, long long E, long long F,
+                              cudaStream_t stream) {
+  const int block = 128;
+  const long long grid = (F + block - 1) / block;
+  mm_face_wflux_kernel<T, NMAT, K, G><<<(unsigned)grid, block, 0, stream>>>(
+      (const T*)U, (const int*)el, (const int*)er, (const T*)fn,
+      (const T*)farea, (const T*)fmask, (const T*)xil, (const T*)xir,
+      (const int*)bctype, (const T*)wface, eos, (T*)wfl, (T*)mx, E, F);
+}
+
+template <typename T>
+int launch_mm_face_wflux(const void* U, const void* el, const void* er,
+                         const void* fn, const void* farea, const void* fmask,
+                         const void* xil, const void* xir, const void* bctype,
+                         const void* wface, const double* gamma,
+                         const double* pstiff, void* wfl, void* mx, int nmat,
+                         int ndof, long long E, long long F, void* stream) {
+  MMEos<T> eos;
+  for (int k = 0; k < 3; ++k) {
+    eos.gamma[k] = T(gamma[k]);
+    eos.gm1[k] = T(gamma[k] - 1.0);
+    eos.pstiff[k] = T(pstiff[k]);
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+#define QTK_MM_FACE_WFLUX(NM, KK, GG)                                       \
+  if (nmat == NM && ndof == KK) {                                           \
+    launch_mm_face_wflux_nkg<T, NM, KK, GG>(U, el, er, fn, farea, fmask,    \
+                                            xil, xir, bctype, wface, eos,   \
+                                            wfl, mx, E, F, s);              \
+    return (int)cudaGetLastError();                                         \
+  }
+  QTK_MM_FACE_WFLUX(2, 1, 1)
+  QTK_MM_FACE_WFLUX(2, 4, 3)
+  QTK_MM_FACE_WFLUX(3, 1, 1)
+  QTK_MM_FACE_WFLUX(3, 4, 3)
+#undef QTK_MM_FACE_WFLUX
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace qtk
+
+#define QTK_MM_FACE_WFLUX_C(SFX, TYPE)                                      \
+  extern "C" int qtk_mm_face_wflux_##SFX(                                   \
+      const void* U, const void* el, const void* er, const void* fn,        \
+      const void* farea, const void* fmask, const void* xil,                \
+      const void* xir, const void* bctype, const void* wface, double g0,    \
+      double g1, double g2, double p0, double p1, double p2, void* wfl,     \
+      void* mx, int nmat, int ndof, long long E, long long F,               \
+      void* stream) {                                                       \
+    const double gamma[3] = {g0, g1, g2}, pstiff[3] = {p0, p1, p2};         \
+    return qtk::launch_mm_face_wflux<TYPE>(U, el, er, fn, farea, fmask, xil, \
+                                           xir, bctype, wface, gamma,       \
+                                           pstiff, wfl, mx, nmat, ndof, E,  \
+                                           F, stream);                      \
+  }
+QTK_MM_FACE_WFLUX_C(f32, float)
+QTK_MM_FACE_WFLUX_C(f64, double)

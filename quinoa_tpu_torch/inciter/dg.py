@@ -1,9 +1,9 @@
 """DG time stepping: SSP-RK3 with Superbee limiting and p-adaptivity, on
 torch.
 
-Port of quinoa_tpu/inciter/dg.py for DG(P1) and unlimited DG(P2).  Each of
-the three RK stages limits, (stage 0) evaluates the p-adaptive dofs and
-the dt, takes the rhs and applies
+Port of quinoa_tpu/inciter/dg.py for DG(P1) and unlimited DG(P0) and
+DG(P2).  Each of the three RK stages limits, (stage 0) evaluates the
+p-adaptive dofs and the dt, takes the rhs and applies
 
     u = rk0[s]*un + rk1[s]*(u + dt*r/M)
 
@@ -20,10 +20,11 @@ on a TPU:
   masked by the dofmask, whose charvel gives the stage-0 dt;
 - otherwise the face Gauss-point path of dg_rhs (gathers K5, accumulation
   K6) and, at stage 0, the dg_dt face sweep;
-- DG(P2) (compressible Euler, no limiter, faces that need no coordinates):
-  the XLA-formulation volume integral with the source at the step's start
-  time in torch, then the single-stream face pass (K12 + K13), whose
-  charvel gives the stage-0 dt.
+- DG(P2) and DG(P0) (compressible Euler, no limiter, faces that need no
+  coordinates): the XLA-formulation volume integral with the source at the
+  step's start time in torch (at P0 only the source, and nothing without
+  one), then the single-stream face pass (K12 + K13), whose charvel gives
+  the stage-0 dt.
 
 p-adaptive runs (pref) re-evaluate ndofel at stage 0 (sticky indicator,
 one-ring promotion), zero the coarsened dofs at stage 0, and restore the
@@ -63,17 +64,19 @@ class DGState:
 
 
 class DGSolver:
-    """Cell-centered DG(P1) and DG(P2) solver on one device.
+    """Cell-centered DG(P0), DG(P1) and DG(P2) solver on one device.
 
     limiter : None | 'superbeep1' (P1 only)
+    cweight : the WENO limiter's central weight, stored for it
     pref    : p-adaptive DG (P1 <-> P0 by gradient indicator,
               DG.cpp:1088-1163); tolref is the threshold.
 
-    The signature mirrors quinoa_tpu's DGSolver without the WENO weight;
-    what lies outside the port raises NotImplementedError: the WENO
-    limiter, rDG (evolve_ndof), P0, a P2 limiter, p-adaptive P2, P2 on
-    the face Gauss-point path, source terms at P1 and a compressible
-    Euler flux other than HLLC on the fused face passes.
+    The signature is quinoa_tpu's DGSolver's; what lies outside the port
+    raises NotImplementedError: the WENO limiter, rDG (evolve_ndof), a P2
+    limiter, p-adaptive P0 or P2, P2 on the face Gauss-point path, source
+    terms at P1 and a compressible Euler flux other than HLLC on the fused
+    face passes.  A limiter below P1 raises ValueError, as in the JAX
+    package.
     """
 
     def __init__(
@@ -83,6 +86,7 @@ class DGSolver:
         cfl: float = 0.5,
         const_dt: Optional[float] = None,
         limiter: Optional[str] = None,
+        cweight: float = 30.0,
         pref: bool = False,
         tolref: float = 0.1,
         evolve_ndof: Optional[int] = None,
@@ -91,19 +95,24 @@ class DGSolver:
             raise NotImplementedError("the WENO limiter is not ported")
         if limiter not in (None, "superbeep1"):
             raise ValueError(f"unknown limiter {limiter!r}")
+        if limiter is not None and geom.ndof < 4:
+            raise ValueError("limiters require ndof >= 4")
         if evolve_ndof not in (None, geom.ndof):
             raise NotImplementedError("rDG (evolve_ndof) is not ported")
         require_slice(system, geom)
         if geom.ndof == 10 and (limiter is not None or pref):
             raise NotImplementedError("DG(P2) is ported unlimited and "
                                       "without p-adaptivity")
+        if geom.ndof == 1 and pref:
+            raise NotImplementedError("p-adaptive DG is ported at P1 only")
         self.system = system
         self.geom = geom
         self.cfl = cfl
         self.limiter = limiter
+        self.cweight = cweight
         self.pref = pref
         self.tolref = tolref
-        p = {4: 1.0, 10: 2.0}[geom.ndof]
+        p = {1: 0.0, 4: 1.0, 10: 2.0}[geom.ndof]
         self.cflscale = 1.0 / (2.0 * p + 1.0)
         self.const_dt = None if const_dt is None else torch.tensor(
             const_dt, dtype=geom.dtype, device=geom.device)
@@ -168,12 +177,13 @@ class DGSolver:
                 r = dg_rhs(system, g, u, dofmask, state.t, face_gp=True,
                            vol_rhs=rv)
             else:
-                if g.ndof == 10:
+                if g.ndof != 4:
                     # the source at the step's start time, as the JAX
-                    # step passes it to every stage's rhs
-                    r, delt = fused_face_pass(
-                        system, g, u, vol_rhs=volume_rhs(system, g, u,
-                                                         state.t))
+                    # step passes it to every stage's rhs; at P0 the
+                    # volume term is the source alone
+                    rv = (volume_rhs(system, g, u, state.t)
+                          if g.ndof == 10 or system.has_src else None)
+                    r, delt = fused_face_pass(system, g, u, vol_rhs=rv)
                 else:
                     # the fused pass sees the masked state; the rows it
                     # writes for inactive dofs are dropped by the restore

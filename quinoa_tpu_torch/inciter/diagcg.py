@@ -51,6 +51,7 @@ def diagcg_advance(
     dt,
     combine_sum=_identity_combine,
     combine_max=_identity_combine,
+    combine_min=_identity_combine,
     bc_n=None,
     vol_n=None,
 ):
@@ -59,8 +60,10 @@ def diagcg_advance(
     The combine hooks act on (C, N) node buffers where the reference's
     DistFCT exchanged chare-boundary messages (sums: rhs + dif, P, A;
     maxima: Q, whose minima ride negated); on one device they are the
-    identity.  bc_n (4, C, E) and vol_n (4, E) are the static gathers of
-    bcmask and the nodal volumes (the solver makes them once).
+    identity.  combine_min is taken at the JAX package's position and not
+    called: Q's minima ride negated through combine_max in both packages.
+    bc_n (4, C, E) and vol_n (4, E) are the static gathers of bcmask and
+    the nodal volumes (the solver makes them once).
     """
     C = u.shape[0]
     # one nodal gather feeds the PDE rhs, the mass diffusion and the AEC;

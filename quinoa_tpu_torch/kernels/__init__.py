@@ -44,16 +44,23 @@ TAB_BSELF, TAB_BVOL, TAB_WDB, TAB_WFACE, TAB_SIZE = 0, 48, 68, 128, 131
 #: counts as arguments; K9 takes up to MAX_ROWS.
 C, K, G = 5, 4, 3
 MAX_ROWS = 8   # csrc/cg_assemble.cu MAXR
-#: the face kernels K12/K13 take DG(P1) and DG(P2): face points per
-#: number of modes (ops/quadrature.py ng_face)
-FACE_POINTS = {4: 3, 10: 6}
+#: the face kernels K12-K14 take DG(P0), DG(P1) and DG(P2): face points
+#: per number of modes (ops/quadrature.py ng_face)
+FACE_POINTS = {1: 1, 4: 3, 10: 6}
+#: (rows, modes) instances of K13: compressible Euler (5 rows) at P0-P2,
+#: multimat (R = 3*nmat + 3 + 3*nmat + 1: 16 or 22 rows) at P0 and P1
+BASIS_ACCUM_SHAPES = {(5, 1), (5, 4), (5, 10), (16, 1), (16, 4), (22, 1),
+                      (22, 4)}
+#: materials of the multimat face kernel K14
+MM_NMAT = (2, 3)
 
 #: kernel launches since the last reset_launches()
 launches = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0,
             "nbr_bounds": 0, "face_gather": 0, "face_accum": 0,
             "alecg_vol": 0, "alecg_vol_cf": 0, "alecg_edge": 0,
             "alecg_edge_cf": 0, "cg_assemble": 0, "node_gather": 0,
-            "node_assemble": 0, "face_wflux": 0, "basis_accum": 0}
+            "node_assemble": 0, "face_wflux": 0, "basis_accum": 0,
+            "mm_face_wflux": 0}
 
 _lib = None
 
@@ -195,7 +202,10 @@ def build() -> ctypes.CDLL:
         fn.argtypes = [P] * 10 + [D, D, P, P, I, L, L, P]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"qtk_basis_accum_{sfx}")
-        fn.argtypes = [P] * 9 + [I, L, L, P]
+        fn.argtypes = [P] * 9 + [I, I, L, L, P]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_mm_face_wflux_{sfx}")
+        fn.argtypes = [P] * 10 + [D] * 6 + [P, P, I, I, L, L, P]
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -523,22 +533,20 @@ def node_assemble(xa, xm, nsup):
     return out
 
 
-def _face_ndof(ndof):
-    if ndof not in FACE_POINTS:
-        raise ValueError(f"the face kernels take ndof 4 or 10, not {ndof}")
+def _face_ndof(ndof, allowed=tuple(FACE_POINTS)):
+    if ndof not in allowed:
+        raise ValueError(f"the face kernel takes ndof in {tuple(allowed)}, "
+                         f"not {ndof}")
     return ndof, FACE_POINTS[ndof]
 
 
-def face_wflux(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype, w_face,
-               eos):
-    """K12 (csrc/face_wflux.cu): (wfl (C*G, F), mx (F,)), the weighted
-    HLLC flux at the G face points (row c*G + g) and the weighted charvel,
-    of the Euler state U (C*K, E), K = 4 (G = 3) or 10 (G = 6)."""
-    dev = _cuda_device(U)
-    dt = U.dtype
+def _check_faces(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype, w_face,
+                 rows, ndof, ng):
+    """The face kernels' common inputs: U (rows*ndof, E) and the face
+    tables of F faces at ng points."""
+    dev, dt = U.device, U.dtype
     E, F = U.shape[1], el.shape[0]
-    ndof, ng = _face_ndof(U.shape[0] // C)
-    _check("U", U, (C * ndof, E), dt, dev)
+    _check("U", U, (rows * ndof, E), dt, dev)
     for name, t in (("el", el), ("er", er), ("bctype", bctype)):
         _check(name, t, (F,), torch.int32, dev)
     _check("fn", fn, (3, F), dt, dev)
@@ -547,6 +555,20 @@ def face_wflux(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype, w_face,
     _check("xi_l", xi_l, (3, ng, F), dt, dev)
     _check("xi_r", xi_r, (3, ng, F), dt, dev)
     _check("w_face", w_face, (ng,), dt, dev)
+    return E, F
+
+
+def face_wflux(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype, w_face,
+               eos):
+    """K12 (csrc/face_wflux.cu): (wfl (C*G, F), mx (F,)), the weighted
+    HLLC flux at the G face points (row c*G + g) and the weighted charvel,
+    of the Euler state U (C*K, E), K = 1 (G = 1), 4 (G = 3) or 10
+    (G = 6)."""
+    dev = _cuda_device(U)
+    dt = U.dtype
+    ndof, ng = _face_ndof(U.shape[0] // C)
+    E, F = _check_faces(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype,
+                        w_face, C, ndof, ng)
     lib_fn = getattr(build(), f"qtk_face_wflux_{_suffix(dt)}")
     wfl = torch.empty((C * ng, F), dtype=dt, device=dev)
     mx = torch.empty((F,), dtype=dt, device=dev)
@@ -558,28 +580,63 @@ def face_wflux(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype, w_face,
     return wfl, mx
 
 
+def mm_face_wflux(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype, w_face,
+                  eos):
+    """K14 (csrc/mm_face_wflux.cu): (wfl (R*G, F), mx (F,)) of the
+    multimat state U (C*K, E), C = 3*nmat + 3 with nmat = len(eos) in
+    MM_NMAT, K = 1 (G = 1) or 4 (G = 3): at each face point the weighted
+    AUSM+up flux (C rows), -ap_k*n_i (3*nmat rows) and -vriem (1 row), R =
+    C + 3*nmat + 1, row r*G + g; mx the weighted multimat charvel."""
+    dev = _cuda_device(U)
+    dt = U.dtype
+    nmat = len(eos)
+    if nmat not in MM_NMAT:
+        raise ValueError(f"the multimat face kernel takes nmat in "
+                         f"{MM_NMAT}, not {nmat}")
+    nc = 3 * nmat + 3
+    R = nc + 3 * nmat + 1
+    ndof, ng = _face_ndof(U.shape[0] // nc, (1, 4))
+    E, F = _check_faces(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype,
+                        w_face, nc, ndof, ng)
+    gam = [float(e.gamma) for e in eos] + [0.0] * (3 - nmat)
+    pst = [float(e.pstiff) for e in eos] + [0.0] * (3 - nmat)
+    lib_fn = getattr(build(), f"qtk_mm_face_wflux_{_suffix(dt)}")
+    wfl = torch.empty((R * ng, F), dtype=dt, device=dev)
+    mx = torch.empty((F,), dtype=dt, device=dev)
+    _launch("mm_face_wflux", lib_fn,
+            [_ptr(U), _ptr(el), _ptr(er), _ptr(fn), _ptr(farea), _ptr(fmask),
+             _ptr(xi_l), _ptr(xi_r), _ptr(bctype), _ptr(w_face), *gam, *pst,
+             _ptr(wfl), _ptr(mx), nmat, ndof, E, F], dev)
+    return wfl, mx
+
+
 def basis_accum(wfl, mx, fose, fsideR, xi_l, xi_r, ndof, rv=None):
-    """K13 (csrc/basis_accum.cu): (r (C*K, E), delt (E,)): each element's
-    four faces' weighted flux wfl (C*G, F) contracted with its own side's
+    """K13 (csrc/basis_accum.cu): (r (R*K, E), delt (E,)): each element's
+    four faces' weighted flux wfl (R*G, F) contracted with its own side's
     basis and summed in slot order (minus on left faces), on top of rv
-    when given, of zero otherwise; delt sums the faces' mx (F,)."""
+    when given, of zero otherwise; delt sums the faces' mx (F,).  (R, K)
+    in BASIS_ACCUM_SHAPES."""
     dev = _cuda_device(wfl)
     dt = wfl.dtype
     ndof, ng = _face_ndof(ndof)
     F, E = wfl.shape[1], fose.shape[1]
-    _check("wfl", wfl, (C * ng, F), dt, dev)
+    R = wfl.shape[0] // ng
+    if (R, ndof) not in BASIS_ACCUM_SHAPES:
+        raise ValueError(f"basis_accum has no instance for {R} rows at "
+                         f"ndof {ndof}")
+    _check("wfl", wfl, (R * ng, F), dt, dev)
     _check("mx", mx, (F,), dt, dev)
     _check("fose", fose, (4, E), torch.int32, dev)
     _check("fsideR", fsideR, (4, E), dt, dev)
     _check("xi_l", xi_l, (3, ng, F), dt, dev)
     _check("xi_r", xi_r, (3, ng, F), dt, dev)
     if rv is not None:
-        _check("rv", rv, (C * ndof, E), dt, dev)
+        _check("rv", rv, (R * ndof, E), dt, dev)
     lib_fn = getattr(build(), f"qtk_basis_accum_{_suffix(dt)}")
-    r = torch.empty((C * ndof, E), dtype=dt, device=dev)
+    r = torch.empty((R * ndof, E), dtype=dt, device=dev)
     delt = torch.empty((E,), dtype=dt, device=dev)
     _launch("basis_accum", lib_fn,
             [_ptr(wfl), _ptr(mx), _ptr(fose), _ptr(fsideR), _ptr(xi_l),
              _ptr(xi_r), ctypes.c_void_p(0 if rv is None else rv.data_ptr()),
-             _ptr(r), _ptr(delt), ndof, E, F], dev)
+             _ptr(r), _ptr(delt), R, ndof, E, F], dev)
     return r, delt

@@ -1,10 +1,11 @@
 """Discontinuous-Galerkin core: geometry tables and operators on torch
 tensors (feature-major layout).
 
-Port of quinoa_tpu/pde/dg.py for DG(P1) and DG(P2): the fused face passes
-of coordinate-free compressible Euler, the volume integral with a
-manufactured source, the face Gauss-point path (transport, Dirichlet and
-inlet faces; P1), the p-adaptive dofmask and its indicator (P1).
+Port of quinoa_tpu/pde/dg.py for DG(P0), DG(P1) and DG(P2): the fused
+face passes of coordinate-free compressible Euler, the volume integral
+with a manufactured source, the face Gauss-point path (transport,
+Dirichlet and inlet faces; P0 and P1), the p-adaptive dofmask and its
+indicator (P1).
 Layout as in the JAX package: the modal state is U (C*K, E) with row
 c*K+k, per-face slabs are (rows, F) and coordinates (3, n); the element or
 face axis is always last.
@@ -341,25 +342,25 @@ def needs_face_gp(system, geom: DGGeom) -> bool:
 
 
 def require_slice(system, geom: DGGeom):
-    """Raise for what the port does not cover: anything but DG(P1) and
-    DG(P2); DG(P2) off the single-stream face pass (systems or faces that
-    need face coordinates); source terms at P1 (its volume integral is
-    the limit + volume kernel's, which has none); and on the fused face
+    """Raise for what the port does not cover: anything but DG(P0), DG(P1)
+    and DG(P2); DG(P2) off the single-stream face pass (systems or faces
+    that need face coordinates); source terms at P1 (its volume integral
+    is the limit + volume kernel's, which has none); and on the fused face
     passes (compressible Euler on faces that need no coordinates) a flux
     other than HLLC."""
-    if geom.ndof not in (4, 10):
-        raise NotImplementedError(f"ndof={geom.ndof}: only DG(P1) and "
-                                  "DG(P2) are ported")
+    if geom.ndof not in (1, 4, 10):
+        raise NotImplementedError(f"ndof={geom.ndof}: only DG(P0), DG(P1) "
+                                  "and DG(P2) are ported")
     face_gp = needs_face_gp(system, geom)
     if geom.ndof == 10 and face_gp:
         raise NotImplementedError("DG(P2) runs the single-stream face pass "
                                   "only: its face Gauss-point path is not "
                                   "ported")
-    if system.has_src and geom.ndof != 10:
-        raise NotImplementedError("source terms are ported on the DG(P2) "
-                                  "route only")
+    if system.has_src and geom.ndof == 4:
+        raise NotImplementedError("source terms are ported at DG(P0) and "
+                                  "DG(P2) only")
     if not face_gp:
-        require_fused_physics(system, geom, face_pass=True, ndofs=(4, 10))
+        require_fused_physics(system, geom, face_pass=True, ndofs=(1, 4, 10))
 
 
 def require_fused_physics(system, geom: DGGeom, face_pass: bool = False,
@@ -367,8 +368,8 @@ def require_fused_physics(system, geom: DGGeom, face_pass: bool = False,
     """Raise unless the fused kernels cover the case, compressible Euler
     with a coordinate-free flux at an ndof in ndofs: kernel K1 (the limit
     + volume pass, DG(P1) without a source); with face_pass the face
-    passes (K2 + K3, or K12 + K13 at P1 and P2), which implement HLLC on
-    faces whose ghost needs no coordinates."""
+    passes (K2 + K3, or K12 + K13 at P0, P1 and P2), which implement HLLC
+    on faces whose ghost needs no coordinates."""
     if geom.ndof not in ndofs:
         raise NotImplementedError(f"ndof={geom.ndof}: the fused kernels "
                                   f"here take ndof in {tuple(ndofs)}")
@@ -416,22 +417,27 @@ def volume_rhs(system, geom: DGGeom, U, t=0.0):
     """Volume and source integrals (C*K, E) of U, scaled by vol*emask, in
     the JAX package's XLA formulation (quinoa_tpu/pde/dg.py:342-370):
     einsums over the (G, K) tables, the flux columns at the volume points,
-    the jacInv contraction, and w*B times the source at (gp, t) when the
-    system has one.  The DG(P2) route's volume term: products the JAX
-    package leaves to XLA, so they stay torch here."""
+    the jacInv contraction (skipped at K = 1, where the test function has
+    no gradient, as :357 skips it), and w*B times the source at (gp, t)
+    when the system has one.  The volume term of the DG(P0) and DG(P2)
+    routes and of multimat DG(P1): products the JAX package leaves to XLA,
+    so they stay torch here."""
     C, K, E = system.ncomp, geom.ndof, U.shape[-1]
     tb = geom.tables
     dt_, dev = U.dtype, U.device
     B_vol = torch.tensor(tb["B_vol"], dtype=dt_, device=dev)       # (G,K)
     wdB = torch.tensor(tb["w_vol"][:, None, None] * tb["dBdxi_vol"],
                        dtype=dt_, device=dev)                     # (G,K,3)
-    state = torch.einsum("gk,cke->cge", B_vol, uview(U, C, K))    # (C,G,E)
     gp = geom.vol_gp                                              # (3,G,E)
-    Fj = system.flux_cols(state, gp, t)
-    J = geom.jacInv
-    Fref = torch.stack([Fj[0] * J[m, 0] + Fj[1] * J[m, 1] + Fj[2] * J[m, 2]
-                        for m in range(3)])                       # (3,C,G,E)
-    Rv = torch.einsum("gkm,mcge->cke", wdB, Fref)
+    if K > 1:
+        state = torch.einsum("gk,cke->cge", B_vol, uview(U, C, K))  # (C,G,E)
+        Fj = system.flux_cols(state, gp, t)
+        J = geom.jacInv
+        Fref = torch.stack([Fj[0] * J[m, 0] + Fj[1] * J[m, 1]
+                            + Fj[2] * J[m, 2] for m in range(3)])  # (3,C,G,E)
+        Rv = torch.einsum("gkm,mcge->cke", wdB, Fref)
+    else:
+        Rv = U.new_zeros((C, K, E))
     if system.has_src:
         wB = torch.tensor(tb["w_vol"][:, None] * tb["B_vol"], dtype=dt_,
                           device=dev)                             # (G,K)
@@ -449,7 +455,7 @@ def dg_rhs(system, geom: DGGeom, U, dofmask=None, t=0.0, face_gp=False,
     XLA formulation, volume_rhs; without a source at P1 the sum order of
     the limit + volume kernel, volume_rhs_plain).  face_gp=False takes a
     fused face pass: at P1 K2 + K3 on a card (fused_face_pass_nearfar),
-    at P2 K12 + K13 (fused_face_pass); with want_charvel it
+    at P0 and P2 K12 + K13 (fused_face_pass); with want_charvel it
     also returns delt (E,), the dt sweep's per-element summed charvel.
     face_gp=True takes the face Gauss-point path (:396-453): face states
     through the gather (K5), ghosts and the flux at the face coordinates
@@ -492,7 +498,7 @@ def dg_rhs(system, geom: DGGeom, U, dofmask=None, t=0.0, face_gp=False,
                              cR.reshape(C * K, -1), Rv)
         delt = None
     else:
-        face_pass = fused_face_pass if K == 10 else fused_face_pass_nearfar
+        face_pass = fused_face_pass_nearfar if K == 4 else fused_face_pass
         r, delt = face_pass(system, geom, Um, vol_rhs=Rv)
     if dofmask is not None:
         r = r * dofmask.repeat(C, 1)

@@ -29,9 +29,19 @@ class StiffenedGas:
         rho = U[0]
         return self.pressure(rho, U[1] / rho, U[2] / rho, U[3] / rho, U[4])
 
+    def soundspeed_cons_cm(self, U):
+        """Sound speed of component-major conservative variables U (5, ...),
+        the pressure floored at 0."""
+        p = torch.clamp_min(self.pressure_cons_cm(U), 0.0)
+        return self.soundspeed(U[0], p)
+
     def soundspeed(self, rho, p):
         return torch.sqrt(self.gamma * (p + self.pstiff) / rho)
 
     def totalenergy(self, rho, u, v, w, p):
         return ((p + self.pstiff) / (self.gamma - 1.0) + self.pstiff
                 + 0.5 * rho * (u * u + v * v + w * w))
+
+    def density(self, p, temp):
+        """Density at pressure p and temperature temp (floats or tensors)."""
+        return (p + self.pstiff) / ((self.gamma - 1.0) * self.cv * temp)

@@ -1,4 +1,5 @@
-"""Superbee slope limiter for DG(P1), the plain reference.
+"""Superbee slope limiter for DG(P1), the plain reference, and its
+consistent multi-material adjustment.
 
 Port of quinoa_tpu/pde/limiter.py:43-108 (reference src/PDE/Limiter.cpp
 Superbee_P1:154-317): scale the P1 dofs of every (component, element) by
@@ -65,3 +66,21 @@ def superbee_p1(geom, U, dofmask, C, beta_lim: float = 2.0, bounds=None):
     if dofmask is None:
         return Unew
     return torch.where(dofmask[1] > 0, Unew, U)
+
+
+def consistent_mm_phi(phi, nmat):
+    """Consistent material-fraction limiting for multi-material DG(P1)
+    (quinoa_tpu/pde/limiter.py:111; the TVD analog of upstream Quinoa's
+    consistentMultiMatLimiting_P1): every volume-fraction slope scales by
+    the same coefficient, the smallest of the fractions' (only a uniform
+    scaling keeps the zero total alpha slope zero), and the material
+    density and energy slopes are cut at least as hard.  Momentum rows keep
+    their own.  phi (C, E) in the MultiMatIndexing layout -> (C, E)."""
+    C = phi.shape[0]
+    phi_al = phi[:nmat].amin(dim=0)                      # (E,)
+    return torch.cat([
+        phi_al.expand(nmat, -1),
+        torch.minimum(phi[nmat:2 * nmat], phi_al),
+        phi[2 * nmat:2 * nmat + 3],
+        torch.minimum(phi[2 * nmat + 3:C], phi_al),
+    ])

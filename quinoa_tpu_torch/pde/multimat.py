@@ -1,0 +1,532 @@
+"""Multi-material Euler (velocity equilibrium) for cell-centred DG(P0) and
+DG(P1), on torch.
+
+Port of quinoa_tpu/pde/multimat.py (reference DGMultiMat.hpp, AUSM.hpp:
+32-250, MultiMatTerms.cpp; model of Pelanti & Shyue 2019): nmat materials
+with volume fractions alpha_k, partial densities alpha_k rho_k, one
+velocity and material energies.  Unknown layout per element
+(MultiMatIndexing.hpp):
+
+    [ alpha_k (nmat) | alpha_k rho_k (nmat) | rho u_i (3) |
+      alpha_k rho_k E_k (nmat) ]              => ncomp = 3*nmat + 3
+
+The AUSM+up face flux also returns the Riemann-advected partial pressures
+and the Riemann velocity, whose face sums (riemannDeriv, Surface.cpp:
+282-289) feed the non-conservative volume terms.  The face pass writes
+them as R = C + 3*nmat + 1 rows a face point: the C flux rows, -ap_k*n_i
+and -vriem (_FusedMMFacade.riemann), so the element sum's (-left, +right)
+convention gives +dap at the left element and -dap at the right.
+
+Routes, as the JAX package takes them on a TPU:
+
+- no Dirichlet face (fused_ok): the multimat face pass, kernel K14
+  mm_face_wflux + K13 basis_accum (ops/face_fused.py mm_face_pass), whose
+  charvel gives the stage-0 dt; at P1 the volume integral in torch first;
+- Dirichlet faces at P0: the face states through the gather (K5), the
+  ghost, AUSM+up and the riemannDeriv rows in torch, the element sums
+  through the accumulation (K6), and the dt sweep dt_p0 in torch.
+
+The JAX package pads the state with 3*nmat + 1 zero rows so its generic
+face kernels carry the riemannDeriv rows; here the state stays C rows and
+only the face pass's output has R.  THINC interface sharpening
+(intsharp), DG(P1) on Dirichlet faces and the SPMD solver are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from ..ops.face_accum import accumulate_faces, face_gather
+from ..ops.face_fused import delt_plain, mm_face_pass
+from ..ops.nbr_bounds import neighbor_mean_bounds
+from .dg import (BC_DIRICHLET, BC_INTERIOR, BC_SYMMETRY, DGGeom, dg_dt,
+                 dg_dt_from_delt, dg_initialize, volume_rhs)
+from .eos import StiffenedGas
+from .limiter import consistent_mm_phi, superbee_phi
+
+RK0 = (0.0, 3.0 / 4.0, 1.0 / 3.0)
+RK1 = (1.0, 1.0 / 4.0, 2.0 / 3.0)
+
+
+def volfrac_idx(nmat, k):
+    return k
+
+
+def density_idx(nmat, k):
+    return nmat + k
+
+
+def momentum_idx(nmat, i):
+    return 2 * nmat + i
+
+
+def energy_idx(nmat, k):
+    return 2 * nmat + 3 + k
+
+
+def _split_mach(mach):
+    """AUSM+ split Mach/pressure polynomials (AUSM.hpp:200-250), f_a=1."""
+    m1p = 0.5 * (mach + mach.abs())
+    m1m = 0.5 * (mach - mach.abs())
+    mp1, mm1 = mach + 1.0, mach - 1.0
+    m2p = 0.25 * (mp1 * mp1)
+    m2m = -0.25 * (mm1 * mm1)
+    c = 16.0 * (3.0 / 16.0)   # 16 alpha, alpha = (3/16)(-4+5 f_a^2)
+
+    sup = mach.abs() >= 1.0
+    msafe = torch.where(mach == 0, 1.0, mach)
+    msp = torch.where(sup, m1p, m2p * (1.0 - 2.0 * m2m))
+    msm = torch.where(sup, m1m, m2m * (1.0 + 2.0 * m2p))
+    psp = torch.where(sup, m1p / msafe,
+                      m2p * ((2.0 - mach) - c * mach * m2m))
+    psm = torch.where(sup, m1m / msafe,
+                      m2m * ((-2.0 - mach) + c * mach * m2p))
+    return msp, msm, psp, psm
+
+
+def _dot3(a, n):
+    return a[0] * n[0] + a[1] * n[1] + a[2] * n[2]
+
+
+class MultiMatSystem:
+    """DG multi-material Euler with AUSM+up and non-conservative terms."""
+
+    has_src = False
+
+    def __init__(self, problem, intsharp=False, thinc_beta=2.5):
+        if intsharp:
+            raise NotImplementedError("THINC interface sharpening (intsharp) "
+                                      "is not ported")
+        self.problem = problem
+        self.nmat = problem.nmat
+        self.eos: List[StiffenedGas] = list(problem.eos)
+        self.ncomp = 3 * self.nmat + 3
+        #: rows of the face pass: C fluxes, 3*nmat riemannDeriv, 1 divergence
+        self.nrows = self.ncomp + 3 * self.nmat + 1
+        self.facade = _FusedMMFacade(self)
+        #: set by MultiMatSolver: no Dirichlet face, the multimat face pass
+        self.fused_ok = False
+
+    # -- state helpers --------------------------------------------------------
+
+    def _prim(self, u):
+        """Bulk rho, velocity, material fractions/pressures/enthalpies/sound
+        speeds.  alpha and the material density are floored at 50 eps of
+        the dtype (trace materials at face points), the pressure at 1e-30
+        in the sound speed."""
+        nmat = self.nmat
+        floor = 50.0 * torch.finfo(u.dtype).eps
+        rho = sum(u[density_idx(nmat, k)] for k in range(nmat))
+        vel = [u[momentum_idx(nmat, i)] / rho for i in range(3)]
+        al, pm, hm, am = [], [], [], []
+        for k in range(nmat):
+            a = torch.clamp_min(u[volfrac_idx(nmat, k)], floor)
+            rk = torch.clamp_min(u[density_idx(nmat, k)] / a, floor)
+            ek = u[energy_idx(nmat, k)] / a
+            p = self.eos[k].pressure(rk, vel[0], vel[1], vel[2], ek)
+            al.append(a)
+            pm.append(p)
+            hm.append(u[energy_idx(nmat, k)] + a * p)
+            am.append(self.eos[k].soundspeed(rk, torch.clamp_min(p, 1e-30)))
+        return rho, vel, al, pm, hm, am
+
+    def ausm(self, fn, uL, uR):
+        """AUSM+up flux: (flux (C, n), ap_star (nmat, n), vriem (n,))."""
+        nmat = self.nmat
+        rhol, vell, all_, pml, hml, aml = self._prim(uL)
+        rhor, velr, alr, pmr, hmr, amr = self._prim(uR)
+
+        pl = sum(all_[k] * pml[k] for k in range(nmat))
+        pr = sum(alr[k] * pmr[k] for k in range(nmat))
+
+        # mixture speed of sound from averaged material states
+        rho12 = 0.5 * (rhol + rhor)
+        ac2 = 0.0
+        for k in range(nmat):
+            al12 = 0.5 * (all_[k] + alr[k])
+            rm12 = 0.5 * (uL[density_idx(nmat, k)] / all_[k]
+                          + uR[density_idx(nmat, k)] / alr[k])
+            am12 = 0.5 * (aml[k] + amr[k])
+            ac2 = ac2 + al12 * rm12 * am12 * am12
+        ac12 = torch.sqrt(ac2 / rho12)
+
+        vnl, vnr = _dot3(vell, fn), _dot3(velr, fn)
+        mspl, _, pspl, _ = _split_mach(vnl / ac12)
+        _, msmr, _, psmr = _split_mach(vnr / ac12)
+
+        m12 = mspl + msmr  # k_p = 0 (AUSM.hpp:127: k_u = k_p = 0)
+        vriem = ac12 * m12
+        p12 = pspl * pl + psmr * pr  # k_u = 0
+
+        lp = 0.5 * (vriem + vriem.abs())
+        lm = 0.5 * (vriem - vriem.abs())
+
+        flx = [None] * self.ncomp
+        for k in range(nmat):
+            flx[volfrac_idx(nmat, k)] = lp * all_[k] + lm * alr[k]
+            d = density_idx(nmat, k)
+            flx[d] = lp * uL[d] + lm * uR[d]
+            flx[energy_idx(nmat, k)] = lp * hml[k] + lm * hmr[k]
+        for i in range(3):
+            m = momentum_idx(nmat, i)
+            flx[m] = lp * uL[m] + lm * uR[m] + p12 * fn[i]
+
+        # Riemann-advected partial pressures: upwinded by the sign of vriem
+        lpn = lp / (vriem.abs() + 1e-16)
+        lmn = lm / (vriem.abs() + 1e-16)
+        ap = []
+        for k in range(nmat):
+            apl = all_[k] * pml[k]
+            apr = alr[k] * pmr[k]
+            ap.append(torch.where(
+                lpn.abs() > 1e-10, apl,
+                torch.where(lmn.abs() > 1e-10, apr, 0.5 * (apl + apr))))
+        return torch.stack(flx), torch.stack(ap), vriem
+
+    def bc_state(self, bctype, sL, fn):
+        """Ghost states: symmetry reflects the velocity (the momentum is
+        rebuilt as rho * (v - 2 (v.n) n)), extrapolate copies; Dirichlet is
+        the caller's."""
+        nmat = self.nmat
+        rho = sum(sL[density_idx(nmat, k)] for k in range(nmat))
+        vel = [sL[momentum_idx(nmat, i)] / rho for i in range(3)]
+        vn = _dot3(vel, fn)
+        m0 = momentum_idx(nmat, 0)
+        mom = [rho * (vel[i] - 2.0 * vn * fn[i]) for i in range(3)]
+        sym = torch.cat([sL[:m0], torch.stack(mom), sL[m0 + 3:]])
+        return torch.where(bctype == BC_SYMMETRY, sym, sL)
+
+    def charvel(self, u, fn):
+        nmat = self.nmat
+        rho, vel, al, pm, hm, am = self._prim(u)
+        ac = torch.sqrt(
+            sum(al[k] * (u[density_idx(nmat, k)] / al[k]) * (am[k] * am[k])
+                for k in range(nmat)) / rho)
+        return _dot3(vel, fn).abs() + ac
+
+    def flux_cols(self, state, gp, t):
+        """Conservative flux columns F_j (list of 3, each (C, ...)) for the
+        DG volume integral at P1: alpha advects as alpha*u, with the
+        +alpha*div(u) balance in the non-conservative term."""
+        nmat, C = self.nmat, self.ncomp
+        rho, vel, al, pm, hm, am = self._prim(state)
+        pb = sum(al[k] * pm[k] for k in range(nmat))
+        cols = []
+        for j in range(3):
+            f = [None] * C
+            for k in range(nmat):
+                f[volfrac_idx(nmat, k)] = al[k] * vel[j]
+                d = density_idx(nmat, k)
+                f[d] = state[d] * vel[j]
+                # material total enthalpy flux: u_j ((arE)_k + a_k p_k)
+                f[energy_idx(nmat, k)] = hm[k] * vel[j]
+            for i in range(3):
+                mom = state[momentum_idx(nmat, i)] * vel[j]
+                f[momentum_idx(nmat, i)] = mom + pb if i == j else mom
+            cols.append(torch.stack(f))
+        return cols
+
+    # -- right-hand sides ------------------------------------------------------
+
+    def _split_acc(self, acc, K):
+        """The face pass's (R*K, E) sums -> (conservative (C, K, E), dap
+        (3*nmat, E), divu (E,)) from the k = 0 rows of the carriers."""
+        nmat, C = self.nmat, self.ncomp
+        accv = acc.reshape(self.nrows, K, -1)
+        return accv[:C], accv[C:C + 3 * nmat, 0], accv[C + 3 * nmat, 0]
+
+    def rhs_p0(self, geom: DGGeom, U, t, want_delt=False):
+        """Finite-volume rhs (C, E) with the non-conservative terms.  With
+        fused_ok the multimat face pass (K14 + K13 on a card) takes the
+        whole face sweep, and want_delt also returns its per-element summed
+        charvel; otherwise the Dirichlet route (quinoa_tpu/pde/multimat.py
+        :345-405, face sums through K6)."""
+        nmat, C = self.nmat, self.ncomp
+        if self.fused_ok:
+            acc, delt = mm_face_pass(self, geom, U)
+            R, dap, divu = self._split_acc(acc, 1)
+            R = R[:, 0] + self._nonconservative(geom, U, dap, divu)
+            R = R * geom.emask
+            return (R, delt) if want_delt else R
+        if want_delt:
+            raise ValueError("want_delt needs the multimat face pass")
+        acc = accumulate_faces(geom, *self.dirichlet_face_rows(geom, U, t))
+        R, dap, divu = acc[:C], acc[C:C + 3 * nmat], acc[C + 3 * nmat]
+        R = R + self._nonconservative(geom, U, dap, divu)
+        return R * geom.emask
+
+    def dirichlet_face_rows(self, geom: DGGeom, U, t):
+        """The Dirichlet route's per-face rows (XL, XR), each (C + 3*nmat +
+        1, F): the weighted AUSM+up flux, riemannDeriv and velocity
+        divergence that K6 sums onto the left and right elements."""
+        nmat = self.nmat
+        uL = face_gather(U, geom.el)
+        uR0 = face_gather(U, geom.er)
+        interior = geom.bctype == BC_INTERIOR
+
+        # boundary ghost states; P0: the cell anchor for Dirichlet
+        gp = geom.node0[:, geom.el.long()]
+        dirich = self.problem.solution(gp, t).to(U.dtype)
+        uR = torch.where(
+            interior, uR0,
+            torch.where(geom.bctype == BC_DIRICHLET, dirich,
+                        self.bc_state(geom.bctype, uL, geom.fn)))
+
+        flx, ap, vriem = self.ausm(geom.fn, uL, uR)
+        wt = geom.farea * geom.fmask  # single-point face rule for P0
+
+        contribL = -wt * flx
+        contribR = wt * flx
+        # riemannDeriv: dap[3k+i] += wt ap_k fn_i; the div u term
+        dapL = torch.stack([wt * ap[k] * geom.fn[i] for k in range(nmat)
+                            for i in range(3)])
+        divL = wt * vriem
+        return (torch.cat([contribL, dapL, divL[None]]),
+                torch.cat([contribR, -dapL, -divL[None]]))
+
+    def rhs(self, geom: DGGeom, U, t, want_delt=False):
+        """Order-dispatching rhs (C*K, E) [, delt]: P0 keeps the finite-
+        volume path; P1 (ndof 4) adds the XLA-formulation volume integral
+        to the multimat face pass and integrates the non-conservative terms
+        at the volume Gauss points."""
+        K = geom.ndof
+        if K == 1:
+            return self.rhs_p0(geom, U, t, want_delt=want_delt)
+        if not self.fused_ok:
+            raise NotImplementedError("multimat DG(P1) on Dirichlet faces "
+                                      "is not ported")
+        C = self.ncomp
+        E = U.shape[-1]
+        Uv = U.reshape(C, K, E)
+        acc, delt = mm_face_pass(self, geom, U)
+        R, dap, divu = self._split_acc(acc, K)
+        Rv = volume_rhs(self, geom, U, t).reshape(C, K, E)
+        R = Rv + R + self._nonconservative_ho(geom, Uv, dap, divu)
+        R = (R * geom.emask).reshape(C * K, E)
+        return (R, delt) if want_delt else R
+
+    def _nonconservative_ho(self, geom: DGGeom, Uv, dap, divu):
+        """High-order non-conservative volume integral: the face-summed
+        riemannDeriv surrogates are cell constants (divided by vol), the
+        state is evaluated at the volume Gauss points, and the product is
+        integrated against every basis function.  Uv (C, K, E) -> (C, K,
+        E)."""
+        nmat, C = self.nmat, self.ncomp
+        tb = geom.tables
+        dt_, dev = Uv.dtype, Uv.device
+        V = geom.vol * geom.emask + (1.0 - geom.emask)
+        dapv = dap / V                                   # (3*nmat, E)
+        divuv = divu / V                                 # (E,)
+        B_vol = torch.as_tensor(tb["B_vol"], dtype=dt_, device=dev)  # (G,K)
+        wB = torch.as_tensor(tb["w_vol"][:, None] * tb["B_vol"], dtype=dt_,
+                             device=dev)
+        s = torch.einsum("gk,cke->cge", B_vol, Uv)       # (C,G,E)
+        ncf = self._ncf(s, dapv, divuv)
+        Rnc = torch.einsum("gk,cge->cke", wB, torch.stack(ncf))
+        return Rnc * (geom.vol * geom.emask)
+
+    def _ncf(self, s, dap, divu):
+        """Non-conservative integrands (C rows) of the states s from the
+        volume-scaled face sums (MultiMatTerms.cpp:140-170): alpha_k div(u)
+        and the velocity-dotted pressure-gradient exchange in the
+        material energies."""
+        nmat, C = self.nmat, self.ncomp
+        rho = sum(s[density_idx(nmat, k)] for k in range(nmat))
+        vel = [s[momentum_idx(nmat, i)] / rho for i in range(3)]
+        dap_tot = [sum(dap[3 * k + i] for k in range(nmat))
+                   for i in range(3)]
+        ncf = [torch.zeros_like(s[0]) for _ in range(C)]
+        for k in range(nmat):
+            ncf[volfrac_idx(nmat, k)] = s[volfrac_idx(nmat, k)] * divu
+            y_k = s[density_idx(nmat, k)] / rho
+            e = torch.zeros_like(s[0])
+            for i in range(3):
+                e = e - vel[i] * (y_k * dap_tot[i] - dap[3 * k + i])
+            ncf[energy_idx(nmat, k)] = e
+        return ncf
+
+    def _nonconservative(self, geom: DGGeom, U, dap, divu):
+        """P0 non-conservative volume terms (C, E) from the face sums."""
+        V = geom.vol * geom.emask + (1.0 - geom.emask)
+        ncf = self._ncf(U, dap / V, divu / V)
+        return geom.vol * geom.emask * torch.stack(ncf)
+
+    def dt(self, geom: DGGeom, U):
+        """Max-charvel time step: P0 the finite-volume sweep, P1 the DG
+        face sweep (dg_dt) through the facade."""
+        if geom.ndof == 1:
+            return self.dt_p0(geom, U)
+        return dg_dt(self.facade, geom, U)
+
+    def dt_p0(self, geom: DGGeom, U):
+        uL = face_gather(U, geom.el)
+        uR = face_gather(U, geom.er)
+        wt = geom.farea * geom.fmask
+        interior = geom.bctype == BC_INTERIOR
+        dl = wt * self.charvel(uL, geom.fn)
+        dr = wt * self.charvel(uR, geom.fn)
+        mx = torch.where(interior, torch.maximum(dl, dr), dl)
+        return dg_dt_from_delt(geom, delt_plain(geom, mx))
+
+    def initialize(self, xyz, t):
+        return self.problem.solution(xyz, t)
+
+    def analytic(self, xyz, t):
+        return self.problem.solution(xyz, t)
+
+
+def clean_alpha_closure(u, C, K, nmat):
+    """Enforce sum_k alpha_k == 1 on every dof row: the majority
+    material's fraction dofs become (1, 0, 0, 0) minus the sum of the
+    others (the alpha part of upstream Quinoa's cleanTraceMultiMat).  The
+    majority is the first maximum of the cell means, as jnp.argmax picks
+    it.  P1+ only."""
+    E = u.shape[-1]
+    Uv = u.reshape(C, K, E)
+    al = Uv[:nmat]                                       # (nmat,K,E)
+    kmax = torch.argmax(al[:, 0, :], dim=0)              # (E,)
+    unit0 = torch.zeros((K, E), dtype=u.dtype, device=u.device)
+    unit0[0] = 1.0
+    total = al.sum(dim=0)                                # (K,E)
+    fix = unit0[None] - (total[None] - al)               # (nmat,K,E)
+    onehot = (torch.arange(nmat, device=u.device)[:, None, None]
+              == kmax[None, None, :])
+    return torch.cat([torch.where(onehot, fix, al), Uv[nmat:]]).reshape(
+        C * K, E)
+
+
+def mm_consistent_limit(system, geom: DGGeom, u):
+    """Consistent material-fraction Superbee limiting for multimat DG(P1):
+    the neighbour-mean bounds (K4 on a card), the Superbee phi, the
+    common-alpha adjustment (pde/limiter.py consistent_mm_phi), then the
+    P1 dofs scaled by it."""
+    C, K = system.ncomp, geom.ndof
+    E = u.shape[-1]
+    bounds = neighbor_mean_bounds(geom, u, C)
+    phi = consistent_mm_phi(superbee_phi(geom, u, None, C, bounds=bounds),
+                            system.nmat)
+    Uv = u.reshape(C, K, E)
+    return torch.cat([Uv[:, :1], Uv[:, 1:4] * phi[:, None, :]],
+                     dim=1).reshape(C * K, E)
+
+
+class _FusedMMFacade:
+    """AUSM+up flux + riemannDeriv + velocity divergence presented as one
+    R-row 'flux' of the C-row multimat state, with the multimat ghost and
+    charvel: what the face pass (K14 and its plain version, through
+    ops/face_fused.py face_wflux_plain) and the dg_dt sweep call."""
+
+    needs_face_gp = False
+
+    def __init__(self, mm: MultiMatSystem):
+        self.mm = mm
+        self.ncomp = mm.ncomp
+
+    def bc_state(self, bctype, sL, fn, gp, t):
+        return self.mm.bc_state(bctype, sL, fn)
+
+    def riemann(self, fn, sL, sR, gp, t):
+        mm = self.mm
+        flx, ap, vriem = mm.ausm(fn, sL, sR)
+        dap = torch.stack([ap[k] * fn[i] for k in range(mm.nmat)
+                           for i in range(3)])
+        return torch.cat([flx, -dap, -vriem[None]])
+
+    def charvel(self, s, fn, gp=None):
+        return self.mm.charvel(s, fn)
+
+
+class MultiMatSolver:
+    """SSP-RK3 DG(P0/P1) time stepper for the multi-material system on one
+    device (quinoa_tpu/pde/multimat.py MultiMatSolver).
+
+    P0 is the reference fork's scheme (DGMultiMat.hpp:154 asserts
+    ndof==1); P1 (ndof 4) runs the DG volume and face integrals with
+    consistent material-fraction Superbee limiting and the alpha closure
+    after every stage."""
+
+    def __init__(self, system: MultiMatSystem, geom: DGGeom, cfl=0.5,
+                 const_dt=None, limiter=None):
+        if geom.ndof not in (1, 4):
+            raise ValueError("multimat supports DG(P0) and DG(P1) only")
+        if limiter not in (None, "superbeep1"):
+            raise ValueError(
+                f"unknown multimat limiter {limiter!r} (superbeep1 only: "
+                "consistent fraction limiting needs the phi factors)")
+        if limiter is not None and geom.ndof < 4:
+            raise ValueError("limiters require ndof >= 4")
+        # the face kernel has no Dirichlet ghost (it samples the solution)
+        has_dirichlet = bool((geom.bctype == BC_DIRICHLET).any())
+        if has_dirichlet and geom.ndof > 1:
+            raise NotImplementedError("multimat DG(P1) on Dirichlet faces "
+                                      "is not ported")
+        self.system = system
+        self.geom = geom
+        self.cfl = cfl
+        self.const_dt = None if const_dt is None else torch.tensor(
+            const_dt, dtype=geom.dtype, device=geom.device)
+        self.limiter = limiter
+        # CFL order scale (DG.cpp:1404-1418)
+        p = {1: 0.0, 4: 1.0}[geom.ndof]
+        self.cflscale = 1.0 / (2.0 * p + 1.0)
+        system.fused_ok = not has_dirichlet
+        if geom.ndof == 1:
+            self.minv = 1.0 / geom.vol
+        else:
+            mn = torch.as_tensor(geom.tables["mnorm"], dtype=geom.dtype,
+                                 device=geom.device)
+            inv = 1.0 / (geom.vol[None, :] * mn[:, None])   # (K, E)
+            self.minv = inv.repeat(system.ncomp, 1)          # (C*K, E)
+
+    def _limit(self, u):
+        if self.limiter is None:
+            return u
+        return mm_consistent_limit(self.system, self.geom, u)
+
+    def initial_state(self, t0=0.0):
+        from ..inciter.dg import DGState
+
+        g = self.geom
+        # L2 projection onto the modal basis (P0: the centroid value)
+        u0 = dg_initialize(self.system, g, t0)
+        return DGState(
+            u=u0.to(g.dtype).contiguous(),
+            ndofel=torch.full((g.nelem,), g.ndof, dtype=torch.int32,
+                              device=g.device),
+            t=torch.tensor(t0, dtype=g.dtype, device=g.device),
+            it=torch.tensor(0, dtype=torch.int32, device=g.device),
+            dt=torch.tensor(0.0, dtype=g.dtype, device=g.device),
+        )
+
+    def step(self, state):
+        from ..inciter.dg import DGState
+
+        g, system = self.geom, self.system
+        un = u = state.u
+        dt = self.const_dt
+        for s in range(3):
+            u = self._limit(u)
+            if s == 0:
+                # RK anchor is the LIMITED stage-0 solution (DG.cpp:1471);
+                # dt on the limited state as well
+                un = u
+                if dt is None and not system.fused_ok:
+                    dt = system.dt_p0(g, u) * self.cfl * self.cflscale
+            if system.fused_ok and s == 0 and self.const_dt is None:
+                # the face pass emits the dt charvel sums with the rhs
+                r, delt = system.rhs(g, u, state.t, want_delt=True)
+                dt = dg_dt_from_delt(g, delt) * self.cfl * self.cflscale
+            else:
+                r = system.rhs(g, u, state.t)
+            u = RK0[s] * un + RK1[s] * (u + dt * r * self.minv)
+            if g.ndof > 1:
+                u = clean_alpha_closure(u, system.ncomp, g.ndof, system.nmat)
+        return DGState(u=u, ndofel=state.ndofel, t=state.t + dt,
+                       it=state.it + 1, dt=dt)
+
+    def nsteps(self, state, n):
+        for _ in range(n):
+            state = self.step(state)
+        return state

@@ -45,7 +45,7 @@ ZERO = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0, "nbr_bounds": 0,
         "face_gather": 0, "face_accum": 0, "alecg_vol": 0, "alecg_vol_cf": 0,
         "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0,
         "node_gather": 0, "node_assemble": 0, "face_wflux": 0,
-        "basis_accum": 0}
+        "basis_accum": 0, "mm_face_wflux": 0}
 
 
 @pytest.fixture(scope="module")
@@ -184,9 +184,9 @@ def test_new_paths_on_card_match_cpu(card, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("ndof", [4, 10])
+@pytest.mark.parametrize("ndof", [1, 4, 10])
 def test_single_stream_kernels_match_plain_versions(card, ndof, dtype):
-    """K12 and K13 at P1 and P2 against their plain versions bit for bit
+    """K12 and K13 at P0, P1 and P2 against their plain versions bit for bit
     (the same expressions in the same order, sums in point and slot
     order), alone and as fused_face_pass."""
     system = DGCompFlow(SedovBlastwave())
@@ -377,3 +377,130 @@ def test_diagcg_on_card_matches_cpu(card, case):
     assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11
     assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
     assert kernels.launches == {**ZERO, "node_gather": 6, "node_assemble": 6}
+
+
+def _mm(case, device, dtype=torch.float64):
+    """The multimat solvers of chip_smoke.py's paths at a small size:
+    (solver, its kernels)."""
+    from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE
+    from quinoa_tpu_torch.pde.multimat import MultiMatSolver, MultiMatSystem
+    from quinoa_tpu_torch.pde.problems import (MMInterfaceAdvection,
+                                               MMSodShocktube)
+
+    if case == "mm_iface":
+        mesh = box_tet_mesh(6, 6, 2, hi=(1.0, 1.0, 0.3))
+        bc = {i: BC_DIRICHLET for i in range(1, 7)}
+        system, ndof, kw = MultiMatSystem(MMInterfaceAdvection()), 1, {
+            "cfl": 0.4}
+        used = ("face_gather", "face_accum")
+    else:
+        mesh = box_tet_mesh(8, 3, 2, hi=(1.0, 0.375, 0.25))
+        bc = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
+              **{i: BC_SYMMETRY for i in range(3, 7)}}
+        ndof = 4 if case == "mm_p1" else 1
+        system = MultiMatSystem(MMSodShocktube())
+        kw = {"cfl": 0.5, "limiter": "superbeep1" if ndof == 4 else None}
+        used = ("mm_face_wflux", "basis_accum") + (
+            ("nbr_bounds",) if ndof == 4 else ())
+    mesh, _ = hilbert_element_reorder(mesh)
+    g = build_dggeom(mesh, ndof, bc, dtype=dtype, device=device)
+    return MultiMatSolver(system, g, **kw), used
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["mm_p0", "mm_p1", "mm_iface_nmat3",
+                                  "mm_iface_nmat3_p1"])
+def test_mm_face_kernel_matches_plain_version(card, case, dtype):
+    """K14 (nmat 2 and 3, P0 and P1) and K13 at its R rows (16, 22)
+    against their plain versions bit for bit, on the limited initial state
+    of the solver, alone and as mm_face_pass."""
+    from quinoa_tpu_torch.ops.face_fused import (mm_face_pass,
+                                                 mm_face_wflux_plain)
+    from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE, build_dggeom as bd
+    from quinoa_tpu_torch.pde.multimat import MultiMatSolver, MultiMatSystem
+    from quinoa_tpu_torch.pde.problems import MMInterfaceAdvection
+
+    if case.startswith("mm_iface_nmat3"):
+        # extrapolate faces: the face kernel's ghost
+        ndof = 4 if case.endswith("p1") else 1
+        g = bd(box_tet_mesh(6, 6, 2, hi=(1.0, 1.0, 0.3)), ndof,
+               {i: BC_EXTRAPOLATE for i in range(1, 7)}, dtype=dtype,
+               device=card)
+        solver = MultiMatSolver(MultiMatSystem(MMInterfaceAdvection()), g,
+                                limiter="superbeep1" if ndof == 4 else None)
+    else:
+        solver, _ = _mm(case, card, dtype)
+    sy, g = solver.system, solver.geom
+    U = solver._limit(solver.initial_state().u)
+    kernels.reset_launches()
+    wfl, mx = kernels.mm_face_wflux(U, g.el, g.er, g.fn, g.farea, g.fmask,
+                                    g.xi_l, g.xi_r, g.bctype, g.w_face,
+                                    sy.eos)
+    pw, pm = mm_face_wflux_plain(sy, g, U)
+    assert wfl.shape == (sy.nrows * {1: 1, 4: 3}[g.ndof], g.nface)
+    assert torch.equal(wfl, pw) and torch.equal(mx, pm)
+    got = kernels.basis_accum(wfl, mx, g.fose, g.fsideR, g.xi_l, g.xi_r,
+                              g.ndof)
+    for a, b in zip(got, basis_accum_plain(g, pw, pm)):
+        assert torch.equal(a, b)
+    for a, b in zip(mm_face_pass(sy, g, U), got):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**ZERO, "mm_face_wflux": 2,
+                                "basis_accum": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mm_face_gp_kernels_match_plain_versions(card, dtype):
+    """K4 at multimat P1's 9 components, K5 at the interface advection's
+    12 rows and K6 on its 22 Dirichlet face rows against their plain
+    versions bit for bit, on the solvers' (limited) initial states."""
+    p1, _ = _mm("mm_p1", card, dtype)
+    iface, _ = _mm("mm_iface", card, dtype)
+    U = p1._limit(p1.initial_state().u)
+    C, g = p1.system.ncomp, p1.geom
+    Uf, gf = iface.initial_state().u, iface.geom
+    kernels.reset_launches()
+    for got, want in zip(neighbor_mean_bounds(g, U, C),
+                         neighbor_mean_bounds_plain(g, U[::4])):
+        assert torch.equal(got, want)
+    for idx in (gf.el, gf.er):
+        assert torch.equal(face_gather(Uf, idx), face_gather_plain(Uf, idx))
+    XL, XR = iface.system.dirichlet_face_rows(gf, Uf, 0.0)
+    assert XL.shape == (iface.system.nrows, gf.nface) == (22, gf.nface)
+    assert torch.equal(accumulate_faces(gf, XL, XR),
+                       accumulate_faces_plain(gf, XL, XR))
+    torch.cuda.synchronize()
+    # dirichlet_face_rows gathers el and er through K5 itself
+    assert kernels.launches == {**ZERO, "nbr_bounds": 1, "face_gather": 4,
+                                "face_accum": 1}
+
+
+@pytest.mark.parametrize("case", ["p0", "mm_p0", "mm_p1", "mm_iface"])
+def test_p0_and_multimat_on_card_match_cpu(card, case):
+    """Two float64 steps on the card against the CPU: Euler DG(P0) Sod
+    (K12 + K13 at (1, 1)) and the three multimat paths; u atol 1e-11 of
+    max(1, max|u|), dt rtol 1e-12, only the path's kernels launched."""
+    from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE
+    from quinoa_tpu_torch.pde.problems import SodShocktube
+
+    def solver(device):
+        if case != "p0":
+            return _mm(case, device)
+        mesh = box_tet_mesh(8, 3, 2, hi=(1.0, 0.375, 0.25))
+        bc = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
+              **{i: BC_SYMMETRY for i in range(3, 7)}}
+        g = build_dggeom(mesh, 1, bc, dtype=torch.float64, device=device)
+        return (DGSolver(DGCompFlow(SodShocktube()), g, cfl=0.5),
+                ("face_wflux", "basis_accum"))
+
+    (a, used), (b, _) = solver(card), solver("cpu")
+    kernels.reset_launches()
+    sa = a.nsteps(a.initial_state(), 2)
+    sb = b.nsteps(b.initial_state(), 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(sa.u).all())
+    scale = max(1.0, float(sb.u.abs().max()))
+    assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11 * scale
+    assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
+    assert {k for k, v in kernels.launches.items() if v} == set(used)

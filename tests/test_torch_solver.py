@@ -76,6 +76,7 @@ def test_solver_matches_jax(runs, nsteps):
 
 def test_port_imports_no_jax():
     """One Sedov pdg step, one GaussHump step, one DG(P2) TaylorGreen step,
+    one DG(P0) Sod step, one multimat Sod step at P0 and at P1 (Superbee),
     and one ALECG and one DiagCG step of each flavour (SlotCyl,
     VorticalFlow) on small boxes, built on the CPU, in a fresh
     interpreter, with any jax or quinoa_tpu module an interpreter start-up
@@ -99,7 +100,11 @@ def test_port_imports_no_jax():
         "from quinoa_tpu_torch.pde.dg_compflow import (DGCompFlow,\n"
         "                                              DGTransport)\n"
         "from quinoa_tpu_torch.pde.problems import (GaussHump, SedovBlastwave,\n"
-        "                                           TaylorGreen)\n"
+        "                                           SodShocktube, TaylorGreen,\n"
+        "                                           MMSodShocktube)\n"
+        "from quinoa_tpu_torch.pde.multimat import (MultiMatSolver,\n"
+        "                                           MultiMatSystem)\n"
+        "from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE\n"
         "from quinoa_tpu_torch.inciter.dg import DGSolver, DGDiagnostics\n"
         "import quinoa_tpu_torch.convert, quinoa_tpu_torch.kernels\n"
         "import quinoa_tpu_torch.ops.face_accum\n"
@@ -132,6 +137,18 @@ def test_port_imports_no_jax():
         "p2 = DGSolver(DGCompFlow(TaylorGreen()), g2, cfl=0.5)\n"
         "l2 += DGDiagnostics(p2.system, g2).compute(\n"
         "    p2.step(p2.initial_state()))[0]\n"
+        "bc = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,\n"
+        "      **{i: BC_SYMMETRY for i in range(3, 7)}}\n"
+        "g0 = build_dggeom(box_tet_mesh(4, 2, 2), 1, bc, device='cpu')\n"
+        "p0 = DGSolver(DGCompFlow(SodShocktube()), g0, cfl=0.5)\n"
+        "l2 += DGDiagnostics(p0.system, g0).compute(\n"
+        "    p0.step(p0.initial_state()))[0]\n"
+        "for ndof, lim in ((1, None), (4, 'superbeep1')):\n"
+        "    gm = build_dggeom(box_tet_mesh(4, 2, 2), ndof, bc, device='cpu')\n"
+        "    mm = MultiMatSolver(MultiMatSystem(MMSodShocktube()), gm,\n"
+        "                        cfl=0.5, limiter=lim)\n"
+        "    l2 += DGDiagnostics(mm.system, gm).compute(\n"
+        "        mm.step(mm.initial_state()))[0]\n"
         "m, _ = hilbert_element_reorder(box_tet_mesh(3, 3, 2))\n"
         "m, _ = first_touch_node_reorder(m)\n"
         "for sy in (CGTransport(SlotCyl()), CGCompFlow(VorticalFlow())):\n"
@@ -182,7 +199,7 @@ def test_cpu_tensors_leave_launch_counters_at_zero(runs):
                                 "alecg_edge": 0, "alecg_edge_cf": 0,
                                 "cg_assemble": 0, "node_gather": 0,
                                 "node_assemble": 0, "face_wflux": 0,
-                                "basis_accum": 0}
+                                "basis_accum": 0, "mm_face_wflux": 0}
     U = torch.zeros(20, tg.nelem, dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.limit_vol(U, tg.esuelT, tg.jacInv, tg.vol, tg.ktab, 2.0,
@@ -220,9 +237,10 @@ def test_unported_configurations_raise(runs):
         DGSolver(TCompFlow(TSedov(), riemann_flux="laxfriedrichs"), tg,
                  limiter="superbeep1")
     mesh = box_tet_mesh(2, 2, 2)
-    for ndof in (1, 10):
+    # a limiter below P1 is a ValueError, as in the JAX package
+    for ndof, error in ((1, ValueError), (10, NotImplementedError)):
         g = t_build(mesh, ndof=ndof, device="cpu")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(error):
             DGSolver(system, g, limiter="superbeep1")
     with pytest.raises(NotImplementedError):
         DGSolver(TCompFlow(_Manufactured()), tg, limiter="superbeep1")
@@ -271,3 +289,51 @@ def test_newly_ported_configurations_match_jax(runs, dirichlet_geoms, kw,
     np.testing.assert_allclose(b.u.numpy(), np.asarray(a.u), rtol=0,
                                atol=U_ATOL)
     assert np.isclose(float(b.dt), float(a.dt), rtol=DT_RTOL)
+
+
+@pytest.mark.parametrize("pair", ["DGSolver", "diagcg_advance"])
+def test_signatures_match_jax(pair):
+    """The parameter names, order and defaults of DGSolver (cweight
+    between limiter and pref) and diagcg_advance (combine_min between
+    combine_max and bc_n) equal the JAX package's."""
+    import inspect
+
+    from quinoa_tpu.inciter import diagcg as j_diagcg
+    from quinoa_tpu.inciter import dg as j_dg
+
+    from quinoa_tpu_torch.inciter import diagcg as t_diagcg
+    from quinoa_tpu_torch.inciter import dg as t_dg
+
+    if pair == "DGSolver":
+        ref, port = j_dg.DGSolver.__init__, t_dg.DGSolver.__init__
+    else:
+        ref, port = j_diagcg.diagcg_advance, t_diagcg.diagcg_advance
+    rp = inspect.signature(ref).parameters
+    pp = inspect.signature(port).parameters
+    assert list(pp) == list(rp)
+    for name, p in rp.items():
+        d = pp[name].default
+        if callable(p.default) and p.default is not p.empty:
+            # the identity combine hooks
+            assert d(3.5) == p.default(3.5) == 3.5, name
+        else:
+            assert d == p.default, name
+
+
+def test_positional_dgsolver_call_builds_pdg(runs):
+    """DGSolver(system, geom, cfl, const_dt, limiter, cweight, pref,
+    tolref) positionally, at the JAX package's positions, builds the
+    p-adaptive Superbee solver it builds there."""
+    js, jg, ts, tg, _ = runs
+    args = (0.5, None, "superbeep1", 25.0, True, 0.2)
+    t = DGSolver(ts.system, tg, *args)
+    j = JSolver(js.system, jg, *args)
+    for name in ("cfl", "limiter", "cweight", "pref", "tolref"):
+        assert getattr(t, name) == getattr(j, name), name
+    assert t.pref is True and t.cweight == 25.0
+    a = j.step(j.initial_state())
+    b = t.step(t.initial_state())
+    np.testing.assert_array_equal(b.ndofel.numpy(), np.asarray(a.ndofel))
+    assert int((b.ndofel == 1).sum()) > 0
+    np.testing.assert_allclose(b.u.numpy(), np.asarray(a.u), rtol=0,
+                               atol=U_ATOL)
