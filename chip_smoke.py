@@ -5,8 +5,9 @@ Drives the port's three DG(P1) paths and its two ALECG paths at 48^3
 (663,552 tets; 117,649 nodes and 795,024 edges), its two DiagCG + FCT
 paths (SlotCyl at 64^3: 1,572,864 tets and 274,625 nodes; VorticalFlow at
 48^3), its DG(P2) path (TaylorGreen at 32^3: 196,608 tets, 399,360
-faces), its DG(P0) Sod path and its three multi-material paths (48^3) in
-float32 through their hand-written CUDA kernels:
+faces), its DG(P0) Sod path, its three multi-material paths, its
+Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
+(48^3) in float32 through their hand-written CUDA kernels:
 
 1. card    the name and power limit from nvidia-smi;
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -26,7 +27,12 @@ float32 through their hand-written CUDA kernels:
            P1, nmat 3 at P0) and K13 at its 16 and 22 rows on perturbed
            multimat states, K4 at mm_p1's 9 components, K5 on
            mm_iface's 12 rows and K6 on its Dirichlet face rows (22)
-           (float64 on small meshes); each timed kernel
+           (float64 on small meshes); the Lax-Friedrichs flavour of K12
+           on a perturbed, limited 48^3 Sod P1 state (and at K = 1, 4 and
+           10 in float64), the THINC flavour of K14 (nmat 3) with K13 at 22
+           rows and K4 at 12 components on the limited 48^3 interface
+           advection state (THINC at nmat 2 and 3 in float64), with the
+           share of THINC-flagged face points; each timed kernel
            also gets its bound (bytes of its inputs read once and outputs
            written once over 3.35 TB/s, or its operations over 67 TFLOP/s,
            whichever is larger) and, where one PyTorch call computes the
@@ -35,8 +41,8 @@ float32 through their hand-written CUDA kernels:
            P1, Sedov pdg, GaussHump, GaussHump pdg, ALECG and DiagCG
            SlotCyl and VorticalFlow, P2 TaylorGreen: 2 steps, u atol
            1e-11, dt rtol 1e-12, ndofel equal where the state has one),
-           and four more (P0 Sod and the three multimat paths; u atol
-           1e-11 of max(1, max|u|));
+           and six more (P0 Sod, the three multimat paths, p1_lf and
+           mm_thinc; u atol 1e-11 of max(1, max|u|));
 4. p1      the Sedov DG(P1) HLLC + Superbee step (bench.py) from its
            initial_state(): 1 warm-up and 10 timed steps through K1, K2
            and K3, 33 launches each; then the same 11 steps from the
@@ -78,13 +84,21 @@ float32 through their hand-written CUDA kernels:
 14. mm_p1   the same at DG(P1) with consistent Superbee: K4, K14, K13;
 15. mm_iface three-material MMInterfaceAdvection at DG(P0), Dirichlet on
            all six sides, cfl 0.4: the Dirichlet route, K5 (8 a step) and
-           K6 (3 a step).
-           Paths 12-15 gate L2(sol) after 11 steps against the JAX
+           K6 (3 a step);
+16. p1_lf   Euler SodShocktube DG(P1) with the Lax-Friedrichs flux and
+           Superbee, Sod faces, cfl 0.5: K1, the Lax-Friedrichs flavour of
+           K12 (face_wflux_lf) and K13, 3 launches each a step;
+17. mm_thinc three-material MMInterfaceAdvection at DG(P1) with THINC
+           interface sharpening (beta 2.5) and consistent Superbee,
+           extrapolate on all six sides, cfl 0.4: K4 (12 components), the
+           THINC flavour of K14 (mm_face_wflux_thinc) and K13 (22 rows).
+           Paths 12-17 gate L2(sol) after 11 steps against the JAX
            package's CPU float32 run (JAX_L2, jax_reference_l2.py) and,
            for multimat, the cell-mean fractions' minimum and sum; each
-           ends with a torch.profiler window, mm_p1 also with the host
-           time of a stage's limiter, volume integral, face pass,
-           non-conservative terms and alpha closure.
+           ends with a torch.profiler window, mm_p1 and mm_thinc also with
+           the host time of a stage's limiter, volume integral, face pass,
+           non-conservative terms and alpha closure (mm_thinc: and its
+           THINC carriers).
 
 Every path sets the launch counts to 0 just before it and reads them just
 after; a kernel of the path that did not launch as stated, or one that
@@ -184,6 +198,17 @@ JAX_L2 = {
                            42.50482940673828, 42.50482940673828,
                            8.062566848821007e-06, 148724.765625,
                            44142.44140625, 196196.3125]},
+    # paths 16-17, the same way (t after 11 steps 2.136693e-3 and
+    # 5.974771e-6)
+    "p1_lf": {"l2sol": [0.7114402055740356, 0.0130376685410738,
+                        0.0006519562448374927, 0.0006519564194604754,
+                        1.7733832597732544]},
+    "mm_thinc": {"l2sol": [0.5889950394630432, 0.17312538623809814,
+                           0.7810273766517639, 5.890181541442871,
+                           0.20107600092887878, 0.9071171879768372,
+                           42.29158020019531, 42.291534423828125,
+                           0.09856325387954712, 147543.09375,
+                           43291.5859375, 195302.15625]},
 }
 JAX_L2_RTOL = 1e-4
 # Each L2 gate holds a component to rtol JAX_L2_RTOL plus L2_ULPS float32
@@ -205,8 +230,16 @@ JAX_L2_RTOL = 1e-4
 #   no scale for a fraction.
 # L2(err) is gated where JAX_L2 holds it.
 L2_ULPS = 8
+# mm_thinc's z momentum is float32 round-off grown by THINC's flagged
+# faces: 0.0986 in the JAX package's float32 run, 6.3e-11 in its float64
+# run (jax_reference_l2.py --x64 mm_thinc).  Two JAX float32 runs from the
+# same initial state perturbed below one ulp (--ulp-seed 1, 2) move it by
+# 1.61e-4 and 1.43e-4, 32 and 28 ulps of the momentum kind's 42.29, while
+# every other component moves by less than rtol 1e-4.  The gate allows
+# twice the larger spread on that path.
+L2_ULPS_BY_PATH = {"mm_thinc": 64}
 L2_SCALE = {"p2": "largest", "p0": "kind", "mm_p0": "kind", "mm_p1": "kind",
-            "mm_iface": "kind"}
+            "mm_iface": "kind", "p1_lf": "kind", "mm_thinc": "kind"}
 # The multimat cell-mean fractions after 11 steps: min alpha above
 # -ALPHA_MIN_ULPS float32 ulps of 1 and |sum alpha - 1| below
 # ALPHA_SUM_TOL.  The JAX package's own CPU float32 run of mm_p0 reaches
@@ -266,8 +299,14 @@ KERNELS = {
                     "quinoa_tpu/ops/face_fused.py:253"),
     "mm_face_wflux": ("quinoa_tpu_torch/csrc/mm_face_wflux.cu",
                       "quinoa_tpu/ops/face_fused.py:762"),
+    # the Lax-Friedrichs flavour of K12 and the THINC flavour of K14, each
+    # replacing the TPU near/far face pass B2-B5 tracing that physics
+    "face_wflux_lf": ("quinoa_tpu_torch/csrc/face_wflux.cu",
+                      "quinoa_tpu/ops/face_fused.py:762"),
+    "mm_face_wflux_thinc": ("quinoa_tpu_torch/csrc/mm_face_wflux.cu",
+                            "quinoa_tpu/ops/face_fused.py:762"),
 }
-#: the kernel instances of paths 12-15, listed in the kernels line beside
+#: the kernel instances of paths 12-17, listed in the kernels line beside
 #: the kernels above: (entry, launch counter, path); the source and the
 #: replaced TPU kernel are KERNELS[counter]'s, except that at P0 and for
 #: multimat the TPU runs the near/far kernels B2-B5 (NEARFAR)
@@ -280,13 +319,20 @@ INSTANCES = (
     ("nbr_bounds (C=9, K=4)", "nbr_bounds", "mm_p1"),
     ("face_gather (R=12)", "face_gather", "mm_iface"),
     ("face_accum (R=22)", "face_accum", "mm_iface"),
+    ("face_wflux LF (K=4)", "face_wflux_lf", "p1_lf"),
+    ("mm_face_wflux THINC (nmat 3, K=4)", "mm_face_wflux_thinc", "mm_thinc"),
+    ("basis_accum (R=22, K=4)", "basis_accum", "mm_thinc"),
+    ("nbr_bounds (C=12, K=4)", "nbr_bounds", "mm_thinc"),
 )
 NEARFAR = {"face_wflux": "quinoa_tpu/ops/face_fused.py:762",
            "basis_accum": "quinoa_tpu/ops/face_fused.py:839"}
-#: paths 12-15: (problem, ndof, cfl); faces SOD_BC, or Dirichlet on all six
-#: sides for mm_iface
+#: paths 12-17: (problem, ndof, cfl); faces SOD_BC, Dirichlet on all six
+#: sides for mm_iface, extrapolate on all six for mm_thinc
 MM = {"p0": ("sod", 1, 0.5), "mm_p0": ("mm_sod", 1, 0.5),
-      "mm_p1": ("mm_sod", 4, 0.5), "mm_iface": ("mm_iface", 1, 0.4)}
+      "mm_p1": ("mm_sod", 4, 0.5), "mm_iface": ("mm_iface", 1, 0.4),
+      "p1_lf": ("sod", 4, 0.5), "mm_thinc": ("mm_iface", 4, 0.4)}
+#: the Euler paths among them (the others are multimat)
+EULER = ("p0", "p1_lf")
 MM_SMALL = (8, 3, 2)            # float64 card-vs-CPU and kernel meshes
 #: launches per step of each path; every other kernel must launch 0 times
 PATHS = {
@@ -302,6 +348,9 @@ PATHS = {
     "mm_p0": {"mm_face_wflux": 3, "basis_accum": 3},
     "mm_p1": {"nbr_bounds": 3, "mm_face_wflux": 3, "basis_accum": 3},
     "mm_iface": {"face_gather": 8, "face_accum": 3},
+    "p1_lf": {"limit_vol": 3, "face_wflux_lf": 3, "basis_accum": 3},
+    "mm_thinc": {"nbr_bounds": 3, "mm_face_wflux_thinc": 3,
+                 "basis_accum": 3},
 }
 #: the path whose launches the kernels line reports for each kernel
 MAIN_PATH = {"limit_vol": "p1", "face_flux": "p1", "face_to_elem": "p1",
@@ -311,7 +360,8 @@ MAIN_PATH = {"limit_vol": "p1", "face_flux": "p1", "face_to_elem": "p1",
              "alecg_vol_cf": "alecg_cf", "alecg_edge_cf": "alecg_cf",
              "node_gather": "diagcg", "node_assemble": "diagcg",
              "face_wflux": "p2", "basis_accum": "p2",
-             "mm_face_wflux": "mm_p0"}
+             "mm_face_wflux": "mm_p0", "face_wflux_lf": "p1_lf",
+             "mm_face_wflux_thinc": "mm_thinc"}
 #: floating-point operations a kernel does per entity (element, face,
 #: edge or node; per row where it says so), counted from its source and
 #: rounded up.  Every kernel here is bound by bytes by a wide margin.
@@ -324,8 +374,12 @@ OPS = {"limit_vol": 2000, "face_flux": 1000, "face_to_elem": 100,
        # rows R); K14 per face by (nmat, K)
        "face_wflux": {1: 300, 4: 1000, 10: 3500},
        "basis_accum": {(5, 1): 100, (5, 4): 700, (5, 10): 5000,
-                       (16, 1): 300, (16, 4): 2000, (22, 1): 400},
-       "mm_face_wflux": {(2, 1): 400, (2, 4): 1500, (3, 1): 500}}
+                       (16, 1): 300, (16, 4): 2000, (22, 1): 400,
+                       (22, 4): 2800},
+       # the THINC flavour adds two primitive evaluations and ~40 flops a
+       # material and side to each of the 3 points
+       "mm_face_wflux": {(2, 1): 400, (2, 4): 1500, (3, 1): 500},
+       "mm_face_wflux_thinc": {(2, 4): 2500, (3, 4): 3500}}
 
 
 def tpu_precision_initial_u(solver, torch):
@@ -537,9 +591,10 @@ def p2_geom(n, dtype, device):
 
 
 def single_stream_checks(torch, geom, system, U, rv, dtype_name, timed):
-    """K12 and K13 against their plain versions on the state U (C*K, E)
-    of geom (P1 or P2) with the volume term rv, then both as the step
-    calls them; returns {name: record} (times only when timed)."""
+    """K12 (the flavour of system.riemann_flux) and K13 against their plain
+    versions on the state U (C*K, E) of geom (P0, P1 or P2) with the volume
+    term rv, then both as the step calls them; returns {name: record}
+    (times only when timed)."""
     from quinoa_tpu_torch import kernels
     from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
                                                  face_wflux_plain,
@@ -550,7 +605,7 @@ def single_stream_checks(torch, geom, system, U, rv, dtype_name, timed):
     def k12():
         return kernels.face_wflux(U, g.el, g.er, g.fn, g.farea, g.fmask,
                                   g.xi_l, g.xi_r, g.bctype, g.w_face,
-                                  system.eos)
+                                  system.eos, system.riemann_flux)
 
     def p12():
         return face_wflux_plain(system, g, U)
@@ -575,23 +630,24 @@ def single_stream_checks(torch, geom, system, U, rv, dtype_name, timed):
             t for t in (wfl, mx, g.fose, g.fsideR, *xi, rv) if t is not None),
          OPS["basis_accum"][5, K] * E),
     )
-    out = {name: measure(torch, name, f"K={K} E={E} F={F}", kf, pf, inputs,
-                         ops, dtype_name, timed)
+    label = f"{system.riemann_flux} K={K} E={E} F={F}"
+    out = {name: measure(torch, name, label, kf, pf, inputs, ops, dtype_name,
+                         timed)
            for name, kf, pf, inputs, ops in cases}
     got = fused_face_pass(system, g, U, vol_rhs=rv)
     want = basis_accum_plain(g, *face_wflux_plain(system, g, U), rv)
     err = compare("face pass K12+K13", got, want, dtype_name)
-    phase("kernels", f"K12+K13 K={K} {dtype_name}: max|kernel-plain|="
+    phase("kernels", f"K12+K13 {label} {dtype_name}: max|kernel-plain|="
           f"{err:.3e} (tol {TOL[dtype_name]:g} * max|plain|); no single "
           "PyTorch call computes either kernel's function")
     return out
 
 
 def mm_geom(name, n, dtype, device):
-    """DG geometry of path 12-15 `name` on a Hilbert-ordered box of n =
+    """DG geometry of path 12-17 `name` on a Hilbert-ordered box of n =
     (nx, ny, nz) cells spanning (1, ny/nx, nz/nx): the Sod tube's faces
-    (extrapolate on the x faces, symmetry on the others), or Dirichlet on
-    all six sides for mm_iface."""
+    (extrapolate on the x faces, symmetry on the others), Dirichlet on all
+    six sides for mm_iface, extrapolate on all six for mm_thinc."""
     from quinoa_tpu_torch.mesh import box_tet_mesh, hilbert_element_reorder
     from quinoa_tpu_torch.pde.dg import (BC_DIRICHLET, BC_EXTRAPOLATE,
                                          BC_SYMMETRY, build_dggeom)
@@ -601,6 +657,8 @@ def mm_geom(name, n, dtype, device):
         nx, ny, nz, hi=(1.0, ny / nx, nz / nx)))
     if name == "mm_iface":
         bc = {i: BC_DIRICHLET for i in range(1, 7)}
+    elif name == "mm_thinc":
+        bc = {i: BC_EXTRAPOLATE for i in range(1, 7)}
     else:
         bc = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
               **{i: BC_SYMMETRY for i in range(3, 7)}}
@@ -608,9 +666,10 @@ def mm_geom(name, n, dtype, device):
                         device=device)
 
 
-def mm_solver(name, geom, nmat3=False):
-    """The solver of path 12-15 `name` on geom (the interface advection's
-    three materials with nmat3)."""
+def mm_solver(name, geom, nmat=None):
+    """The solver of path 12-17 `name` on geom; nmat (2 or 3) makes a
+    multimat path's problem the interface advection with that many
+    materials."""
     from quinoa_tpu_torch.inciter.dg import DGSolver
     from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow
     from quinoa_tpu_torch.pde.multimat import MultiMatSolver, MultiMatSystem
@@ -618,36 +677,81 @@ def mm_solver(name, geom, nmat3=False):
                                                MMSodShocktube, SodShocktube)
 
     _, ndof, cfl = MM[name]
-    if name == "p0":
-        return DGSolver(DGCompFlow(SodShocktube(), riemann_flux="hllc"),
-                        geom, cfl=cfl)
-    problem = (MMInterfaceAdvection(nmat=3) if name == "mm_iface" or nmat3
+    limiter = "superbeep1" if ndof == 4 else None
+    if name in EULER:
+        flux = "laxfriedrichs" if name == "p1_lf" else "hllc"
+        return DGSolver(DGCompFlow(SodShocktube(), riemann_flux=flux), geom,
+                        cfl=cfl, limiter=limiter)
+    problem = (MMInterfaceAdvection(nmat=nmat or 3)
+               if name in ("mm_iface", "mm_thinc") or nmat
                else MMSodShocktube())
-    return MultiMatSolver(MultiMatSystem(problem), geom, cfl=cfl,
-                          limiter="superbeep1" if ndof == 4 else None)
+    return MultiMatSolver(MultiMatSystem(problem,
+                                         intsharp=name == "mm_thinc"),
+                          geom, cfl=cfl, limiter=limiter)
 
 
 def mm_perturbed(torch, solver, seed=19):
     """The multimat solver's initial state with its partial densities and
     energies scaled by up to 2% and a momentum of 0.1 rho randn added to
-    the means (the fractions untouched), then limited (at P1)."""
+    the means (the fractions untouched), then limited (at P1).  With THINC
+    (the P1 interface advection, whose trace materials' face values cancel
+    to round-off between mean and slopes, so that scaling single modes
+    makes inadmissible face states) each element's slopes are instead
+    scaled by one factor in [0.8, 1]: every face state stays a convex
+    combination of an admissible face state and the cell mean."""
     sy, g = solver.system, solver.geom
     C, K, nmat = sy.ncomp, g.ndof, sy.nmat
     u = solver.initial_state().u.reshape(C, K, -1).clone()
     gen = torch.Generator(device=u.device).manual_seed(seed)
-    r = torch.rand(u[nmat:].shape, generator=gen, device=u.device,
-                   dtype=u.dtype)
-    u[nmat:] = u[nmat:] * (1.0 + 0.02 * r)
+    if sy.intsharp:
+        r = torch.rand(u.shape[2], generator=gen, device=u.device,
+                       dtype=u.dtype)
+        u[:, 1:] = u[:, 1:] * (1.0 - 0.2 * r)
+    else:
+        r = torch.rand(u[nmat:].shape, generator=gen, device=u.device,
+                       dtype=u.dtype)
+        u[nmat:] = u[nmat:] * (1.0 + 0.02 * r)
     rho = u[nmat:2 * nmat, 0].sum(dim=0)
     u[2 * nmat:2 * nmat + 3, 0] += 0.1 * rho * torch.randn(
         (3, u.shape[2]), generator=gen, device=u.device, dtype=u.dtype)
     return solver._limit(u.reshape(C * K, -1).contiguous())
 
 
+def thinc_flag_share(geom, carriers):
+    """(flagged, total): the real face points at which some material's
+    THINC flag is set on either side (the flags are cell constants, so a
+    face's G points share them; a boundary face's ghost has its left
+    side's)."""
+    flag = (carriers[5::8] > 0.5).any(dim=0)              # (E,)
+    el, er = geom.el.long(), geom.er.long()
+    real = geom.fmask > 0
+    G = geom.xi_l.shape[1]
+    hit = (flag[el] | flag[er]) & real
+    return G * int(hit.sum()), G * int(real.sum())
+
+
+def sod_perturbed(torch, solver, seed=31):
+    """The Euler Sod solver's initial state with a momentum of 0.1 rho
+    randn added to the means and, at P1 and above, every higher mode set
+    to up to 1% of its component's mean magnitude (seeded rand)."""
+    g = solver.geom
+    K, E = g.ndof, g.nelem
+    u = solver.initial_state().u.reshape(5, K, E).clone()
+    gen = torch.Generator(device=u.device).manual_seed(seed)
+    u[1:4, 0] += 0.1 * u[0, 0] * torch.randn((3, E), generator=gen,
+                                              device=u.device, dtype=u.dtype)
+    if K > 1:
+        u[:, 1:] = 0.01 * u[:, :1].abs() * torch.rand(
+            (5, K - 1, E), generator=gen, device=u.device, dtype=u.dtype)
+    return u.reshape(5 * K, E).contiguous()
+
+
 def mm_kernel_checks(torch, solver, dtype_name, timed):
-    """K14 and K13 (at K14's R rows) against their plain versions on
-    mm_perturbed's state of the multimat solver, then both as mm_face_pass;
-    returns {name: record} (times only when timed)."""
+    """K14 (its THINC flavour for a solver with intsharp, after printing
+    the share of THINC-flagged face points, which must not be 0) and K13
+    (at K14's R rows) against their plain versions on mm_perturbed's state
+    of the multimat solver, then both as mm_face_pass; returns {name:
+    record} (times only when timed)."""
     from quinoa_tpu_torch import kernels
     from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
                                                  mm_face_pass,
@@ -656,14 +760,23 @@ def mm_kernel_checks(torch, solver, dtype_name, timed):
     sy, g = solver.system, solver.geom
     K, nmat, R = g.ndof, sy.nmat, sy.nrows
     U = mm_perturbed(torch, solver)
+    thinc = sy.intsharp and K == 4
+    X = sy.thinc_carriers(g, U.reshape(sy.ncomp, K, -1)) if thinc else None
+    if thinc:
+        hit, total = thinc_flag_share(g, X)
+        phase("kernels", f"THINC nmat={nmat} E={g.nelem} {dtype_name}: "
+              f"flagged face points {hit} of {total} ({hit / total:.4f})")
+        if hit == 0:
+            raise AssertionError("THINC: no face point is flagged, the tanh "
+                                 "branch is not exercised")
 
     def k14():
         return kernels.mm_face_wflux(U, g.el, g.er, g.fn, g.farea, g.fmask,
                                      g.xi_l, g.xi_r, g.bctype, g.w_face,
-                                     sy.eos)
+                                     sy.eos, X, sy.thinc_beta)
 
     def p14():
-        return mm_face_wflux_plain(sy, g, U)
+        return mm_face_wflux_plain(sy, g, U, X)
 
     wfl, mx = p14()
 
@@ -676,10 +789,11 @@ def mm_kernel_checks(torch, solver, dtype_name, timed):
 
     E, F = g.nelem, g.nface
     xi = (g.xi_l, g.xi_r) if K > 1 else ()
+    k14_name = "mm_face_wflux_thinc" if thinc else "mm_face_wflux"
     cases = (
-        ("mm_face_wflux", k14, p14, (U, g.el, g.er, g.fn, g.farea, g.fmask,
-                                     *xi, g.bctype, g.w_face),
-         OPS["mm_face_wflux"][nmat, K] * F),
+        (k14_name, k14, p14, (U, g.el, g.er, g.fn, g.farea, g.fmask, *xi,
+                              g.bctype, g.w_face, *([X] if thinc else [])),
+         OPS[k14_name][nmat, K] * F),
         ("basis_accum", k13, p13, (wfl, mx, g.fose, g.fsideR, *xi),
          OPS["basis_accum"][R, K] * E),
     )
@@ -687,13 +801,30 @@ def mm_kernel_checks(torch, solver, dtype_name, timed):
     out = {name: measure(torch, name, label, kf, pf, inputs, ops, dtype_name,
                          timed)
            for name, kf, pf, inputs, ops in cases}
-    err = compare("face pass K14+K13", mm_face_pass(sy, g, U),
-                  basis_accum_plain(g, *mm_face_wflux_plain(sy, g, U)),
+    err = compare("face pass K14+K13", mm_face_pass(sy, g, U, X),
+                  basis_accum_plain(g, *mm_face_wflux_plain(sy, g, U, X)),
                   dtype_name)
-    phase("kernels", f"K14+K13 {label} {dtype_name}: max|kernel-plain|="
-          f"{err:.3e} (tol {TOL[dtype_name]:g} * max|plain|); no single "
-          "PyTorch call computes AUSM+up with the riemannDeriv rows")
+    phase("kernels", f"K14+K13 {label}{' THINC' if thinc else ''} "
+          f"{dtype_name}: max|kernel-plain|={err:.3e} (tol "
+          f"{TOL[dtype_name]:g} * max|plain|); no single PyTorch call "
+          "computes AUSM+up with the riemannDeriv rows")
     return out
+
+
+def nbr_bounds_check(torch, solver, dtype_name, timed):
+    """K4 against its plain version on mm_perturbed's state of the
+    multimat solver (all C = 3 nmat + 3 components); returns its
+    record."""
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.ops.nbr_bounds import neighbor_mean_bounds_plain
+
+    g, C, K = solver.geom, solver.system.ncomp, solver.geom.ndof
+    U = mm_perturbed(torch, solver)
+    return measure(torch, "nbr_bounds", f"E={g.nelem} C={C} K={K}",
+                   lambda: kernels.nbr_bounds(U, g.esuelT, C, K),
+                   lambda: neighbor_mean_bounds_plain(g, U[::K]),
+                   (U[::K], g.esuelT), OPS["nbr_bounds_row"] * C * g.nelem,
+                   dtype_name, timed)
 
 
 def single_stream_vs_nearfar(torch, geom, system, U):
@@ -1033,7 +1164,7 @@ def drive(torch, solver, name, card, state=None):
 def kinds(name, ncomp):
     """The component rows of each kind (Euler: density, momentum, energy;
     multimat: fractions, partial densities, momentum, energies)."""
-    if name == "p0":
+    if name in EULER:
         return [[0], [1, 2, 3], [4]]
     nmat = (ncomp - 3) // 3
     return [list(range(nmat)), list(range(nmat, 2 * nmat)),
@@ -1043,8 +1174,8 @@ def kinds(name, ncomp):
 
 def l2_gate(name, solver, state):
     """L2(sol), and L2(err) where JAX_L2 holds it, after 11 float32 steps
-    against JAX_L2 at rtol JAX_L2_RTOL plus L2_ULPS float32 ulps of the
-    path's L2_SCALE."""
+    against JAX_L2 at rtol JAX_L2_RTOL plus L2_ULPS (L2_ULPS_BY_PATH)
+    float32 ulps of the path's L2_SCALE."""
     from quinoa_tpu_torch.inciter.dg import DGDiagnostics
     from quinoa_tpu_torch.inciter.diagnostics import Diagnostics
 
@@ -1067,17 +1198,18 @@ def l2_gate(name, solver, state):
     else:
         scale = sol
     eps = float(np.finfo(np.float32).eps)
+    ulps = L2_ULPS_BY_PATH.get(name, L2_ULPS)
 
     def close(got, ref, ulps):
         return all(abs(a - b) <= JAX_L2_RTOL * abs(b) + ulps * eps * s
                    for a, b, s in zip(got, ref, scale))
 
-    ok = close(l2sol, sol, 0 if rule == "own" else L2_ULPS)
+    ok = close(l2sol, sol, 0 if rule == "own" else ulps)
     msg = (f"after {int(state.it)} steps t={float(state.t):.9e}: L2(sol) "
            f"{l2sol} vs JAX {sol}, max rel "
            f"{max(abs(a - b) / abs(b) for a, b in zip(l2sol, sol)):.3e}")
     if "l2err" in want:
-        ok = ok and close(l2err, want["l2err"], L2_ULPS)
+        ok = ok and close(l2err, want["l2err"], ulps)
         msg += f"; L2(err) {l2err} vs JAX {want['l2err']}"
     else:
         msg += f"; L2(err) {l2err} (not gated)"
@@ -1085,7 +1217,7 @@ def l2_gate(name, solver, state):
           "largest": "the largest L2(sol)",
           "kind": "the largest L2(sol) of the component's kind"}[rule]
     phase(name, f"{msg}: {'ok' if ok else 'FAIL'} (rtol {JAX_L2_RTOL:g} + "
-          f"{L2_ULPS} f32 ulps of {of})")
+          f"{ulps} f32 ulps of {of})")
     if not ok:
         raise AssertionError(f"{name}: L2 gate failed")
 
@@ -1201,27 +1333,32 @@ def p2_breakdown(torch, solver, state, reps=5):
           f"source {src:.3f} ms; face pass K12 + K13 {face:.3f} ms")
 
 
-def mm_breakdown(torch, solver, state, reps=5):
+def mm_breakdown(torch, solver, name, state, reps=5):
     """Host-clock ms of one multimat P1 stage's parts, each call ending in
     a synchronize (median of reps): the consistent Superbee limit (K4 and
-    the torch phi), the volume integral, the face pass K14 + K13, the
-    non-conservative volume terms and the alpha closure."""
+    the torch phi), the volume integral, with THINC the carriers, the face
+    pass K14 + K13, the non-conservative volume terms and the alpha
+    closure."""
     from quinoa_tpu_torch.ops.face_fused import mm_face_pass
     from quinoa_tpu_torch.pde.dg import volume_rhs
     from quinoa_tpu_torch.pde.multimat import clean_alpha_closure
 
     sy, g, u, t = solver.system, solver.geom, state.u, state.t
     C, K = sy.ncomp, g.ndof
-    _, dap, divu = sy._split_acc(mm_face_pass(sy, g, u)[0], K)
+    Uv = u.reshape(C, K, -1)
+    X = sy.thinc_carriers(g, Uv) if sy.intsharp else None
+    _, dap, divu = sy._split_acc(mm_face_pass(sy, g, u, X)[0], K)
     parts = {
         "limit": lambda: solver._limit(u),
         "volume integral": lambda: volume_rhs(sy, g, u, t),
-        "face pass K14 + K13": lambda: mm_face_pass(sy, g, u),
+        **({"THINC carriers": lambda: sy.thinc_carriers(g, Uv)}
+           if sy.intsharp else {}),
+        "face pass K14 + K13": lambda: mm_face_pass(sy, g, u, X),
         "non-conservative terms": lambda: sy._nonconservative_ho(
-            g, u.reshape(C, K, -1), dap, divu),
+            g, Uv, dap, divu),
         "alpha closure": lambda: clean_alpha_closure(u, C, K, sy.nmat),
     }
-    phase("mm_p1", f"one stage's parts (host clock to a synchronize, median "
+    phase(name, f"one stage's parts (host clock to a synchronize, median "
           f"of {reps}): " + ", ".join(
               f"{name} {host_ms(torch, fn, reps):.3f} ms"
               for name, fn in parts.items()))
@@ -1237,6 +1374,7 @@ def main():
     from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
     from quinoa_tpu_torch.pde.dg import BC_DIRICHLET, BC_SYMMETRY
     from quinoa_tpu_torch.pde.dg import volume_rhs
+    from quinoa_tpu_torch.ops.nbr_bounds import limit_vol_plain
     from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow, DGTransport
     from quinoa_tpu_torch.pde.problems import (GaussHump, SedovBlastwave,
                                                TaylorGreen)
@@ -1261,9 +1399,13 @@ def main():
     kernels.build()
     phase("build", f"{time.perf_counter() - t0:.1f} s "
           f"({os.path.basename(kernels.library_path())})")
+    entry = ""
     for line in kernels.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            phase("build", line.strip())
+        if "Compiling entry function" in line:
+            # the mangled kernel name up to its template arguments' end
+            entry = line.split("'")[1].split("EEv")[0] + "EE"
+        elif "registers" in line or "spill" in line:
+            phase("build", f"{entry}: {line.strip()}")
 
     system = DGCompFlow(SedovBlastwave(), riemann_flux="hllc")
     transport = DGTransport(GaussHump())
@@ -1309,11 +1451,17 @@ def main():
     single_stream_checks(torch, p2_small, taylor, U2s,
                          volume_rhs(taylor, p2_small, U2s), "float64",
                          timed=False)
-    # K12 + K13 at (1, 1); K14 + K13 at its R rows (paths 12-14)
+    taylor_lf = DGCompFlow(TaylorGreen(), riemann_flux="laxfriedrichs")
+    single_stream_checks(torch, p2_small, taylor_lf, U2s,
+                         volume_rhs(taylor_lf, p2_small, U2s), "float64",
+                         timed=False)
+    # K12 + K13 at (1, 1); K14 + K13 at its R rows (paths 12-14); the
+    # Lax-Friedrichs K12 and the THINC K14 (paths 16-17)
     t0 = time.perf_counter()
     mmg = {name: mm_geom(name, (N_BIG,) * 3, torch.float32, dev)
-           for name in ("p0", "mm_p1", "mm_iface")}
+           for name in ("p0", "mm_p1", "mm_iface", "mm_thinc")}
     mmg["mm_p0"] = mmg["p0"]
+    mmg["p1_lf"] = mmg["mm_p1"]
     mm = {name: mm_solver(name, mmg[name]) for name in MM}
     phase("kernels", "48^3 P0/multimat geometries: " + ", ".join(
         f"{name} ndof {g.ndof} E={g.nelem} F={g.nface}"
@@ -1332,7 +1480,7 @@ def main():
     stats["mm_face_wflux (K=4)"] = rec["mm_face_wflux"]
     stats["basis_accum (R=16, K=4)"] = rec["basis_accum"]
     # nmat 3 (R = 22) on the Sod tube's faces: no path runs it fused
-    mm_kernel_checks(torch, mm_solver("mm_p0", mmg["p0"], nmat3=True),
+    mm_kernel_checks(torch, mm_solver("mm_p0", mmg["p0"], nmat=3),
                      "float32", timed=True)
     # K4 at mm_p1's 9 components, K5 and K6 at mm_iface's 12 and 22 rows
     rec = mm_face_gp_checks(torch, mm["mm_p1"], mm["mm_iface"], "float32",
@@ -1340,6 +1488,17 @@ def main():
     stats["nbr_bounds (C=9, K=4)"] = rec["nbr_bounds"]
     stats["face_gather (R=12)"] = rec["face_gather"]
     stats["face_accum (R=22)"] = rec["face_accum"]
+    lf = mm["p1_lf"]
+    ulf, rvlf = limit_vol_plain(lf.system, lf.geom, sod_perturbed(torch, lf))
+    rec = single_stream_checks(torch, lf.geom, lf.system, ulf, rvlf,
+                               "float32", timed=True)
+    stats["face_wflux_lf"] = stats["face_wflux LF (K=4)"] = rec["face_wflux"]
+    rec = mm_kernel_checks(torch, mm["mm_thinc"], "float32", timed=True)
+    stats["mm_face_wflux_thinc"] = rec["mm_face_wflux_thinc"]
+    stats["mm_face_wflux THINC (nmat 3, K=4)"] = rec["mm_face_wflux_thinc"]
+    stats["basis_accum (R=22, K=4)"] = rec["basis_accum"]
+    stats["nbr_bounds (C=12, K=4)"] = nbr_bounds_check(
+        torch, mm["mm_thinc"], "float32", timed=True)
     sm = {name: mm_solver(name, mm_geom(name, MM_SMALL, torch.float64, dev))
           for name in MM}
     U64p0 = torch.as_tensor(perturbed_state(sm["p0"].geom.nelem, 29,
@@ -1350,8 +1509,18 @@ def main():
         mm_kernel_checks(torch, sm[name], "float64", timed=False)
     mm_face_gp_checks(torch, sm["mm_p1"], sm["mm_iface"], "float64",
                       timed=False)
-    mm_kernel_checks(torch, mm_solver("mm_p0", sm["mm_p0"].geom, nmat3=True),
+    mm_kernel_checks(torch, mm_solver("mm_p0", sm["mm_p0"].geom, nmat=3),
                      "float64", timed=False)
+    lf64 = sm["p1_lf"]
+    single_stream_checks(torch, sm["p0"].geom, lf64.system, U64p0, None,
+                         "float64", timed=False)
+    single_stream_checks(torch, lf64.geom, lf64.system,
+                         *limit_vol_plain(lf64.system, lf64.geom,
+                                          sod_perturbed(torch, lf64)),
+                         "float64", timed=False)
+    for nmat in (2, 3):
+        mm_kernel_checks(torch, mm_solver("mm_thinc", sm["mm_thinc"].geom,
+                                          nmat=nmat), "float64", timed=False)
     t0 = time.perf_counter()
     alecg = {name: alecg_solver(name, (N_BIG,) * 3, torch.float32, dev)
              for name in ALECG}
@@ -1481,15 +1650,16 @@ def main():
     state = profile_path(torch, p2_solver, "p2", state, wall / NSTEPS)
     p2_breakdown(torch, p2_solver, state)
 
-    # 12-15. DG(P0) Sod and the multimat paths at 48^3
+    # 12-17. DG(P0) Sod, the multimat paths, Lax-Friedrichs Sod DG(P1)
+    # and THINC interface advection at 48^3
     for name, solver in mm.items():
         state, counts[name], wall = drive(torch, solver, name, card)
         l2_gate(name, solver, state)
-        if name != "p0":
+        if name not in EULER:
             alpha_gate(name, solver, state)
         state = profile_path(torch, solver, name, state, wall / NSTEPS)
-        if name == "mm_p1":
-            mm_breakdown(torch, solver, state)
+        if name in ("mm_p1", "mm_thinc"):
+            mm_breakdown(torch, solver, name, state)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -32,6 +32,11 @@ constexpr int TAB_SIZE = 131;
 constexpr int BC_INTERIOR = 0;
 constexpr int BC_SYMMETRY = 2;
 
+// Riemann fluxes of the single-stream face kernel K12 (the int argument of
+// its C entry points; kernels/__init__.py FLUXES)
+constexpr int FLUX_HLLC = 0;
+constexpr int FLUX_LF = 1;
+
 template <typename T>
 struct Eos {
   T gamma, gm1, pstiff;
@@ -215,6 +220,31 @@ __device__ void hllc(const Eos<T>& eos, const T* n, const T* uL,
   us[3] = (w * u[3] + (pStar - p) * n[2]) / den;
   us[4] = (w * u[4] - p * vn + pStar * Sm) / den;
   normal_flux(us, pStar, Sm, n, fl);
+}
+
+// Rusanov / Lax-Friedrichs flux (ops/riemann.py lax_friedrichs).  The
+// pressure is not clamped: a negative one gives a NaN sound speed, which
+// vmax carries into lam and the flux, as torch.maximum does.
+template <typename T>
+__device__ void lax_friedrichs(const Eos<T>& eos, const T* n, const T* uL,
+                               const T* uR, T* fl) {
+  const T rhoL = uL[0];
+  const T vL0 = uL[1] / rhoL, vL1 = uL[2] / rhoL, vL2 = uL[3] / rhoL;
+  const T pL = pressure(eos, rhoL, vL0, vL1, vL2, uL[4]);
+  const T aL = soundspeed(eos, rhoL, pL);
+  const T rhoR = uR[0];
+  const T vR0 = uR[1] / rhoR, vR1 = uR[2] / rhoR, vR2 = uR[3] / rhoR;
+  const T pR = pressure(eos, rhoR, vR0, vR1, vR2, uR[4]);
+  const T aR = soundspeed(eos, rhoR, pR);
+  const T vnL = dot3(vL0, vL1, vL2, n);
+  const T vnR = dot3(vR0, vR1, vR2, n);
+  T fL[C], fR[C];
+  normal_flux(uL, pL, vnL, n, fL);
+  normal_flux(uR, pR, vnR, n, fR);
+  const T lam = vmax(aL, aR) + vmax(fabs(vnL), fabs(vnR));
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    fl[c] = T(0.5) * (fL[c] + fR[c] - lam * (uR[c] - uL[c]));
 }
 
 // Euler flux column j of state s with pressure p (euler_flux_dir)

@@ -1,6 +1,7 @@
 // K12 face_wflux: the weighted Riemann flux at every face's Gauss points,
 // one thread per face, for DG(P0) (K = 1, G = 1), DG(P1) (K = 4, G = 3)
-// and DG(P2) (K = 10, G = 6).
+// and DG(P2) (K = 10, G = 6), with the HLLC or the Lax-Friedrichs flux
+// (template parameter FLUX; the int flux argument of the C entry points).
 //
 // Replaces the per-face work of the TPU single-stream face pass,
 // quinoa_tpu/ops/face_fused.py _make_fused_kernel (fused_face_pass):
@@ -12,7 +13,9 @@
 // Per face: gather the el and er modal states, evaluate the basis at the G
 // points of both sides from xi_l/xi_r, substitute a finite unit state on
 // pad faces (their weights are zero), apply the symmetry/extrapolate ghost
-// on boundary faces, evaluate HLLC, and write
+// on boundary faces, evaluate HLLC or Lax-Friedrichs (the JAX package
+// traces DGCompFlow.riemann, so its face kernels are one instance per
+// flux), and write
 //   wfl (C*G, F): row c*G + g = fl_c(g) * w_g * area * fmask,
 //   mx (F,) = sum_g w_g * area * fmask * (interior ? max(vl, vr) : vl),
 // the dt sweep's weighted charvel, summed in point order.
@@ -36,7 +39,7 @@
 
 namespace qtk {
 
-template <typename T, int K, int G>
+template <typename T, int K, int G, int FLUX>
 __global__ void __launch_bounds__(128)
 face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
                   const int* __restrict__ er_, const T* __restrict__ fn,
@@ -86,7 +89,11 @@ face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
     }
     if (!interior) bc_state(bt, sL, n, sR);
     T fl[C];
-    hllc(eos, n, sL, sR, fl);
+    if constexpr (FLUX == FLUX_LF) {
+      lax_friedrichs(eos, n, sL, sR, fl);
+    } else {
+      hllc(eos, n, sL, sR, fl);
+    }
     const T wt = wface[g] * fa;
     const T vl = charvel(eos, sL, n);
     const T m = wt * (interior ? vmax(vl, charvel(eos, sR, n)) : vl);
@@ -97,7 +104,7 @@ face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
   mxout[f] = mx;
 }
 
-template <typename T, int K, int G>
+template <typename T, int K, int G, int FLUX>
 void launch_face_wflux_kg(const void* U, const void* el, const void* er,
                           const void* fn, const void* farea,
                           const void* fmask, const void* xil,
@@ -107,7 +114,7 @@ void launch_face_wflux_kg(const void* U, const void* el, const void* er,
                           cudaStream_t stream) {
   const int block = 128;
   const long long grid = (F + block - 1) / block;
-  face_wflux_kernel<T, K, G><<<(unsigned)grid, block, 0, stream>>>(
+  face_wflux_kernel<T, K, G, FLUX><<<(unsigned)grid, block, 0, stream>>>(
       (const T*)U, (const int*)el, (const int*)er, (const T*)fn,
       (const T*)farea, (const T*)fmask, (const T*)xil, (const T*)xir,
       (const int*)bctype, (const T*)wface, eos, (T*)wfl, (T*)mx, E, F);
@@ -118,49 +125,39 @@ int launch_face_wflux(const void* U, const void* el, const void* er,
                       const void* fn, const void* farea, const void* fmask,
                       const void* xil, const void* xir, const void* bctype,
                       const void* wface, double gamma, double pstiff,
-                      void* wfl, void* mx, int ndof, long long E, long long F,
-                      void* stream) {
+                      void* wfl, void* mx, int ndof, int flux, long long E,
+                      long long F, void* stream) {
   const Eos<T> eos{T(gamma), T(gamma - 1.0), T(pstiff)};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (ndof == 1) {
-    launch_face_wflux_kg<T, 1, 1>(U, el, er, fn, farea, fmask, xil, xir,
-                                  bctype, wface, eos, wfl, mx, E, F, s);
-  } else if (ndof == 4) {
-    launch_face_wflux_kg<T, 4, 3>(U, el, er, fn, farea, fmask, xil, xir,
-                                  bctype, wface, eos, wfl, mx, E, F, s);
-  } else if (ndof == 10) {
-    launch_face_wflux_kg<T, 10, 6>(U, el, er, fn, farea, fmask, xil, xir,
-                                   bctype, wface, eos, wfl, mx, E, F, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+#define QTK_FACE_WFLUX(KK, GG, FL)                                          \
+  if (ndof == KK && flux == FL) {                                           \
+    launch_face_wflux_kg<T, KK, GG, FL>(U, el, er, fn, farea, fmask, xil,   \
+                                        xir, bctype, wface, eos, wfl, mx,   \
+                                        E, F, s);                           \
+    return (int)cudaGetLastError();                                         \
   }
-  return (int)cudaGetLastError();
+  QTK_FACE_WFLUX(1, 1, FLUX_HLLC)
+  QTK_FACE_WFLUX(4, 3, FLUX_HLLC)
+  QTK_FACE_WFLUX(10, 6, FLUX_HLLC)
+  QTK_FACE_WFLUX(1, 1, FLUX_LF)
+  QTK_FACE_WFLUX(4, 3, FLUX_LF)
+  QTK_FACE_WFLUX(10, 6, FLUX_LF)
+#undef QTK_FACE_WFLUX
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace qtk
 
-extern "C" int qtk_face_wflux_f32(const void* U, const void* el,
-                                  const void* er, const void* fn,
-                                  const void* farea, const void* fmask,
-                                  const void* xil, const void* xir,
-                                  const void* bctype, const void* wface,
-                                  double gamma, double pstiff, void* wfl,
-                                  void* mx, int ndof, long long E,
-                                  long long F, void* stream) {
-  return qtk::launch_face_wflux<float>(U, el, er, fn, farea, fmask, xil, xir,
-                                       bctype, wface, gamma, pstiff, wfl, mx,
-                                       ndof, E, F, stream);
-}
-
-extern "C" int qtk_face_wflux_f64(const void* U, const void* el,
-                                  const void* er, const void* fn,
-                                  const void* farea, const void* fmask,
-                                  const void* xil, const void* xir,
-                                  const void* bctype, const void* wface,
-                                  double gamma, double pstiff, void* wfl,
-                                  void* mx, int ndof, long long E,
-                                  long long F, void* stream) {
-  return qtk::launch_face_wflux<double>(U, el, er, fn, farea, fmask, xil,
-                                        xir, bctype, wface, gamma, pstiff,
-                                        wfl, mx, ndof, E, F, stream);
-}
+#define QTK_FACE_WFLUX_C(SFX, TYPE)                                         \
+  extern "C" int qtk_face_wflux_##SFX(                                      \
+      const void* U, const void* el, const void* er, const void* fn,        \
+      const void* farea, const void* fmask, const void* xil,                \
+      const void* xir, const void* bctype, const void* wface, double gamma, \
+      double pstiff, void* wfl, void* mx, int ndof, int flux, long long E,  \
+      long long F, void* stream) {                                          \
+    return qtk::launch_face_wflux<TYPE>(U, el, er, fn, farea, fmask, xil,   \
+                                        xir, bctype, wface, gamma, pstiff,  \
+                                        wfl, mx, ndof, flux, E, F, stream); \
+  }
+QTK_FACE_WFLUX_C(f32, float)
+QTK_FACE_WFLUX_C(f64, double)

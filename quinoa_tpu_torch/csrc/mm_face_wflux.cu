@@ -2,7 +2,8 @@
 // thread per face writes, at each of the face's G Gauss points, the
 // weighted AUSM+up flux of the velocity-equilibrium multi-material system
 // and its riemannDeriv rows, for NMAT = 2 or 3 materials at DG(P0) (K = 1,
-// G = 1) and DG(P1) (K = 4, G = 3).
+// G = 1) and DG(P1) (K = 4, G = 3); at DG(P1) also with THINC interface
+// sharpening (template parameter THINC).
 //
 // Replaces the multimat instance of the TPU near/far face pass:
 // quinoa_tpu/ops/face_fused.py _make_nearfar_kernel, _make_far_rstate_kernel
@@ -10,7 +11,8 @@
 // _FusedMMFacade (riemann, bc_state, charvel).  The accumulation is K13's
 // (basis_accum.cu) at R rows.  Plain version: ops/face_fused.py
 // mm_face_wflux_plain, i.e. pde/multimat.py MultiMatSystem._prim, ausm,
-// bc_state, charvel and _split_mach, evaluated in the same order.
+// bc_state, charvel and _split_mach (and _FusedMMFacade._thinc_faces),
+// evaluated in the same order.
 //
 // Per face: gather the C = 3*NMAT + 3 modal rows of el and er (the TPU
 // state's 3*NMAT + 1 zero carrier rows are not read: they exist only for
@@ -25,6 +27,21 @@
 // The signs make K13's (-left, +right) sums give +dap at the left element
 // and -dap at the right, as _FusedMMFacade.riemann does.
 //
+// THINC (quinoa_tpu/pde/multimat.py _FusedMMFacade(thinc=True), whose
+// carriers the JAX package's kernels gather as 5*NMAT more state rows of
+// K modes): here the carriers X (8*NMAT, E) are compact, per material the
+// 4 modes of the interface coordinate q, then the cell constants q0, the
+// flag, rho_k and rhoE_k, read as one word each (their higher modes are
+// zero, so B*x sums to the constant exactly).  A side's carriers are its
+// element's, all 1.0 on pad faces (the unit state), and the ghost keeps
+// the left side's.  After the ghost, the charvel takes the raw states;
+// then both states get the tanh profile alpha = (1 + tanh(beta (q -
+// q0)))/2 where flag > 0.5, the fractions are renormalised by max(sum,
+// 50 eps), flagged materials re-derive alpha rho and alpha rhoE from the
+// cell means, and the momentum is rescaled by rho_new / rho_lin; AUSM+up
+// takes the sharpened states.  tanh is libm's (no fast math), the
+// function torch's CUDA tanh calls.
+//
 // Floors and guards, as _prim: alpha and the material density at 50
 // epsilons of the type (float32: 5.96e-6, above ALPHAMIN = 1e-12, so trace
 // materials are floored on every face), the pressure at 1e-30 in the sound
@@ -37,8 +54,12 @@
 // face words against ~300 flops).  Design: as K12, the states of both
 // sides and each point's primitives stay in registers, and the primitives
 // of a side are evaluated once a point and shared by AUSM+up and the
-// charvel.  The template parameters K and G hide common.cuh's DG(P1)
-// constants of those names; C is never used here.
+// charvel.  THINC reads 2 x 8*NMAT carrier words more a face and adds two
+// primitive evaluations and ~40 flops a material and side a point; the
+// carriers are read at each point (the L1 serves the repeats) instead of
+// being held across the point loop, since the nmat 3 instance already
+// holds ~200 float32 registers.  The template parameters K and G hide
+// common.cuh's DG(P1) constants of those names; C is never used here.
 
 #include "common.cuh"
 
@@ -169,6 +190,72 @@ __device__ void mm_ausm(const T* n, const T* uL, const T* uR,
   fl[NC + 3 * NMAT] = -vriem;
 }
 
+// THINC carriers of one side at one face point: q from its 4 P1 modes with
+// the side's basis (in mode order), the cell constants as stored
+template <typename T, int NMAT>
+struct ThincCarriers {
+  T q[NMAT], q0[NMAT], flag[NMAT], rho[NMAT], rhoE[NMAT];
+};
+
+template <typename T, int NMAT>
+__device__ __forceinline__ void thinc_at(const T* __restrict__ X, long long e,
+                                         long long E, const T* B,
+                                         ThincCarriers<T, NMAT>& c) {
+#pragma unroll
+  for (int k = 0; k < NMAT; ++k) {
+    const T* x = X + (long long)(8 * k) * E + e;
+    T q = B[0] * x[0];
+#pragma unroll
+    for (int m = 1; m < 4; ++m) q = q + B[m] * x[m * E];
+    c.q[k] = q;
+    c.q0[k] = x[4 * E];
+    c.flag[k] = x[5 * E];
+    c.rho[k] = x[6 * E];
+    c.rhoE[k] = x[7 * E];
+  }
+}
+
+template <typename T, int NMAT>
+__device__ __forceinline__ void thinc_unit(ThincCarriers<T, NMAT>& c) {
+#pragma unroll
+  for (int k = 0; k < NMAT; ++k)
+    c.q[k] = c.q0[k] = c.flag[k] = c.rho[k] = c.rhoE[k] = T(1);
+}
+
+// _FusedMMFacade._thinc_faces on one face-point state s (NC rows), in place
+template <typename T, int NMAT>
+__device__ __forceinline__ void thinc_faces(const ThincCarriers<T, NMAT>& c,
+                                            T beta, T* s) {
+  constexpr int D = NMAT, M = 2 * NMAT, EN = 2 * NMAT + 3;
+  T an[NMAT];
+  bool fl[NMAT];
+#pragma unroll
+  for (int k = 0; k < NMAT; ++k) {
+    const T ath = T(0.5) * (T(1) + tanh(beta * (c.q[k] - c.q0[k])));
+    fl[k] = c.flag[k] > T(0.5);
+    an[k] = fl[k] ? ath : s[k];
+  }
+  T ssum = an[0];
+#pragma unroll
+  for (int k = 1; k < NMAT; ++k) ssum = ssum + an[k];
+  const T den = vmax(ssum, mm_floor<T>());
+  T rho_new = T(0), rho_lin = T(0);
+#pragma unroll
+  for (int k = 0; k < NMAT; ++k) {
+    an[k] = an[k] / den;
+    const T dl = s[D + k];
+    const T dk = fl[k] ? an[k] * c.rho[k] : dl;
+    const T ek = fl[k] ? an[k] * c.rhoE[k] : s[EN + k];
+    s[k] = an[k];
+    s[D + k] = dk;
+    s[EN + k] = ek;
+    rho_new = k == 0 ? dk : rho_new + dk;
+    rho_lin = k == 0 ? dl : rho_lin + dl;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) s[M + i] = rho_new * (s[M + i] / rho_lin);
+}
+
 // |v.n| + the mixture sound speed (MultiMatSystem.charvel)
 template <typename T, int NMAT>
 __device__ __forceinline__ T mm_charvel(const T* u, const MMPrim<T, NMAT>& q,
@@ -204,7 +291,7 @@ __device__ __forceinline__ void mm_bc_state(int bt, const T* sL, const T* n,
   }
 }
 
-template <typename T, int NMAT, int K, int G>
+template <typename T, int NMAT, int K, int G, bool THINC>
 __global__ void __launch_bounds__(128)
 mm_face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
                      const int* __restrict__ er_, const T* __restrict__ fn,
@@ -212,8 +299,9 @@ mm_face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
                      const T* __restrict__ xil, const T* __restrict__ xir,
                      const int* __restrict__ bctype,
                      const T* __restrict__ wface, MMEos<T> eos,
-                     T* __restrict__ wfl, T* __restrict__ mxout, long long E,
-                     long long F) {
+                     const T* __restrict__ X, T beta, T* __restrict__ wfl,
+                     T* __restrict__ mxout, long long E, long long F) {
+  static_assert(!THINC || K == 4, "THINC is a DG(P1) flavour");
   constexpr int NC = 3 * NMAT + 3;
   constexpr int NR = NC + 3 * NMAT + 1;
   const long long f = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -259,33 +347,53 @@ mm_face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
     MMPrim<T, NMAT> pL, pR;
     mm_prim<T, NMAT>(eos, sL, pL);
     mm_prim<T, NMAT>(eos, sR, pR);
-    T fl[NR];
-    mm_ausm<T, NMAT>(n, sL, sR, pL, pR, fl);
     const T wt = wface[g] * fa;
     const T vl = mm_charvel<T, NMAT>(sL, pL, n);
     const T m =
         wt * (interior ? vmax(vl, mm_charvel<T, NMAT>(sR, pR, n)) : vl);
     mx = g == 0 ? m : mx + m;
+    if constexpr (THINC) {
+      ThincCarriers<T, NMAT> cL, cR;
+      if (valid) {
+        thinc_at<T, NMAT>(X, el, E, Bl, cL);
+        if (interior) {
+          thinc_at<T, NMAT>(X, er, E, Br, cR);
+        } else {
+          cR = cL;
+        }
+      } else {
+        thinc_unit<T, NMAT>(cL);
+        cR = cL;
+      }
+      thinc_faces<T, NMAT>(cL, beta, sL);
+      thinc_faces<T, NMAT>(cR, beta, sR);
+      mm_prim<T, NMAT>(eos, sL, pL);
+      mm_prim<T, NMAT>(eos, sR, pR);
+    }
+    T fl[NR];
+    mm_ausm<T, NMAT>(n, sL, sR, pL, pR, fl);
 #pragma unroll
     for (int r = 0; r < NR; ++r) wfl[(r * G + g) * F + f] = fl[r] * wt;
   }
   mxout[f] = mx;
 }
 
-template <typename T, int NMAT, int K, int G>
+template <typename T, int NMAT, int K, int G, bool THINC>
 void launch_mm_face_wflux_nkg(const void* U, const void* el, const void* er,
                               const void* fn, const void* farea,
                               const void* fmask, const void* xil,
                               const void* xir, const void* bctype,
                               const void* wface, const MMEos<T>& eos,
-                              void* wfl, void* mx, long long E, long long F,
-                              cudaStream_t stream) {
+                              const void* X, double beta, void* wfl, void* mx,
+                              long long E, long long F, cudaStream_t stream) {
   const int block = 128;
   const long long grid = (F + block - 1) / block;
-  mm_face_wflux_kernel<T, NMAT, K, G><<<(unsigned)grid, block, 0, stream>>>(
-      (const T*)U, (const int*)el, (const int*)er, (const T*)fn,
-      (const T*)farea, (const T*)fmask, (const T*)xil, (const T*)xir,
-      (const int*)bctype, (const T*)wface, eos, (T*)wfl, (T*)mx, E, F);
+  mm_face_wflux_kernel<T, NMAT, K, G, THINC>
+      <<<(unsigned)grid, block, 0, stream>>>(
+          (const T*)U, (const int*)el, (const int*)er, (const T*)fn,
+          (const T*)farea, (const T*)fmask, (const T*)xil, (const T*)xir,
+          (const int*)bctype, (const T*)wface, eos, (const T*)X, T(beta),
+          (T*)wfl, (T*)mx, E, F);
 }
 
 template <typename T>
@@ -293,8 +401,9 @@ int launch_mm_face_wflux(const void* U, const void* el, const void* er,
                          const void* fn, const void* farea, const void* fmask,
                          const void* xil, const void* xir, const void* bctype,
                          const void* wface, const double* gamma,
-                         const double* pstiff, void* wfl, void* mx, int nmat,
-                         int ndof, long long E, long long F, void* stream) {
+                         const double* pstiff, const void* X, double beta,
+                         void* wfl, void* mx, int nmat, int ndof, int thinc,
+                         long long E, long long F, void* stream) {
   MMEos<T> eos;
   for (int k = 0; k < 3; ++k) {
     eos.gamma[k] = T(gamma[k]);
@@ -302,17 +411,19 @@ int launch_mm_face_wflux(const void* U, const void* el, const void* er,
     eos.pstiff[k] = T(pstiff[k]);
   }
   const cudaStream_t s = (cudaStream_t)stream;
-#define QTK_MM_FACE_WFLUX(NM, KK, GG)                                       \
-  if (nmat == NM && ndof == KK) {                                           \
-    launch_mm_face_wflux_nkg<T, NM, KK, GG>(U, el, er, fn, farea, fmask,    \
-                                            xil, xir, bctype, wface, eos,   \
-                                            wfl, mx, E, F, s);              \
+#define QTK_MM_FACE_WFLUX(NM, KK, GG, TH)                                   \
+  if (nmat == NM && ndof == KK && (thinc != 0) == TH) {                     \
+    launch_mm_face_wflux_nkg<T, NM, KK, GG, TH>(                            \
+        U, el, er, fn, farea, fmask, xil, xir, bctype, wface, eos, X, beta, \
+        wfl, mx, E, F, s);                                                  \
     return (int)cudaGetLastError();                                         \
   }
-  QTK_MM_FACE_WFLUX(2, 1, 1)
-  QTK_MM_FACE_WFLUX(2, 4, 3)
-  QTK_MM_FACE_WFLUX(3, 1, 1)
-  QTK_MM_FACE_WFLUX(3, 4, 3)
+  QTK_MM_FACE_WFLUX(2, 1, 1, false)
+  QTK_MM_FACE_WFLUX(2, 4, 3, false)
+  QTK_MM_FACE_WFLUX(3, 1, 1, false)
+  QTK_MM_FACE_WFLUX(3, 4, 3, false)
+  QTK_MM_FACE_WFLUX(2, 4, 3, true)
+  QTK_MM_FACE_WFLUX(3, 4, 3, true)
 #undef QTK_MM_FACE_WFLUX
   return (int)cudaErrorInvalidValue;
 }
@@ -324,14 +435,13 @@ int launch_mm_face_wflux(const void* U, const void* el, const void* er,
       const void* U, const void* el, const void* er, const void* fn,        \
       const void* farea, const void* fmask, const void* xil,                \
       const void* xir, const void* bctype, const void* wface, double g0,    \
-      double g1, double g2, double p0, double p1, double p2, void* wfl,     \
-      void* mx, int nmat, int ndof, long long E, long long F,               \
-      void* stream) {                                                       \
+      double g1, double g2, double p0, double p1, double p2, const void* X, \
+      double beta, void* wfl, void* mx, int nmat, int ndof, int thinc,      \
+      long long E, long long F, void* stream) {                             \
     const double gamma[3] = {g0, g1, g2}, pstiff[3] = {p0, p1, p2};         \
-    return qtk::launch_mm_face_wflux<TYPE>(U, el, er, fn, farea, fmask, xil, \
-                                           xir, bctype, wface, gamma,       \
-                                           pstiff, wfl, mx, nmat, ndof, E,  \
-                                           F, stream);                      \
+    return qtk::launch_mm_face_wflux<TYPE>(                                 \
+        U, el, er, fn, farea, fmask, xil, xir, bctype, wface, gamma, pstiff, \
+        X, beta, wfl, mx, nmat, ndof, thinc, E, F, stream);                 \
   }
 QTK_MM_FACE_WFLUX_C(f32, float)
 QTK_MM_FACE_WFLUX_C(f64, double)

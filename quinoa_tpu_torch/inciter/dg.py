@@ -16,15 +16,16 @@ on a TPU:
   volume pass (K1); otherwise the split route, neighbour-mean bounds (K4)
   then superbee_p1 in torch;
 - a system and faces that need no face coordinates (Euler on symmetry,
-  extrapolate, outlet faces): the fused face pass (K2 + K3) on the state
-  masked by the dofmask, whose charvel gives the stage-0 dt;
+  extrapolate, outlet faces): the fused face pass on the state masked by
+  the dofmask, whose charvel gives the stage-0 dt: K2 + K3 with HLLC,
+  the single-stream K12 + K13 with Lax-Friedrichs (K2 has HLLC only);
 - otherwise the face Gauss-point path of dg_rhs (gathers K5, accumulation
   K6) and, at stage 0, the dg_dt face sweep;
 - DG(P2) and DG(P0) (compressible Euler, no limiter, faces that need no
   coordinates): the XLA-formulation volume integral with the source at the
   step's start time in torch (at P0 only the source, and nothing without
-  one), then the single-stream face pass (K12 + K13), whose charvel gives
-  the stage-0 dt.
+  one), then the single-stream face pass (K12 + K13, HLLC or
+  Lax-Friedrichs), whose charvel gives the stage-0 dt.
 
 p-adaptive runs (pref) re-evaluate ndofel at stage 0 (sticky indicator,
 one-ring promotion), zero the coarsened dofs at stage 0, and restore the
@@ -41,7 +42,7 @@ from typing import Optional
 import torch
 
 from ..ops.basis import eval_basis_np
-from ..ops.face_fused import fused_face_pass, fused_face_pass_nearfar
+from ..ops.face_fused import face_pass_for, fused_face_pass
 from ..ops.nbr_bounds import (neighbor_mean_bounds, superbee_limit_window,
                               volume_rhs_plain)
 from ..ops.quadrature import gauss_tet, ng_diag
@@ -74,9 +75,10 @@ class DGSolver:
     The signature is quinoa_tpu's DGSolver's; what lies outside the port
     raises NotImplementedError: the WENO limiter, rDG (evolve_ndof), a P2
     limiter, p-adaptive P0 or P2, P2 on the face Gauss-point path, source
-    terms at P1 and a compressible Euler flux other than HLLC on the fused
-    face passes.  A limiter below P1 raises ValueError, as in the JAX
-    package.
+    terms at P1 and a compressible Euler flux other than HLLC and
+    Lax-Friedrichs on the fused face passes (Lax-Friedrichs takes the
+    single-stream pass K12 + K13 at every order, HLLC K2 + K3 at P1).  A
+    limiter below P1 raises ValueError, as in the JAX package.
     """
 
     def __init__(
@@ -119,6 +121,8 @@ class DGSolver:
         self.face_gp = needs_face_gp(system, geom)
         self.fused_limit = (limiter == "superbeep1" and not pref
                             and getattr(system, "coord_free_flux", False))
+        #: the DG(P1) face pass off the face Gauss-point path
+        self.p1_face_pass = face_pass_for(system, 4)
         C, K = system.ncomp, geom.ndof
         mn = torch.as_tensor(geom.tables["mnorm"], dtype=geom.dtype,
                              device=geom.device)
@@ -190,8 +194,7 @@ class DGSolver:
                     uf = u if dm is None or s == 0 else u * dm
                     if rv is None:
                         rv = volume_rhs_plain(system, g, uf)
-                    r, delt = fused_face_pass_nearfar(system, g, uf,
-                                                      vol_rhs=rv)
+                    r, delt = self.p1_face_pass(system, g, uf, vol_rhs=rv)
                 if s == 0 and self.const_dt is None:
                     dt = dg_dt_from_delt(g, delt) * (
                         self.cfl * self.cflscale)

@@ -53,14 +53,20 @@ BASIS_ACCUM_SHAPES = {(5, 1), (5, 4), (5, 10), (16, 1), (16, 4), (22, 1),
                       (22, 4)}
 #: materials of the multimat face kernel K14
 MM_NMAT = (2, 3)
+#: THINC carrier rows a material of K14's THINC flavour reads (pde/multimat.py
+#: thinc_carriers): the 4 P1 modes of q, then q0, the flag, rho_k, rhoE_k
+THINC_ROWS = 8
+#: the Riemann fluxes of K12 (csrc/common.cuh FLUX_*) and the launch counter
+#: of each flavour
+FLUXES = {"hllc": (0, "face_wflux"), "laxfriedrichs": (1, "face_wflux_lf")}
 
 #: kernel launches since the last reset_launches()
 launches = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0,
             "nbr_bounds": 0, "face_gather": 0, "face_accum": 0,
             "alecg_vol": 0, "alecg_vol_cf": 0, "alecg_edge": 0,
             "alecg_edge_cf": 0, "cg_assemble": 0, "node_gather": 0,
-            "node_assemble": 0, "face_wflux": 0, "basis_accum": 0,
-            "mm_face_wflux": 0}
+            "node_assemble": 0, "face_wflux": 0, "face_wflux_lf": 0,
+            "basis_accum": 0, "mm_face_wflux": 0, "mm_face_wflux_thinc": 0}
 
 _lib = None
 
@@ -199,13 +205,13 @@ def build() -> ctypes.CDLL:
         fn.argtypes = [P] * 4 + [I, I, I, I, L, L, P]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"qtk_face_wflux_{sfx}")
-        fn.argtypes = [P] * 10 + [D, D, P, P, I, L, L, P]
+        fn.argtypes = [P] * 10 + [D, D, P, P, I, I, L, L, P]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"qtk_basis_accum_{sfx}")
         fn.argtypes = [P] * 9 + [I, I, L, L, P]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"qtk_mm_face_wflux_{sfx}")
-        fn.argtypes = [P] * 10 + [D] * 6 + [P, P, I, I, L, L, P]
+        fn.argtypes = [P] * 10 + [D] * 6 + [P, D, P, P, I, I, I, L, L, P]
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -559,34 +565,44 @@ def _check_faces(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype, w_face,
 
 
 def face_wflux(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype, w_face,
-               eos):
+               eos, flux="hllc"):
     """K12 (csrc/face_wflux.cu): (wfl (C*G, F), mx (F,)), the weighted
-    HLLC flux at the G face points (row c*G + g) and the weighted charvel,
-    of the Euler state U (C*K, E), K = 1 (G = 1), 4 (G = 3) or 10
-    (G = 6)."""
+    Riemann flux (HLLC, or "laxfriedrichs") at the G face points (row c*G
+    + g) and the weighted charvel, of the Euler state U (C*K, E), K = 1
+    (G = 1), 4 (G = 3) or 10 (G = 6).  A launch counts under FLUXES[flux]'s
+    counter: face_wflux for HLLC, face_wflux_lf for Lax-Friedrichs."""
     dev = _cuda_device(U)
     dt = U.dtype
+    if flux not in FLUXES:
+        raise ValueError(f"the face kernel takes the fluxes {tuple(FLUXES)}, "
+                         f"not {flux!r}")
+    code, counter = FLUXES[flux]
     ndof, ng = _face_ndof(U.shape[0] // C)
     E, F = _check_faces(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype,
                         w_face, C, ndof, ng)
     lib_fn = getattr(build(), f"qtk_face_wflux_{_suffix(dt)}")
     wfl = torch.empty((C * ng, F), dtype=dt, device=dev)
     mx = torch.empty((F,), dtype=dt, device=dev)
-    _launch("face_wflux", lib_fn,
+    _launch(counter, lib_fn,
             [_ptr(U), _ptr(el), _ptr(er), _ptr(fn), _ptr(farea), _ptr(fmask),
              _ptr(xi_l), _ptr(xi_r), _ptr(bctype), _ptr(w_face),
              float(eos.gamma), float(eos.pstiff), _ptr(wfl), _ptr(mx), ndof,
-             E, F], dev)
+             code, E, F], dev)
     return wfl, mx
 
 
 def mm_face_wflux(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype, w_face,
-                  eos):
+                  eos, carriers=None, beta=0.0):
     """K14 (csrc/mm_face_wflux.cu): (wfl (R*G, F), mx (F,)) of the
     multimat state U (C*K, E), C = 3*nmat + 3 with nmat = len(eos) in
     MM_NMAT, K = 1 (G = 1) or 4 (G = 3): at each face point the weighted
     AUSM+up flux (C rows), -ap_k*n_i (3*nmat rows) and -vriem (1 row), R =
-    C + 3*nmat + 1, row r*G + g; mx the weighted multimat charvel."""
+    C + 3*nmat + 1, row r*G + g; mx the weighted multimat charvel.
+
+    With carriers (THINC_ROWS*nmat, E) (pde/multimat.py thinc_carriers, K
+    = 4 only) the THINC flavour: both sides' face states are sharpened
+    with the tanh profile of steepness beta before AUSM+up (the charvel
+    keeps the raw states); it counts under mm_face_wflux_thinc."""
     dev = _cuda_device(U)
     dt = U.dtype
     nmat = len(eos)
@@ -595,18 +611,23 @@ def mm_face_wflux(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype, w_face,
                          f"{MM_NMAT}, not {nmat}")
     nc = 3 * nmat + 3
     R = nc + 3 * nmat + 1
-    ndof, ng = _face_ndof(U.shape[0] // nc, (1, 4))
+    thinc = carriers is not None
+    ndof, ng = _face_ndof(U.shape[0] // nc, (4,) if thinc else (1, 4))
     E, F = _check_faces(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype,
                         w_face, nc, ndof, ng)
+    if thinc:
+        _check("carriers", carriers, (THINC_ROWS * nmat, E), dt, dev)
     gam = [float(e.gamma) for e in eos] + [0.0] * (3 - nmat)
     pst = [float(e.pstiff) for e in eos] + [0.0] * (3 - nmat)
     lib_fn = getattr(build(), f"qtk_mm_face_wflux_{_suffix(dt)}")
     wfl = torch.empty((R * ng, F), dtype=dt, device=dev)
     mx = torch.empty((F,), dtype=dt, device=dev)
-    _launch("mm_face_wflux", lib_fn,
+    _launch("mm_face_wflux_thinc" if thinc else "mm_face_wflux", lib_fn,
             [_ptr(U), _ptr(el), _ptr(er), _ptr(fn), _ptr(farea), _ptr(fmask),
              _ptr(xi_l), _ptr(xi_r), _ptr(bctype), _ptr(w_face), *gam, *pst,
-             _ptr(wfl), _ptr(mx), nmat, ndof, E, F], dev)
+             ctypes.c_void_p(carriers.data_ptr() if thinc else 0),
+             float(beta), _ptr(wfl), _ptr(mx), nmat, ndof, int(thinc), E, F],
+            dev)
     return wfl, mx
 
 

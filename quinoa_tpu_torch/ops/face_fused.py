@@ -11,14 +11,17 @@ a thread per element:
   weighted charvel mx (F,); K3 face_to_elem (csrc/face_to_elem.cu), the
   sum of an element's four faces through fose/fsideR plus the volume term;
 - fused_face_pass (DG(P0), DG(P1) and DG(P2), the single-stream pass):
-  K12 face_wflux (csrc/face_wflux.cu), the weighted flux (C*G, F) and mx;
+  K12 face_wflux (csrc/face_wflux.cu), the weighted flux (C*G, F) and mx,
+  with HLLC or Lax-Friedrichs (K2 has HLLC only, so a Lax-Friedrichs
+  system takes this pass at P1 too);
   K13 basis_accum (csrc/basis_accum.cu), each element contracting its
   faces' weighted flux with its own basis and summing them.  At P2 the
   weighted flux is 30 rows a face against K2's 100;
 - mm_face_pass (multimat DG(P0) and DG(P1)): K14 mm_face_wflux
   (csrc/mm_face_wflux.cu), the multimat flavour of K12 (AUSM+up and the
-  riemannDeriv rows, R = 3*nmat + 3 + 3*nmat + 1 a face point), then K13
-  over those R rows.
+  riemannDeriv rows, R = 3*nmat + 3 + 3*nmat + 1 a face point; at P1
+  optionally with THINC interface sharpening), then K13 over those R
+  rows.
 
 On a CPU tensor each runs its plain torch version, in the kernel's
 operation order.
@@ -157,41 +160,66 @@ def fused_face_pass(system, geom, U, vol_rhs=None):
     """The single-stream face pass, DG(P0), DG(P1) or DG(P2): U (C*K, E)
     -> (acc (C*K, E), delt (E,)) through K12 + K13, as
     fused_face_pass_nearfar returns them."""
-    require_fused_physics(system, geom, face_pass=True, ndofs=(1, 4, 10))
+    require_fused_physics(system, geom, face_pass=True, ndofs=(1, 4, 10),
+                          fluxes=tuple(kernels.FLUXES))
     if U.device.type == "cpu":
         wfl, mx = face_wflux_plain(system, geom, U)
         return basis_accum_plain(geom, wfl, mx, vol_rhs)
     wfl, mx = kernels.face_wflux(U, geom.el, geom.er, geom.fn, geom.farea,
                                  geom.fmask, geom.xi_l, geom.xi_r,
-                                 geom.bctype, geom.w_face, system.eos)
+                                 geom.bctype, geom.w_face, system.eos,
+                                 system.riemann_flux)
     return kernels.basis_accum(wfl, mx, geom.fose, geom.fsideR, geom.xi_l,
                                geom.xi_r, geom.ndof, vol_rhs)
 
 
-def mm_face_wflux_plain(system, geom, U):
+def face_pass_for(system, ndof):
+    """The fused face pass a compressible-Euler system takes at ndof: K2 +
+    K3 (fused_face_pass_nearfar) at DG(P1) with HLLC, the single-stream K12
+    + K13 (fused_face_pass) otherwise: DG(P0), DG(P2), and Lax-Friedrichs
+    at every order, since K2 has HLLC only.  At P1 the two passes agree
+    bit for bit on HLLC."""
+    if ndof == 4 and getattr(system, "riemann_flux", "hllc") == "hllc":
+        return fused_face_pass_nearfar
+    return fused_face_pass
+
+
+def mm_face_wflux_plain(system, geom, U, carriers=None):
     """K14's plain version, for a MultiMatSystem: (wfl (R*G, F), mx (F,)),
     R = C + 3*nmat + 1 rows a face point (the AUSM+up flux, -ap_k*n_i,
     -vriem; quinoa_tpu/pde/multimat.py _FusedMMFacade.riemann), weighted
-    as K12's, and the weighted multimat charvel."""
-    return face_wflux_plain(system.facade, geom, U)
+    as K12's, and the weighted multimat charvel.  With the THINC carriers
+    (8*nmat, E) of system.thinc_carriers, the face states carry them as
+    5*nmat more rows of K modes (the JAX package's layout) and AUSM+up
+    sees the sharpened states."""
+    if carriers is None:
+        return face_wflux_plain(system.facade, geom, U)
+    C, K = system.ncomp, geom.ndof
+    full = torch.cat([uview(U, C, K), system.thinc_modes(carriers, K)])
+    return face_wflux_plain(system.thinc_facade, geom,
+                            full.reshape(-1, U.shape[-1]))
 
 
-def mm_face_pass(system, geom, U):
+def mm_face_pass(system, geom, U, carriers=None):
     """The multimat face pass, DG(P0) or DG(P1) on faces without a
     Dirichlet ghost: U (C*K, E) -> (acc (R*K, E), delt (E,)) through K14 +
     K13: the surface integral of the flux rows and the riemannDeriv and
-    divergence sums, and the per-element summed charvel."""
+    divergence sums, and the per-element summed charvel.  carriers (DG(P1)
+    only) selects the THINC flavour of K14."""
     if geom.ndof not in (1, 4):
         raise NotImplementedError(f"ndof={geom.ndof}: the multimat face "
                                   "pass takes DG(P0) and DG(P1)")
     if geom.has_coord_bc:
         raise NotImplementedError("the multimat face kernel has no "
                                   "Dirichlet ghost")
+    if carriers is not None and geom.ndof != 4:
+        raise NotImplementedError("THINC is a DG(P1) face pass")
     if U.device.type == "cpu":
-        wfl, mx = mm_face_wflux_plain(system, geom, U)
+        wfl, mx = mm_face_wflux_plain(system, geom, U, carriers)
         return basis_accum_plain(geom, wfl, mx)
     wfl, mx = kernels.mm_face_wflux(U, geom.el, geom.er, geom.fn, geom.farea,
                                     geom.fmask, geom.xi_l, geom.xi_r,
-                                    geom.bctype, geom.w_face, system.eos)
+                                    geom.bctype, geom.w_face, system.eos,
+                                    carriers, system.thinc_beta)
     return kernels.basis_accum(wfl, mx, geom.fose, geom.fsideR, geom.xi_l,
                                geom.xi_r, geom.ndof)

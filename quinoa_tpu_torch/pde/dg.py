@@ -347,7 +347,8 @@ def require_slice(system, geom: DGGeom):
     that need face coordinates); source terms at P1 (its volume integral
     is the limit + volume kernel's, which has none); and on the fused face
     passes (compressible Euler on faces that need no coordinates) a flux
-    other than HLLC."""
+    other than HLLC and Lax-Friedrichs (the latter takes the single-stream
+    pass at every order: ops/face_fused.py face_pass_for)."""
     if geom.ndof not in (1, 4, 10):
         raise NotImplementedError(f"ndof={geom.ndof}: only DG(P0), DG(P1) "
                                   "and DG(P2) are ported")
@@ -360,16 +361,20 @@ def require_slice(system, geom: DGGeom):
         raise NotImplementedError("source terms are ported at DG(P0) and "
                                   "DG(P2) only")
     if not face_gp:
-        require_fused_physics(system, geom, face_pass=True, ndofs=(1, 4, 10))
+        from ..kernels import FLUXES
+
+        require_fused_physics(system, geom, face_pass=True, ndofs=(1, 4, 10),
+                              fluxes=tuple(FLUXES))
 
 
 def require_fused_physics(system, geom: DGGeom, face_pass: bool = False,
-                          ndofs=(4,)):
+                          ndofs=(4,), fluxes=("hllc",)):
     """Raise unless the fused kernels cover the case, compressible Euler
     with a coordinate-free flux at an ndof in ndofs: kernel K1 (the limit
     + volume pass, DG(P1) without a source); with face_pass the face
-    passes (K2 + K3, or K12 + K13 at P0, P1 and P2), which implement HLLC
-    on faces whose ghost needs no coordinates."""
+    passes on faces whose ghost needs no coordinates, with a Riemann flux
+    in fluxes: K2 + K3 implement HLLC, K12 + K13 (P0, P1 and P2) HLLC and
+    Lax-Friedrichs."""
     if geom.ndof not in ndofs:
         raise NotImplementedError(f"ndof={geom.ndof}: the fused kernels "
                                   f"here take ndof in {tuple(ndofs)}")
@@ -377,8 +382,10 @@ def require_fused_physics(system, geom: DGGeom, face_pass: bool = False,
         raise NotImplementedError("the fused kernels implement compressible "
                                   "Euler only")
     if face_pass:
-        if getattr(system, "riemann_flux", "hllc") != "hllc":
-            raise NotImplementedError("the face kernel implements HLLC only")
+        flux = getattr(system, "riemann_flux", "hllc")
+        if flux not in fluxes:
+            raise NotImplementedError(f"this face pass implements "
+                                      f"{' and '.join(fluxes)}, not {flux}")
         if geom.has_coord_bc:
             raise NotImplementedError("the face kernel has no Dirichlet/"
                                       "inlet ghost (face Gauss-point path)")
@@ -454,8 +461,9 @@ def dg_rhs(system, geom: DGGeom, U, dofmask=None, t=0.0, face_gp=False,
     The volume integral includes the system's source, if any (the
     XLA formulation, volume_rhs; without a source at P1 the sum order of
     the limit + volume kernel, volume_rhs_plain).  face_gp=False takes a
-    fused face pass: at P1 K2 + K3 on a card (fused_face_pass_nearfar),
-    at P0 and P2 K12 + K13 (fused_face_pass); with want_charvel it
+    fused face pass (face_pass_for): at P1 with HLLC K2 + K3 on a card
+    (fused_face_pass_nearfar), at P0, at P2 and with Lax-Friedrichs K12 +
+    K13 (fused_face_pass); with want_charvel it
     also returns delt (E,), the dt sweep's per-element summed charvel.
     face_gp=True takes the face Gauss-point path (:396-453): face states
     through the gather (K5), ghosts and the flux at the face coordinates
@@ -467,7 +475,7 @@ def dg_rhs(system, geom: DGGeom, U, dofmask=None, t=0.0, face_gp=False,
         raise ValueError("the face Gauss-point path has no charvel: use "
                          "dg_dt")
     from ..ops.face_accum import accumulate_faces
-    from ..ops.face_fused import fused_face_pass, fused_face_pass_nearfar
+    from ..ops.face_fused import face_pass_for
     from ..ops.nbr_bounds import volume_rhs_plain
 
     C, K = system.ncomp, geom.ndof
@@ -498,8 +506,7 @@ def dg_rhs(system, geom: DGGeom, U, dofmask=None, t=0.0, face_gp=False,
                              cR.reshape(C * K, -1), Rv)
         delt = None
     else:
-        face_pass = fused_face_pass_nearfar if K == 4 else fused_face_pass
-        r, delt = face_pass(system, geom, Um, vol_rhs=Rv)
+        r, delt = face_pass_for(system, K)(system, geom, Um, vol_rhs=Rv)
     if dofmask is not None:
         r = r * dofmask.repeat(C, 1)
     return (r, delt) if want_charvel else r

@@ -19,8 +19,10 @@ from .problems.compflow import euler_flux_dir
 class DGCompFlow:
     """Compressible Euler for cell-centered DG.
 
-    riemann_flux: 'hllc' (default) or 'laxfriedrichs'.  The CUDA face
-    kernel implements HLLC only; the face Gauss-point path (Dirichlet or
+    riemann_flux: 'hllc' (default) or 'laxfriedrichs'.  On faces that
+    need no coordinates the single-stream face kernel K12 has both fluxes
+    (a Lax-Friedrichs system takes it at every order); the DG(P1) face
+    kernel K2 has HLLC only.  The face Gauss-point path (Dirichlet or
     inlet faces) runs either flux in torch.
     """
 

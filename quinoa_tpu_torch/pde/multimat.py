@@ -28,8 +28,14 @@ Routes, as the JAX package takes them on a TPU:
 
 The JAX package pads the state with 3*nmat + 1 zero rows so its generic
 face kernels carry the riemannDeriv rows; here the state stays C rows and
-only the face pass's output has R.  THINC interface sharpening
-(intsharp), DG(P1) on Dirichlet faces and the SPMD solver are not ported.
+only the face pass's output has R.
+
+THINC interface sharpening (intsharp, DG(P1)): each stage builds the
+carriers of its limited state in torch (thinc_carriers, as the JAX package
+builds them in XLA outside its kernels) and the face pass takes the THINC
+flavour of K14, which sharpens both face states before AUSM+up.  At P0
+intsharp is accepted and ignored, as in the JAX package.  DG(P1) on
+Dirichlet faces (THINC included) and the SPMD solver are not ported.
 """
 
 from __future__ import annotations
@@ -96,16 +102,21 @@ class MultiMatSystem:
     has_src = False
 
     def __init__(self, problem, intsharp=False, thinc_beta=2.5):
-        if intsharp:
-            raise NotImplementedError("THINC interface sharpening (intsharp) "
-                                      "is not ported")
         self.problem = problem
         self.nmat = problem.nmat
-        self.eos: List[StiffenedGas] = list(problem.eos)
+        # a problem may list more materials' EoS than it uses
+        # (MMInterfaceAdvection(nmat=2) keeps three): the kernels take nmat
+        # from len(eos)
+        self.eos: List[StiffenedGas] = list(problem.eos)[:self.nmat]
         self.ncomp = 3 * self.nmat + 3
+        # THINC interface sharpening at P1 (upstream Quinoa's intsharp /
+        # intsharp_param); beta 2.5 as the JAX package chose it
+        self.intsharp = bool(intsharp)
+        self.thinc_beta = float(thinc_beta)
         #: rows of the face pass: C fluxes, 3*nmat riemannDeriv, 1 divergence
         self.nrows = self.ncomp + 3 * self.nmat + 1
         self.facade = _FusedMMFacade(self)
+        self.thinc_facade = _FusedMMFacade(self, thinc=True)
         #: set by MultiMatSolver: no Dirichlet face, the multimat face pass
         self.fused_ok = False
 
@@ -228,6 +239,83 @@ class MultiMatSystem:
             cols.append(torch.stack(f))
         return cols
 
+    def thinc_carriers(self, geom: DGGeom, Uv):
+        """THINC carriers (8*nmat, E) of the modal state Uv (C, 4, E), per
+        material k the rows 8k..8k+7 (quinoa_tpu/pde/multimat.py
+        thinc_carriers, whose (5*nmat, K, E) layout thinc_modes rebuilds):
+
+        - 8k..8k+3: the P1 modes of q_k, the cell's coordinate along the
+          interface normal grad(alpha_k)/|grad(alpha_k)|, 0 at the most
+          upwind vertex and 1 at the most downwind (affine in the
+          reference coordinates, so exact in the P1 basis);
+        - 8k+4: q0_k, the interface position from the closed-form
+          slab-mean inversion of the tanh profile;
+        - 8k+5: the flag, 1.0 in an interface cell (delta < mean alpha_k
+          < 1 - delta, |grad alpha_k| > 1e-8);
+        - 8k+6, 8k+7: the cell-mean material density (alpha rho)_k /
+          alpha_k and energy density, alpha floored at delta.
+
+        The operation order and constants are the JAX package's."""
+        nmat = self.nmat
+        beta = self.thinc_beta
+        delta = 1.0e-4
+        dt_, dev = Uv.dtype, Uv.device
+        J, Jm = geom.jacInv, geom.Jmat
+        eb = torch.exp(torch.tensor(beta, dtype=dt_, device=dev))
+        emb = torch.exp(torch.tensor(-beta, dtype=dt_, device=dev))
+        rows = []
+        for k in range(nmat):
+            a = Uv[volfrac_idx(nmat, k)]                     # (K,E)
+            u1, u2, u3 = a[1], a[2], a[3]
+            dxi = (2.0 * u1, u1 + 3.0 * u2, u1 + u2 + 4.0 * u3)
+            g = [dxi[0] * J[0, j] + dxi[1] * J[1, j] + dxi[2] * J[2, j]
+                 for j in range(3)]
+            gn = torch.sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2])
+            abar = a[0]
+            flag = ((abar > delta) & (abar < 1.0 - delta)
+                    & (gn > 1.0e-8)).to(dt_)
+            gsafe = torch.clamp_min(gn, 1.0e-30)
+            n = [g[j] / gsafe for j in range(3)]
+            # vertex projections along n: node 0 at 0, the three edge
+            # vectors Jmat[:, i]
+            pj = [n[0] * Jm[0, i] + n[1] * Jm[1, i] + n[2] * Jm[2, i]
+                  for i in range(3)]
+            pmin = torch.minimum(torch.minimum(pj[0], pj[1]),
+                                 torch.clamp_max(pj[2], 0.0))
+            pmax = torch.maximum(torch.maximum(pj[0], pj[1]),
+                                 torch.clamp_min(pj[2], 0.0))
+            L = torch.clamp_min(pmax - pmin, 1.0e-30)
+            # q(xi) = (sum_i pj_i xi_i - pmin) / L in the Dubiner modes
+            # (B1 = 2x + e + z - 1, B2 = 3e + z - 1, B3 = 4z - 1)
+            c0 = -pmin / L
+            c1, c2, c3 = pj[0] / L, pj[1] / L, pj[2] / L
+            m1 = c1 / 2.0
+            m2 = (c2 - m1) / 3.0
+            m3 = (c3 - m1 - m2) / 4.0
+            m0 = c0 + m1 + m2 + m3
+            # mean = 1/2 + (1/2b) ln[(e^b + z e^-b)/(1+z)], z = e^{2 b q0}
+            ab = torch.clamp(abar, delta, 1.0 - delta)
+            Em = torch.exp(beta * (2.0 * ab - 1.0))
+            z = (eb - Em) / (Em - emb)
+            q0 = torch.log(z) / (2.0 * beta)
+            asafe = torch.clamp_min(abar, delta)
+            rhok = Uv[density_idx(nmat, k)][0] / asafe
+            rek = Uv[energy_idx(nmat, k)][0] / asafe
+            rows += [m0, m1, m2, m3, q0, flag, rhok, rek]
+        return torch.stack(rows)
+
+    def thinc_modes(self, carriers, K):
+        """The carriers (8*nmat, E) in the JAX package's layout (5*nmat,
+        K, E): per material q's modes, then q0, flag, rho_k and rhoE_k in
+        mode 0 with zero higher modes."""
+        z = carriers.new_zeros((K - 1, carriers.shape[-1]))
+        rows = []
+        for k in range(self.nmat):
+            x = carriers[8 * k:8 * k + 8]
+            rows.append(x[:4])
+            rows += [torch.cat([x[j:j + 1], z]) for j in range(4, 8)]
+        return torch.stack(rows)
+
     # -- right-hand sides ------------------------------------------------------
 
     def _split_acc(self, acc, K):
@@ -288,9 +376,11 @@ class MultiMatSystem:
 
     def rhs(self, geom: DGGeom, U, t, want_delt=False):
         """Order-dispatching rhs (C*K, E) [, delt]: P0 keeps the finite-
-        volume path; P1 (ndof 4) adds the XLA-formulation volume integral
-        to the multimat face pass and integrates the non-conservative terms
-        at the volume Gauss points."""
+        volume path (intsharp ignored); P1 (ndof 4) adds the XLA-formulation
+        volume integral to the multimat face pass (its THINC flavour, on
+        the carriers of U, with intsharp) and integrates the
+        non-conservative terms at the volume Gauss points.  The THINC
+        carriers accumulate nothing, so the pass's R rows are the same."""
         K = geom.ndof
         if K == 1:
             return self.rhs_p0(geom, U, t, want_delt=want_delt)
@@ -300,7 +390,8 @@ class MultiMatSystem:
         C = self.ncomp
         E = U.shape[-1]
         Uv = U.reshape(C, K, E)
-        acc, delt = mm_face_pass(self, geom, U)
+        carriers = self.thinc_carriers(geom, Uv) if self.intsharp else None
+        acc, delt = mm_face_pass(self, geom, U, carriers)
         R, dap, divu = self._split_acc(acc, K)
         Rv = volume_rhs(self, geom, U, t).reshape(C, K, E)
         R = Rv + R + self._nonconservative_ho(geom, Uv, dap, divu)
@@ -416,19 +507,64 @@ class _FusedMMFacade:
     """AUSM+up flux + riemannDeriv + velocity divergence presented as one
     R-row 'flux' of the C-row multimat state, with the multimat ghost and
     charvel: what the face pass (K14 and its plain version, through
-    ops/face_fused.py face_wflux_plain) and the dg_dt sweep call."""
+    ops/face_fused.py face_wflux_plain) and the dg_dt sweep call.
+
+    With thinc the state carries the 5*nmat THINC carrier rows after its C
+    rows (thinc_modes); the ghost copies them from the left side (the
+    symmetry ghost rebuilds the momentum rows only), the charvel reads
+    the raw C rows, and riemann sharpens both sides (_thinc_faces) before
+    AUSM+up."""
 
     needs_face_gp = False
 
-    def __init__(self, mm: MultiMatSystem):
+    def __init__(self, mm: MultiMatSystem, thinc=False):
         self.mm = mm
-        self.ncomp = mm.ncomp
+        self.thinc = bool(thinc)
+        self.ncomp = mm.ncomp + (5 * mm.nmat if self.thinc else 0)
 
     def bc_state(self, bctype, sL, fn, gp, t):
         return self.mm.bc_state(bctype, sL, fn)
 
+    def _thinc_faces(self, s):
+        """The C rows of the face states s with the THINC tanh profile in
+        place of the fractions of flagged materials, the fractions
+        renormalised to sum to 1, flagged materials' alpha rho and alpha
+        rhoE re-derived from their cell means and the momentum rescaled by
+        rho_new / rho_lin (quinoa_tpu/pde/multimat.py _FusedMMFacade.
+        _thinc_faces)."""
+        mm = self.mm
+        C, nmat = mm.ncomp, mm.nmat
+        beta = mm.thinc_beta
+        floor = 50.0 * torch.finfo(s.dtype).eps
+        a_new, flags = [], []
+        for k in range(nmat):
+            q, q0, flag = s[C + 5 * k], s[C + 5 * k + 1], s[C + 5 * k + 2]
+            ath = 0.5 * (1.0 + torch.tanh(beta * (q - q0)))
+            flags.append(flag > 0.5)
+            a_new.append(torch.where(flags[k], ath, s[volfrac_idx(nmat, k)]))
+        ssum = a_new[0]
+        for k in range(1, nmat):
+            ssum = ssum + a_new[k]
+        den = torch.clamp_min(ssum, floor)
+        rows = list(s[:C])
+        rho_new = rho_lin = None
+        for k in range(nmat):
+            a = a_new[k] / den
+            d, e = density_idx(nmat, k), energy_idx(nmat, k)
+            dk = torch.where(flags[k], a * s[C + 5 * k + 3], s[d])
+            ek = torch.where(flags[k], a * s[C + 5 * k + 4], s[e])
+            rows[volfrac_idx(nmat, k)], rows[d], rows[e] = a, dk, ek
+            rho_new = dk if k == 0 else rho_new + dk
+            rho_lin = s[d] if k == 0 else rho_lin + s[d]
+        for i in range(3):
+            m = momentum_idx(nmat, i)
+            rows[m] = rho_new * (s[m] / rho_lin)
+        return torch.stack(rows)
+
     def riemann(self, fn, sL, sR, gp, t):
         mm = self.mm
+        if self.thinc:
+            sL, sR = self._thinc_faces(sL), self._thinc_faces(sR)
         flx, ap, vriem = mm.ausm(fn, sL, sR)
         dap = torch.stack([ap[k] * fn[i] for k in range(mm.nmat)
                            for i in range(3)])

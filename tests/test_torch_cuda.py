@@ -45,7 +45,8 @@ ZERO = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0, "nbr_bounds": 0,
         "face_gather": 0, "face_accum": 0, "alecg_vol": 0, "alecg_vol_cf": 0,
         "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0,
         "node_gather": 0, "node_assemble": 0, "face_wflux": 0,
-        "basis_accum": 0, "mm_face_wflux": 0}
+        "face_wflux_lf": 0, "basis_accum": 0, "mm_face_wflux": 0,
+        "mm_face_wflux_thinc": 0}
 
 
 @pytest.fixture(scope="module")
@@ -504,3 +505,110 @@ def test_p0_and_multimat_on_card_match_cpu(card, case):
     assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11 * scale
     assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
     assert {k for k, v in kernels.launches.items() if v} == set(used)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ndof", [1, 4, 10])
+def test_lf_single_stream_kernels_match_plain_versions(card, ndof, dtype):
+    """The Lax-Friedrichs flavour of K12 (and K13 after it) at P0, P1 and
+    P2 against the plain versions bit for bit; its launches count under
+    face_wflux_lf only."""
+    system = DGCompFlow(SedovBlastwave(), riemann_flux="laxfriedrichs")
+    g = _geom(card, dtype, ndof)
+    rng = np.random.default_rng(11)
+    U = rng.random((5 * ndof, g.nelem)) * 0.01
+    U[0] += 1.0
+    U[4 * ndof] += 2.5
+    U = torch.as_tensor(U).to(dtype).to(card)
+    kernels.reset_launches()
+    wfl, mx = kernels.face_wflux(U, g.el, g.er, g.fn, g.farea, g.fmask,
+                                 g.xi_l, g.xi_r, g.bctype, g.w_face,
+                                 system.eos, "laxfriedrichs")
+    pw, pm = face_wflux_plain(system, g, U)
+    assert bool(torch.isfinite(pw).all())
+    assert torch.equal(wfl, pw) and torch.equal(mx, pm)
+    for a, b in zip(fused_face_pass(system, g, U),
+                    basis_accum_plain(g, pw, pm)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**ZERO, "face_wflux_lf": 2, "basis_accum": 1}
+
+
+def _thinc(device, dtype, nmat=3):
+    """THINC interface advection at P1 on a small extrapolate box."""
+    from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE
+    from quinoa_tpu_torch.pde.multimat import MultiMatSolver, MultiMatSystem
+    from quinoa_tpu_torch.pde.problems import MMInterfaceAdvection
+
+    mesh, _ = hilbert_element_reorder(box_tet_mesh(6, 6, 2,
+                                                   hi=(1.0, 1.0, 0.3)))
+    g = build_dggeom(mesh, 4, {i: BC_EXTRAPOLATE for i in range(1, 7)},
+                     dtype=dtype, device=device)
+    system = MultiMatSystem(MMInterfaceAdvection(nmat=nmat), intsharp=True)
+    return MultiMatSolver(system, g, cfl=0.4, limiter="superbeep1")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nmat", [2, 3])
+def test_thinc_face_kernel_matches_plain_version(card, nmat, dtype):
+    """The THINC flavour of K14 and K13 at its R rows against their plain
+    versions bit for bit on the limited initial interface-advection state,
+    with flagged face points; its launches count under
+    mm_face_wflux_thinc only."""
+    from quinoa_tpu_torch.ops.face_fused import (mm_face_pass,
+                                                 mm_face_wflux_plain)
+
+    solver = _thinc(card, dtype, nmat)
+    sy, g = solver.system, solver.geom
+    U = solver._limit(solver.initial_state().u)
+    X = sy.thinc_carriers(g, U.reshape(sy.ncomp, 4, -1))
+    assert int((X[5::8] > 0.5).sum()) > 0
+    kernels.reset_launches()
+    wfl, mx = kernels.mm_face_wflux(U, g.el, g.er, g.fn, g.farea, g.fmask,
+                                    g.xi_l, g.xi_r, g.bctype, g.w_face,
+                                    sy.eos, X, sy.thinc_beta)
+    pw, pm = mm_face_wflux_plain(sy, g, U, X)
+    assert bool(torch.isfinite(pw).all())
+    assert torch.equal(wfl, pw) and torch.equal(mx, pm)
+    for a, b in zip(mm_face_pass(sy, g, U, X), basis_accum_plain(g, pw, pm)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**ZERO, "mm_face_wflux_thinc": 2,
+                                "basis_accum": 1}
+
+
+@pytest.mark.parametrize("case", ["p1_lf", "p1_lf_pdg", "mm_thinc"])
+def test_lf_and_thinc_on_card_match_cpu(card, case):
+    """Two float64 steps on the card against the CPU: Sod DG(P1) with
+    Lax-Friedrichs and Superbee (with and without p-adaptivity: K12-LF,
+    never K2) and THINC interface advection; u atol 1e-11 of max(1,
+    max|u|), dt rtol 1e-12, only the path's kernels launched."""
+    from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE
+    from quinoa_tpu_torch.pde.problems import SodShocktube
+
+    def solver(device):
+        if case == "mm_thinc":
+            return _thinc(device, torch.float64)
+        mesh = box_tet_mesh(8, 3, 2, hi=(1.0, 0.375, 0.25))
+        bc = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
+              **{i: BC_SYMMETRY for i in range(3, 7)}}
+        g = build_dggeom(mesh, 4, bc, dtype=torch.float64, device=device)
+        return DGSolver(DGCompFlow(SodShocktube(),
+                                   riemann_flux="laxfriedrichs"), g,
+                        cfl=0.5, limiter="superbeep1",
+                        pref=case == "p1_lf_pdg")
+
+    used = {"p1_lf": {"limit_vol", "face_wflux_lf", "basis_accum"},
+            "p1_lf_pdg": {"nbr_bounds", "face_wflux_lf", "basis_accum"},
+            "mm_thinc": {"nbr_bounds", "mm_face_wflux_thinc",
+                         "basis_accum"}}[case]
+    a, b = solver(card), solver("cpu")
+    kernels.reset_launches()
+    sa = a.nsteps(a.initial_state(), 2)
+    sb = b.nsteps(b.initial_state(), 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(sa.u).all())
+    scale = max(1.0, float(sb.u.abs().max()))
+    assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11 * scale
+    assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
+    assert {k for k, v in kernels.launches.items() if v} == used

@@ -361,11 +361,14 @@ def test_mm_p1_k0_rows_match_p0_on_the_port():
 
 
 def test_unported_multimat_configurations_raise():
-    """THINC, P1 on Dirichlet faces and P2 raise; a limiter at P0 or an
-    unknown one is a ValueError, as in the JAX package."""
-    with pytest.raises(NotImplementedError):
-        tm.MultiMatSystem(tpm.MMSodShocktube(), intsharp=True)
+    """P1 on Dirichlet faces (THINC included) and P2 raise; a limiter at
+    P0 or an unknown one is a ValueError, as in the JAX package."""
     mesh = box_tet_mesh(2, 2, 2)
+    gd4 = t_build(mesh, 4, {i: BC_DIRICHLET for i in range(1, 7)},
+                  device="cpu")
+    with pytest.raises(NotImplementedError):
+        tm.MultiMatSolver(tm.MultiMatSystem(tpm.MMSodShocktube(),
+                                            intsharp=True), gd4)
     system = tm.MultiMatSystem(tpm.MMSodShocktube())
     gd = t_build(mesh, 4, {i: BC_DIRICHLET for i in range(1, 7)},
                  device="cpu")
