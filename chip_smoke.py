@@ -15,7 +15,11 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
 3. kernels each kernel against its plain torch version on the card:
            K1-K4 on a perturbed Sedov state, K5 and K6 on GaussHump
            transport rows, float32 at 48^3 and float64 on small meshes,
-           with a CUDA-event time for kernel and plain version at 48^3;
+           with the device time of the kernel at 48^3 (device_ms: CUDA
+           events around a call the host enqueued in full while a spin
+           kernel held the card, in turns with the one-call yardstick,
+           each call from a cold L2) and the host-inclusive one-call time
+           of the kernel (call_ms) and of the plain version;
            K7-K9 (both flavours of K7 and K8) on the SlotCyl and
            VorticalFlow initial states, alone and as the stage rhs;
            K10 (1 and 5 rows) and K11 (sum rows, max rows, both at once,
@@ -36,7 +40,7 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
            also gets its bound (bytes of its inputs read once and outputs
            written once over 3.35 TB/s, or its operations over 67 TFLOP/s,
            whichever is larger) and, where one PyTorch call computes the
-           same function, that call's time; then nine small float64
+           same function, that call's device time; then nine small float64
            solvers on the card against the same solvers on the CPU (Sedov
            P1, Sedov pdg, GaussHump, GaussHump pdg, ALECG and DiagCG
            SlotCyl and VorticalFlow, P2 TaylorGreen: 2 steps, u atol
@@ -264,6 +268,9 @@ F32_OPS_PER_S = 67e12
 TOL = {"float32": 1e-5, "float64": 1e-12}
 SOLVER_ATOL = 1e-11             # small-mesh solvers, card vs CPU, 2 steps
 REPS = 7                        # timed repetitions (median)
+L2_FLUSH_BYTES = 256 << 20      # filled before each timed call: > 50 MB L2
+SPIN_CYCLES_PER_S = 2.0e9       # device_ms spin: the card's top SM clock
+SPIN_MARGIN_S = 1e-4            # device_ms spin beyond 2x the host's time
 NSTEPS = 10                     # timed steps of each path, after 1 warm-up
 
 KERNELS = {
@@ -378,7 +385,8 @@ OPS = {"limit_vol": 2000, "face_flux": 1000, "face_to_elem": 100,
                        (22, 4): 2800},
        # the THINC flavour adds two primitive evaluations and ~40 flops a
        # material and side to each of the 3 points
-       "mm_face_wflux": {(2, 1): 400, (2, 4): 1500, (3, 1): 500},
+       "mm_face_wflux": {(2, 1): 400, (2, 4): 1500, (3, 1): 500,
+                         (3, 4): 2000},
        "mm_face_wflux_thinc": {(2, 4): 2500, (3, 4): 3500}}
 
 
@@ -446,8 +454,13 @@ def perturbed_state(E, seed, K=4):
     return U0
 
 
-def cuda_ms(torch, fn):
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+def call_ms(torch, fn):
+    """Median CUDA-event time in ms of one fn() on an idle card, after one
+    warm-up call: host and device.  The card idles after each synchronize,
+    so the window also holds the host's work before the first kernel is
+    enqueued (a ctypes wrapper's checks, allocation and launch, some
+    0.03-0.06 ms): what one launch costs a host-bound path, not the
+    kernel's time (device_ms)."""
     fn()
     times = []
     for _ in range(REPS):
@@ -459,6 +472,61 @@ def cuda_ms(torch, fn):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(torch, fns, reps=REPS):
+    """Device time of each fn in fns, taken in turns and from a cold L2:
+    [(median, min, max) ms] over reps calls each.
+
+    Each call is timed by CUDA events on a card that is kept busy while
+    the host enqueues it: the L2_FLUSH_BYTES byte buffer is filled
+    (evicting the 50 MB L2, so no input is served from a warm cache), a
+    spin kernel holds the stream for twice the host's time to enqueue fn
+    (measured on a warm-up call) plus SPIN_MARGIN_S, then event a, fn(),
+    event b.  When b has been enqueued the host checks that the card has
+    not reached a yet: then every launch of fn was queued before the first
+    ran, and a to b is the device's time for fn alone (its kernels back to
+    back), with neither the host nor the flush in it.  Otherwise the
+    repetition is taken again with a spin twice as long (a call that
+    synchronises, or enqueues more launches than the card's queue holds,
+    cannot be timed so and raises).  The calls go in turns, fns in order
+    and then in reverse (A B B A for a kernel and its one-call yardstick),
+    after two warm-up calls each."""
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    host = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    order = []
+    for r in range(reps):
+        order += list(range(len(fns)))[::1 if r % 2 == 0 else -1]
+    times = [[] for _ in fns]
+    for i in order:
+        spin = 2.0 * host[i] + SPIN_MARGIN_S
+        while True:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            scratch.fill_(1)
+            torch.cuda._sleep(int(spin * SPIN_CYCLES_PER_S))
+            a.record()
+            fns[i]()
+            b.record()
+            early = not a.query()
+            torch.cuda.synchronize()
+            if early:
+                break
+            spin *= 2.0
+            if spin > 1.0:
+                raise AssertionError(
+                    "device_ms: the host does not finish enqueueing a call "
+                    "within 1 s of spin (a host synchronisation, or more "
+                    "launches than the launch queue holds)")
+        times[i].append(a.elapsed_time(b))
+    return [(statistics.median(t), min(t), max(t)) for t in times]
 
 
 def compare(name, got, want, dtype_name):
@@ -486,34 +554,46 @@ def nbytes(*tensors):
 def measure(torch, name, label, kf, pf, inputs, ops, dtype_name, timed,
             library=None):
     """kf() (the kernel) against pf() (its plain version) on the same
-    inputs; when timed, the CUDA-event times of both and of library() (one
-    PyTorch call computing the same function, or None), and the bound:
-    the larger of the bytes of the inputs (each read once) and outputs
-    (each written once) over HBM_BYTES_PER_S and ops over F32_OPS_PER_S.
-    Returns {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}."""
+    inputs; when timed, the device times (device_ms, in turns) of the
+    kernel and of library() (one PyTorch call computing the same function,
+    or None), the host-inclusive call_ms of the kernel and of the plain
+    version (hundreds of launches, more than the card's launch queue
+    holds: device_ms cannot keep the host out of it), and the bound: the
+    larger of the bytes of the inputs (each read once) and outputs (each
+    written once) over HBM_BYTES_PER_S and ops over F32_OPS_PER_S.
+    Returns {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms,
+    call_ms}."""
     got, want = kf(), pf()
     if not isinstance(got, tuple):
         got, want = (got,), (want,)
     rec = {"max_abs_err": compare(name, got, want, dtype_name), "ms": None,
            "plain_ms": None, "bound_ms": None, "bound_by": None,
-           "library_ms": None}
+           "library_ms": None, "call_ms": None}
     msg = (f"{name} {dtype_name} {label}: max|kernel-plain|="
            f"{rec['max_abs_err']:.3e} (tol {TOL[dtype_name]:g} * max|plain|)")
     if timed:
         b = nbytes(*inputs, *got)
         t_bytes, t_ops = 1e3 * b / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
-        rec.update(ms=cuda_ms(torch, kf), plain_ms=cuda_ms(torch, pf),
+        times = device_ms(torch, [kf] if library is None else [kf, library])
+        k, lib = times[0], times[1] if library else None
+        rec.update(ms=k[0], plain_ms=call_ms(torch, pf),
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=None if library is None
-                   else cuda_ms(torch, library))
-        lib = ("" if library is None
-               else f", one torch call {rec['library_ms']:.4f} ms")
-        msg += (f" kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
-                f"ms{lib}; bound {rec['bound_ms']:.4f} ms ({b} bytes, "
-                f"{ops:.4g} ops: {rec['bound_by']})")
+                   library_ms=lib and lib[0], call_ms=call_ms(torch, kf))
+        msg += (f" kernel {spread(k)}"
+                + ("" if lib is None else f", one torch call {spread(lib)}")
+                + f" (device, {REPS} in turns, cold L2); one call of the "
+                f"kernel {rec['call_ms']:.4f} ms, of the plain version "
+                f"{rec['plain_ms']:.4f} ms (host + device); bound "
+                f"{rec['bound_ms']:.4f} ms ({b} bytes, {ops:.4g} ops: "
+                f"{rec['bound_by']})")
     phase("kernels", msg)
     return rec
+
+
+def spread(t):
+    """'median ms [min-max]' of a device_ms entry."""
+    return f"{t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]"
 
 
 def kernel_checks(torch, geom, system, U, dtype_name, timed):
@@ -830,8 +910,7 @@ def nbr_bounds_check(torch, solver, dtype_name, timed):
 def single_stream_vs_nearfar(torch, geom, system, U):
     """DG(P1): K12 + K13 against K2 + K3 on the limited Sedov state and
     its volume term: max|difference| of the rhs and of delt, and the
-    CUDA-event time of each pair, taken in turns (K2 + K3, K12 + K13,
-    K12 + K13, K2 + K3)."""
+    device time of each pair (device_ms, in turns)."""
     from quinoa_tpu_torch.ops.face_fused import (fused_face_pass,
                                                  fused_face_pass_nearfar)
     from quinoa_tpu_torch.ops.nbr_bounds import limit_vol_plain
@@ -845,13 +924,11 @@ def single_stream_vs_nearfar(torch, geom, system, U):
         return fused_face_pass_nearfar(system, geom, ulim, vol_rhs=rv)
 
     diff = [float((a - b).abs().max()) for a, b in zip(single(), nearfar())]
-    nf = [cuda_ms(torch, nearfar)]
-    ss = [cuda_ms(torch, single), cuda_ms(torch, single)]
-    nf.append(cuda_ms(torch, nearfar))
+    nf, ss = device_ms(torch, [nearfar, single])
     phase("kernels", f"P1 E={geom.nelem} F={geom.nface}: K12+K13 vs K2+K3 "
           f"max|dr|={diff[0]:.3e} max|ddelt|={diff[1]:.3e}; K12+K13 "
-          f"{ss[0]:.4f}, {ss[1]:.4f} ms, K2+K3 {nf[0]:.4f}, {nf[1]:.4f} ms "
-          "(turns: K2+K3, K12+K13, K12+K13, K2+K3)")
+          f"{spread(ss)}, K2+K3 {spread(nf)} (device, {REPS} in turns, "
+          "cold L2)")
     if not all(d <= TOL["float32"] * float(w.abs().max())
                for d, w in zip(diff, nearfar())):
         raise AssertionError("K12+K13 and K2+K3 disagree at P1")
@@ -1662,7 +1739,7 @@ def main():
             mm_breakdown(torch, solver, name, state)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "call_ms")
     rows = [(name, name, MAIN_PATH[name]) for name in KERNELS]
     print(json.dumps({"kernels": [
         {"name": entry, "route": "cuda", "source": KERNELS[counter][0],

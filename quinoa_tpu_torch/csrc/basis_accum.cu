@@ -1,8 +1,8 @@
 // K13 basis_accum: each element contracts its four faces' weighted flux
-// with its own basis and sums them, one thread per element, for R flux
-// rows at DG(P0) (K = 1, G = 1), DG(P1) (K = 4, G = 3) and DG(P2) (K = 10,
-// G = 6): compressible Euler (R = 5, K12's rows) at every order, multimat
-// (R = 16 or 22, K14's rows for 2 or 3 materials) at P0 and P1.
+// with its own basis and sums them, for R flux rows at DG(P0) (K = 1, G =
+// 1), DG(P1) (K = 4, G = 3) and DG(P2) (K = 10, G = 6): compressible Euler
+// (R = 5, K12's rows) at every order, multimat (R = 16 or 22, K14's rows
+// for 2 or 3 materials) at P0 and P1.
 //
 // Replaces the TPU single-stream face pass's accumulation:
 // quinoa_tpu/ops/face_fused.py _make_basis_accum_kernel (basis_accum_pass:
@@ -23,34 +23,72 @@
 // At K = 4 this is the same arithmetic as K2 + K3 (contribL = -s at el,
 // contribR = +s at er), so both forms give the same bits.
 //
-// Bound on the card: device-memory bytes.  At P2 an element reads 4 face
-// ids, 4 side flags, 4 x 30 weighted-flux words, 4 x 18 Gauss coordinates
-// and 50 rv words and writes 51 words, for ~3,400 flops (the basis at 24
-// points and 1,200 multiply-adds).  Design: the element axis is the fastest
-// axis of rv, r and delt (coalesced); the face rows are gathers along the
-// face axis, which the Hilbert element order and the el-sorted faces keep
-// near each other.  A face's G x K basis values are evaluated once, then
-// each row's K sums are formed and added at once, so a thread holds the
-// R*K sums and one row's partial contraction.  The template parameters K
-// and G hide common.cuh's DG(P1) constants of those names; the R*K sums (88
-// at R = 22, K = 4) may spill (the ptxas report beside the library says).
+// Bound on the card: device-memory bytes.  At (R, K) = (22, 4) an element
+// reads 4 face ids and side flags, 4 x 66 weighted-flux words (each face
+// is read by both its elements: 2 x 66 words a face against 66 in the
+// bound) and 4 x 9 Gauss coordinates and writes 89 words, for ~2,800
+// flops; at P2 (5, 10) ~3,400 flops against 4 x 30 + 4 x 18 words read.
+//
+// Design: L lanes per element (ba_lanes).  Lane l owns rows l, l + L, l +
+// 2L, ... of R and is a template parameter (basis_accum_dispatch), so each
+// row's offsets are constants.  It evaluates the face basis itself (cheap;
+// the element's lanes read the same face ids and coordinates, which the L1
+// serves) and keeps only its ceil(R/L)*K sums in registers, where one
+// thread holding all R*K of them (88 at (22, 4)) needs 154 float32
+// registers and leaves 3 blocks an SM.  Each output's sum keeps its order
+// (slots 0..3, points in order, plus on right faces and minus on left), so
+// the bits do not change; delt is summed in slot order by lane 0.  A block
+// is EPB elements x L lanes, lane-major: each warp is 32 consecutive
+// elements of one lane, so the rv, r and delt rows (element axis fastest)
+// are read and written 128 bytes a warp, and a warp's face reads are one
+// row at 32 elements' faces, which the Hilbert element order and the
+// el-sorted faces keep near each other.  A face's G x K basis values are
+// evaluated once, then each row's K sums are formed and added at once.
+// The template parameters K and G hide common.cuh's DG(P1) constants of
+// those names.  ptxas, float32 registers at (R, K) = (5, 1), (5, 4), (5,
+// 10), (16, 1), (16, 4), (22, 1), (22, 4): 32, 56, 168, 40, 80, 40, 80;
+// float64 at most 254 (P2), 132 at (22, 4); no spill.
 
 #include "common.cuh"
 
 namespace qtk {
 
-template <typename T, int R, int K, int G>
-__global__ void __launch_bounds__(128)
-basis_accum_kernel(const T* __restrict__ wfl, const T* __restrict__ mx,
-                   const int* __restrict__ fose, const T* __restrict__ fsideR,
-                   const T* __restrict__ xil, const T* __restrict__ xir,
-                   const T* __restrict__ rv, T* __restrict__ r,
-                   T* __restrict__ delt, long long E, long long F) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  T acc[R * K];
+// lanes an element's R rows are split over at K modes: of 1, 2, 3, 4, 6
+// and 8 lanes, the fastest on the card at the paths' shapes (PERF.md)
+__host__ __device__ constexpr int ba_lanes(int R, int K) {
+  return K == 4 ? 4 : (K == 1 && R > 5 ? 6 : 1);
+}
+
+// an instance's lanes L, rows a lane owns RL and elements a block EPB (a
+// warp is 32 elements of one lane; 128 threads a block, 32L for L > 2)
+template <int R, int K>
+struct BasisAccumShape {
+  static constexpr int L = ba_lanes(R, K);
+  static constexpr int RL = (R + L - 1) / L;
+  static constexpr int EPB = L == 1 ? 128 : (L == 2 ? 64 : 32);
+};
+
+// the rows of lane LANE of element e (compile-time, so each row's offsets
+// are constants), and with lane 0 the element's delt
+template <typename T, int R, int K, int G, int LANE>
+__device__ __forceinline__ void basis_accum_lane(
+    const T* __restrict__ wfl, const T* __restrict__ mx,
+    const int* __restrict__ fose, const T* __restrict__ fsideR,
+    const T* __restrict__ xil, const T* __restrict__ xir,
+    const T* __restrict__ rv, T* __restrict__ r, T* __restrict__ delt,
+    long long e, long long E, long long F) {
+  using S = BasisAccumShape<R, K>;
+  constexpr int L = S::L, RL = S::RL;
+  T acc[RL * K];
 #pragma unroll
-  for (int q = 0; q < R * K; ++q) acc[q] = rv ? rv[q * E + e] : T(0);
+  for (int j = 0; j < RL; ++j) {
+    const int c = LANE + j * L;
+    if (c < R) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        acc[j * K + k] = rv ? rv[(c * K + k) * E + e] : T(0);
+    }
+  }
   T d = T(0);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -63,26 +101,69 @@ basis_accum_kernel(const T* __restrict__ wfl, const T* __restrict__ mx,
       basis_at<T, K>(xi[g * F + f], xi[(G + g) * F + f],
                      xi[(2 * G + g) * F + f], B[g]);
 #pragma unroll
-    for (int c = 0; c < R; ++c) {
-      T s[K];
+    for (int j = 0; j < RL; ++j) {
+      const int c = LANE + j * L;
+      if (c < R) {
+        T s[K];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const T w = wfl[(c * G + g) * F + f];
+        for (int g = 0; g < G; ++g) {
+          const T w = wfl[(c * G + g) * F + f];
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const T t = B[g][k] * w;
+            s[k] = g == 0 ? t : s[k] + t;
+          }
+        }
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-          const T t = B[g][k] * w;
-          s[k] = g == 0 ? t : s[k] + t;
+          const int q = j * K + k;
+          acc[q] = right ? acc[q] + s[k] : acc[q] - s[k];
         }
       }
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        acc[c * K + k] = right ? acc[c * K + k] + s[k] : acc[c * K + k] - s[k];
     }
-    d = d + mx[f];
+    if (LANE == 0) d = d + mx[f];
   }
 #pragma unroll
-  for (int q = 0; q < R * K; ++q) r[q * E + e] = acc[q];
-  delt[e] = d;
+  for (int j = 0; j < RL; ++j) {
+    const int c = LANE + j * L;
+    if (c < R) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) r[(c * K + k) * E + e] = acc[j * K + k];
+    }
+  }
+  if (LANE == 0) delt[e] = d;
+}
+
+// lane (warp-uniform) -> basis_accum_lane<..., lane>
+template <typename T, int R, int K, int G, int LANE = 0>
+__device__ __forceinline__ void basis_accum_dispatch(
+    int lane, const T* wfl, const T* mx, const int* fose, const T* fsideR,
+    const T* xil, const T* xir, const T* rv, T* r, T* delt, long long e,
+    long long E, long long F) {
+  if constexpr (LANE < BasisAccumShape<R, K>::L) {
+    if (lane == LANE)
+      basis_accum_lane<T, R, K, G, LANE>(wfl, mx, fose, fsideR, xil, xir, rv,
+                                         r, delt, e, E, F);
+    else
+      basis_accum_dispatch<T, R, K, G, LANE + 1>(lane, wfl, mx, fose, fsideR,
+                                                 xil, xir, rv, r, delt, e, E,
+                                                 F);
+  }
+}
+
+template <typename T, int R, int K, int G>
+__global__ void __launch_bounds__(BasisAccumShape<R, K>::EPB *
+                                  BasisAccumShape<R, K>::L)
+basis_accum_kernel(const T* __restrict__ wfl, const T* __restrict__ mx,
+                   const int* __restrict__ fose, const T* __restrict__ fsideR,
+                   const T* __restrict__ xil, const T* __restrict__ xir,
+                   const T* __restrict__ rv, T* __restrict__ r,
+                   T* __restrict__ delt, long long E, long long F) {
+  using S = BasisAccumShape<R, K>;
+  const long long e = blockIdx.x * (long long)S::EPB + threadIdx.x % S::EPB;
+  if (e >= E) return;
+  basis_accum_dispatch<T, R, K, G>(threadIdx.x / S::EPB, wfl, mx, fose,
+                                   fsideR, xil, xir, rv, r, delt, e, E, F);
 }
 
 template <typename T, int R, int K, int G>
@@ -91,9 +172,9 @@ void launch_basis_accum_rkg(const void* wfl, const void* mx, const void* fose,
                             const void* xir, const void* rv, void* r,
                             void* delt, long long E, long long F,
                             cudaStream_t stream) {
-  const int block = 128;
-  const long long grid = (E + block - 1) / block;
-  basis_accum_kernel<T, R, K, G><<<(unsigned)grid, block, 0, stream>>>(
+  using S = BasisAccumShape<R, K>;
+  const long long grid = (E + S::EPB - 1) / S::EPB;
+  basis_accum_kernel<T, R, K, G><<<(unsigned)grid, S::EPB * S::L, 0, stream>>>(
       (const T*)wfl, (const T*)mx, (const int*)fose, (const T*)fsideR,
       (const T*)xil, (const T*)xir, (const T*)rv, (T*)r, (T*)delt, E, F);
 }

@@ -1,5 +1,5 @@
 // K14 mm_face_wflux: the multimat flavour of K12 (face_wflux.cu).  One
-// thread per face writes, at each of the face's G Gauss points, the
+// thread per face point writes, at each of the face's G Gauss points, the
 // weighted AUSM+up flux of the velocity-equilibrium multi-material system
 // and its riemannDeriv rows, for NMAT = 2 or 3 materials at DG(P0) (K = 1,
 // G = 1) and DG(P1) (K = 4, G = 3); at DG(P1) also with THINC interface
@@ -48,18 +48,35 @@
 // speed, mach == 0 guarded in the supersonic pressure split, 1e-16 in the
 // upwind weights of ap.  min/max propagate NaN as torch does (vmin/vmax).
 //
-// Bound on the card: device-memory bytes at P1 (a face reads 2 x 4C state
-// words, 18 Gauss coordinates and 8 words of face data and writes 3R + 1
-// words; AUSM+up is ~300 flops a point), operations at P0 (10 state and 8
-// face words against ~300 flops).  Design: as K12, the states of both
-// sides and each point's primitives stay in registers, and the primitives
-// of a side are evaluated once a point and shared by AUSM+up and the
-// charvel.  THINC reads 2 x 8*NMAT carrier words more a face and adds two
-// primitive evaluations and ~40 flops a material and side a point; the
-// carriers are read at each point (the L1 serves the repeats) instead of
-// being held across the point loop, since the nmat 3 instance already
-// holds ~200 float32 registers.  The template parameters K and G hide
-// common.cuh's DG(P1) constants of those names; C is never used here.
+// Bound on the card: device-memory bytes (a P1 face reads 2 x 4C state
+// words, with THINC 2 x 8*NMAT carrier words, 18 Gauss coordinates and 8
+// words of face data, and writes 3R + 1 words; AUSM+up is ~300 flops a
+// point, THINC adds two primitive evaluations and ~40 flops a material
+// and side; at P0 10 state and 8 face words against ~300 flops).
+//
+// Design at DG(P1): gather apart from compute.  A block takes a tile of
+// TILE faces (mm_tile) and G*TILE threads.  First the threads copy the
+// tile's el and er state rows (and the THINC carriers) into shared memory,
+// one row at a time across the tile: a warp's reads of a row are the el
+// (or er) of 32 consecutive faces, which the el-sorted faces and the
+// Hilbert element order keep near each other, and every state word is
+// read once a face (one thread per face, looping over the points, read
+// the carriers again at every point).  Then thread (g, j) evaluates both
+// sides at point g of face j from shared memory (the basis sum in mode
+// order), applies the pad substitution, the ghost, the charvel, THINC, the
+// primitives and AUSM+up, and writes its R weighted rows; threads are
+// point-major, so a warp writes 32 consecutive faces of one wfl row.  The
+// face's mx is summed in point order by its point-0 thread through shared
+// memory.  That is three times the threads of one thread per face, and no
+// 2 x 4C-word state arrays in registers (one thread per face needs 211
+// float32 registers at THINC nmat 3).  ptxas, float32: THINC nmat 3 / 2
+// 80 / 56 registers, plain AUSM+up nmat 3 / 2 72 / 56, the nmat 2 tiles
+// with 8 / 12 bytes of spill; float64 at most 148, no spill.  Shared
+// memory: (2 x 4C + 2 x 8*NMAT + G) x TILE words, at most 37.6 KB.  At
+// DG(P0) a thread per face reads its states directly
+// (mm_face_wflux_p0_kernel, 59 / 69 float32 registers): there the gather
+// does not pay.  The template parameters K and G hide common.cuh's DG(P1)
+// constants of those names; C is never used here.
 
 #include "common.cuh"
 
@@ -197,21 +214,21 @@ struct ThincCarriers {
   T q[NMAT], q0[NMAT], flag[NMAT], rho[NMAT], rhoE[NMAT];
 };
 
+// the 8*NMAT carrier rows of one side, stride words apart (shared memory)
 template <typename T, int NMAT>
-__device__ __forceinline__ void thinc_at(const T* __restrict__ X, long long e,
-                                         long long E, const T* B,
+__device__ __forceinline__ void thinc_at(const T* x0, int stride, const T* B,
                                          ThincCarriers<T, NMAT>& c) {
 #pragma unroll
   for (int k = 0; k < NMAT; ++k) {
-    const T* x = X + (long long)(8 * k) * E + e;
+    const T* x = x0 + 8 * k * stride;
     T q = B[0] * x[0];
 #pragma unroll
-    for (int m = 1; m < 4; ++m) q = q + B[m] * x[m * E];
+    for (int m = 1; m < 4; ++m) q = q + B[m] * x[m * stride];
     c.q[k] = q;
-    c.q0[k] = x[4 * E];
-    c.flag[k] = x[5 * E];
-    c.rho[k] = x[6 * E];
-    c.rhoE[k] = x[7 * E];
+    c.q0[k] = x[4 * stride];
+    c.flag[k] = x[5 * stride];
+    c.rho[k] = x[6 * stride];
+    c.rhoE[k] = x[7 * stride];
   }
 }
 
@@ -291,8 +308,62 @@ __device__ __forceinline__ void mm_bc_state(int bt, const T* sL, const T* n,
   }
 }
 
-template <typename T, int NMAT, int K, int G, bool THINC>
+// DG(P0) (K = G = 1): one thread a face reads its 2 x C state words
+// directly, where the shared-memory gather of the P1 kernel does not pay
+// (PERF.md section 6); the basis is 1, so a state is its mode 0
+template <typename T, int NMAT>
 __global__ void __launch_bounds__(128)
+mm_face_wflux_p0_kernel(const T* __restrict__ U, const int* __restrict__ el_,
+                        const int* __restrict__ er_, const T* __restrict__ fn,
+                        const T* __restrict__ farea,
+                        const T* __restrict__ fmask,
+                        const int* __restrict__ bctype,
+                        const T* __restrict__ wface, MMEos<T> eos,
+                        T* __restrict__ wfl, T* __restrict__ mxout,
+                        long long E, long long F) {
+  constexpr int NC = 3 * NMAT + 3;
+  constexpr int NR = NC + 3 * NMAT + 1;
+  const long long f = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (f >= F) return;
+  const long long el = el_[f], er = er_[f];
+  T sL[NC], sR[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    sL[c] = U[c * E + el];
+    sR[c] = U[c * E + er];
+  }
+  const T n[3] = {fn[f], fn[F + f], fn[2 * F + f]};
+  const T fa = farea[f] * fmask[f];
+  const bool valid = fmask[f] > T(0);
+  const int bt = bctype[f];
+  const bool interior = bt == BC_INTERIOR;
+  if (!valid) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) sL[c] = sR[c] = T(1);
+  }
+  if (!interior) mm_bc_state<T, NMAT>(bt, sL, n, sR);
+  MMPrim<T, NMAT> pL, pR;
+  mm_prim<T, NMAT>(eos, sL, pL);
+  mm_prim<T, NMAT>(eos, sR, pR);
+  const T wt = wface[0] * fa;
+  const T vl = mm_charvel<T, NMAT>(sL, pL, n);
+  mxout[f] = wt * (interior ? vmax(vl, mm_charvel<T, NMAT>(sR, pR, n)) : vl);
+  T fl[NR];
+  mm_ausm<T, NMAT>(n, sL, sR, pL, pR, fl);
+#pragma unroll
+  for (int r = 0; r < NR; ++r) wfl[r * F + f] = fl[r] * wt;
+}
+
+// faces a block of the DG(P1) kernel takes (3 threads a face): 64 for the
+// float32 THINC instance at nmat 3, 32 otherwise, the faster of the two on
+// the card (PERF.md section 6); the tile stays under 48 KB of shared memory
+template <typename T, int NMAT, bool THINC>
+__host__ __device__ constexpr int mm_tile() {
+  return sizeof(T) == 4 && THINC && NMAT == 3 ? 64 : 32;
+}
+
+template <typename T, int NMAT, int K, int G, bool THINC>
+__global__ void __launch_bounds__(mm_tile<T, NMAT, THINC>() * G)
 mm_face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
                      const int* __restrict__ er_, const T* __restrict__ fn,
                      const T* __restrict__ farea, const T* __restrict__ fmask,
@@ -304,24 +375,46 @@ mm_face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
   static_assert(!THINC || K == 4, "THINC is a DG(P1) flavour");
   constexpr int NC = 3 * NMAT + 3;
   constexpr int NR = NC + 3 * NMAT + 1;
-  const long long f = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (f >= F) return;
-  const long long el = el_[f], er = er_[f];
-  T UL[NC * K], UR[NC * K];
-#pragma unroll
-  for (int r = 0; r < NC * K; ++r) {
-    UL[r] = U[r * E + el];
-    UR[r] = U[r * E + er];
-  }
-  const T n[3] = {fn[f], fn[F + f], fn[2 * F + f]};
-  const T fa = farea[f] * fmask[f];
-  const bool valid = fmask[f] > T(0);
-  const int bt = bctype[f];
-  const bool interior = bt == BC_INTERIOR;
+  constexpr int TILE = mm_tile<T, NMAT, THINC>();
+  constexpr int NX = THINC ? 8 * NMAT : 1;  // carrier rows (1: unused)
+  __shared__ T sU[2][NC * K][TILE];         // el, er state rows
+  __shared__ T sX[2][NX][TILE];             // el, er carrier rows
+  __shared__ T smx[G][TILE];                // each point's weighted charvel
+  // thread (g, j): point g of face f0 + j; a warp is 32 faces at one point
+  const int g = threadIdx.x / TILE, j = threadIdx.x % TILE;
+  const long long f0 = blockIdx.x * (long long)TILE, f = f0 + j;
+  const bool active = f < F;
 
-  T mx = T(0);
+  // gather: thread (g, j) copies rows g, g + G, ... of face j's el and er
+  if (active) {
+    const long long el = el_[f], er = er_[f];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+    for (int i = 0; i < (NC * K + G - 1) / G; ++i) {
+      const int r = g + i * G;
+      if (r < NC * K) {
+        sU[0][r][j] = U[r * E + el];
+        sU[1][r][j] = U[r * E + er];
+      }
+    }
+    if constexpr (THINC) {
+#pragma unroll
+      for (int i = 0; i < (NX + G - 1) / G; ++i) {
+        const int r = g + i * G;
+        if (r < NX) {
+          sX[0][r][j] = X[r * E + el];
+          sX[1][r][j] = X[r * E + er];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  if (active) {
+    const T n[3] = {fn[f], fn[F + f], fn[2 * F + f]};
+    const T fa = farea[f] * fmask[f];
+    const bool valid = fmask[f] > T(0);
+    const int bt = bctype[f];
+    const bool interior = bt == BC_INTERIOR;
     T Bl[K], Br[K];
     basis_at<T, K>(xil[g * F + f], xil[(G + g) * F + f],
                    xil[(2 * G + g) * F + f], Bl);
@@ -330,11 +423,11 @@ mm_face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
     T sL[NC], sR[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      T a = Bl[0] * UL[c * K], b = Br[0] * UR[c * K];
+      T a = Bl[0] * sU[0][c * K][j], b = Br[0] * sU[1][c * K][j];
 #pragma unroll
       for (int k = 1; k < K; ++k) {
-        a = a + Bl[k] * UL[c * K + k];
-        b = b + Br[k] * UR[c * K + k];
+        a = a + Bl[k] * sU[0][c * K + k][j];
+        b = b + Br[k] * sU[1][c * K + k][j];
       }
       sL[c] = a;
       sR[c] = b;
@@ -349,15 +442,14 @@ mm_face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
     mm_prim<T, NMAT>(eos, sR, pR);
     const T wt = wface[g] * fa;
     const T vl = mm_charvel<T, NMAT>(sL, pL, n);
-    const T m =
+    smx[g][j] =
         wt * (interior ? vmax(vl, mm_charvel<T, NMAT>(sR, pR, n)) : vl);
-    mx = g == 0 ? m : mx + m;
     if constexpr (THINC) {
       ThincCarriers<T, NMAT> cL, cR;
       if (valid) {
-        thinc_at<T, NMAT>(X, el, E, Bl, cL);
+        thinc_at<T, NMAT>(&sX[0][0][j], TILE, Bl, cL);
         if (interior) {
-          thinc_at<T, NMAT>(X, er, E, Br, cR);
+          thinc_at<T, NMAT>(&sX[1][0][j], TILE, Br, cR);
         } else {
           cR = cL;
         }
@@ -375,7 +467,15 @@ mm_face_wflux_kernel(const T* __restrict__ U, const int* __restrict__ el_,
 #pragma unroll
     for (int r = 0; r < NR; ++r) wfl[(r * G + g) * F + f] = fl[r] * wt;
   }
-  mxout[f] = mx;
+  __syncthreads();
+
+  // the face's charvel, summed in point order by its point-0 thread
+  if (active && g == 0) {
+    T mx = smx[0][j];
+#pragma unroll
+    for (int q = 1; q < G; ++q) mx = mx + smx[q][j];
+    mxout[f] = mx;
+  }
 }
 
 template <typename T, int NMAT, int K, int G, bool THINC>
@@ -386,14 +486,23 @@ void launch_mm_face_wflux_nkg(const void* U, const void* el, const void* er,
                               const void* wface, const MMEos<T>& eos,
                               const void* X, double beta, void* wfl, void* mx,
                               long long E, long long F, cudaStream_t stream) {
-  const int block = 128;
-  const long long grid = (F + block - 1) / block;
-  mm_face_wflux_kernel<T, NMAT, K, G, THINC>
-      <<<(unsigned)grid, block, 0, stream>>>(
-          (const T*)U, (const int*)el, (const int*)er, (const T*)fn,
-          (const T*)farea, (const T*)fmask, (const T*)xil, (const T*)xir,
-          (const int*)bctype, (const T*)wface, eos, (const T*)X, T(beta),
-          (T*)wfl, (T*)mx, E, F);
+  if constexpr (K == 1) {
+    static_assert(G == 1 && !THINC, "DG(P0) has one point and no THINC");
+    const long long grid = (F + 127) / 128;
+    mm_face_wflux_p0_kernel<T, NMAT><<<(unsigned)grid, 128, 0, stream>>>(
+        (const T*)U, (const int*)el, (const int*)er, (const T*)fn,
+        (const T*)farea, (const T*)fmask, (const int*)bctype,
+        (const T*)wface, eos, (T*)wfl, (T*)mx, E, F);
+  } else {
+    constexpr int TILE = mm_tile<T, NMAT, THINC>();
+    const long long grid = (F + TILE - 1) / TILE;
+    mm_face_wflux_kernel<T, NMAT, K, G, THINC>
+        <<<(unsigned)grid, TILE * G, 0, stream>>>(
+            (const T*)U, (const int*)el, (const int*)er, (const T*)fn,
+            (const T*)farea, (const T*)fmask, (const T*)xil, (const T*)xir,
+            (const int*)bctype, (const T*)wface, eos, (const T*)X, T(beta),
+            (T*)wfl, (T*)mx, E, F);
+  }
 }
 
 template <typename T>

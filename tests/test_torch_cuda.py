@@ -57,11 +57,23 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _geom(device, dtype, ndof=4):
+def _geom(device, dtype, ndof=4, n=(6, 6, 4)):
     mesh, _ = hilbert_element_reorder(
-        box_tet_mesh(6, 6, 4, hi=(0.6, 0.6, 0.4)))
+        box_tet_mesh(*n, hi=tuple(m / 10 for m in n)))
     return build_dggeom(mesh, ndof, {i: BC_SYMMETRY for i in range(1, 7)},
                         dtype=dtype, device=device)
+
+
+def _ragged(n):
+    """n elements or faces leave a ragged last block for every tile and
+    lane group of K13 and K14 (32, 64 or 128 entries a block)."""
+    return n % 32 != 0
+
+
+def _same(got, want):
+    """Bit for bit, a NaN matching a NaN."""
+    return all(a.shape == b.shape and bool(
+        ((a == b) | (a.isnan() & b.isnan())).all()) for a, b in zip(got, want))
 
 
 def _state(E, dtype, device):
@@ -189,9 +201,11 @@ def test_new_paths_on_card_match_cpu(card, case):
 def test_single_stream_kernels_match_plain_versions(card, ndof, dtype):
     """K12 and K13 at P0, P1 and P2 against their plain versions bit for bit
     (the same expressions in the same order, sums in point and slot
-    order), alone and as fused_face_pass."""
+    order), alone and as fused_face_pass, on a box whose element count
+    leaves K13 a ragged last block."""
     system = DGCompFlow(SedovBlastwave())
-    g = _geom(card, dtype, ndof)
+    g = _geom(card, dtype, ndof, (6, 6, 3))
+    assert _ragged(g.nelem)
     rng = np.random.default_rng(9)
     U = rng.random((5 * ndof, g.nelem)) * 0.01
     U[0] += 1.0
@@ -410,16 +424,25 @@ def _mm(case, device, dtype=torch.float64):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", ["mm_p0", "mm_p1", "mm_iface_nmat3",
-                                  "mm_iface_nmat3_p1"])
+                                  "mm_iface_nmat3_p1", "mm_sod_p1_pad",
+                                  "mm_sod_p1_nan"])
 def test_mm_face_kernel_matches_plain_version(card, case, dtype):
     """K14 (nmat 2 and 3, P0 and P1) and K13 at its R rows (16, 22)
     against their plain versions bit for bit, on the limited initial state
-    of the solver, alone and as mm_face_pass."""
+    of the solver, alone and as mm_face_pass.  The nmat 3 box and the
+    7x3x2 Sod box leave both kernels a ragged last block; on the Sod box
+    every 7th face is a pad face (fmask 0: the unit state), or one
+    element has no density and no momentum, so that the sound speed at
+    its faces is NaN and must reach the flux and the sums as in the plain
+    version."""
+    import dataclasses
+
     from quinoa_tpu_torch.ops.face_fused import (mm_face_pass,
                                                  mm_face_wflux_plain)
     from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE, build_dggeom as bd
     from quinoa_tpu_torch.pde.multimat import MultiMatSolver, MultiMatSystem
-    from quinoa_tpu_torch.pde.problems import MMInterfaceAdvection
+    from quinoa_tpu_torch.pde.problems import (MMInterfaceAdvection,
+                                               MMSodShocktube)
 
     if case.startswith("mm_iface_nmat3"):
         # extrapolate faces: the face kernel's ghost
@@ -427,25 +450,43 @@ def test_mm_face_kernel_matches_plain_version(card, case, dtype):
         g = bd(box_tet_mesh(6, 6, 2, hi=(1.0, 1.0, 0.3)), ndof,
                {i: BC_EXTRAPOLATE for i in range(1, 7)}, dtype=dtype,
                device=card)
+        assert _ragged(g.nelem) and _ragged(g.nface)
         solver = MultiMatSolver(MultiMatSystem(MMInterfaceAdvection()), g,
                                 limiter="superbeep1" if ndof == 4 else None)
+    elif case.startswith("mm_sod"):
+        mesh, _ = hilbert_element_reorder(
+            box_tet_mesh(7, 3, 2, hi=(1.0, 3 / 7, 2 / 7)))
+        g = bd(mesh, 4, {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
+                         **{i: BC_SYMMETRY for i in range(3, 7)}},
+               dtype=dtype, device=card)
+        assert _ragged(g.nelem) and _ragged(g.nface)
+        solver = MultiMatSolver(MultiMatSystem(MMSodShocktube()), g,
+                                limiter="superbeep1")
     else:
         solver, _ = _mm(case, card, dtype)
     sy, g = solver.system, solver.geom
     U = solver._limit(solver.initial_state().u)
+    if case == "mm_sod_p1_pad":
+        pad = torch.zeros(g.nface, dtype=torch.bool, device=card)
+        pad[::7] = True
+        g = dataclasses.replace(g, fmask=torch.where(pad, 0.0, g.fmask))
+    elif case == "mm_sod_p1_nan":
+        Uv = U.reshape(sy.ncomp, 4, -1)
+        Uv[sy.nmat:2 * sy.nmat + 3, :, g.nelem // 2] = 0.0
     kernels.reset_launches()
     wfl, mx = kernels.mm_face_wflux(U, g.el, g.er, g.fn, g.farea, g.fmask,
                                     g.xi_l, g.xi_r, g.bctype, g.w_face,
                                     sy.eos)
     pw, pm = mm_face_wflux_plain(sy, g, U)
     assert wfl.shape == (sy.nrows * {1: 1, 4: 3}[g.ndof], g.nface)
-    assert torch.equal(wfl, pw) and torch.equal(mx, pm)
+    assert _same((wfl, mx), (pw, pm))
+    assert bool(pw.isnan().any()) == (case == "mm_sod_p1_nan")
+    if case == "mm_sod_p1_pad":
+        assert bool((pw[:, pad] == 0).all()) and bool((pm[pad] == 0).all())
     got = kernels.basis_accum(wfl, mx, g.fose, g.fsideR, g.xi_l, g.xi_r,
                               g.ndof)
-    for a, b in zip(got, basis_accum_plain(g, pw, pm)):
-        assert torch.equal(a, b)
-    for a, b in zip(mm_face_pass(sy, g, U), got):
-        assert torch.equal(a, b)
+    assert _same(got, basis_accum_plain(g, pw, pm))
+    assert _same(mm_face_pass(sy, g, U), got)
     torch.cuda.synchronize()
     assert kernels.launches == {**ZERO, "mm_face_wflux": 2,
                                 "basis_accum": 2}
@@ -548,21 +589,30 @@ def _thinc(device, dtype, nmat=3):
     return MultiMatSolver(system, g, cfl=0.4, limiter="superbeep1")
 
 
+@pytest.mark.parametrize("pad", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nmat", [2, 3])
-def test_thinc_face_kernel_matches_plain_version(card, nmat, dtype):
+def test_thinc_face_kernel_matches_plain_version(card, nmat, dtype, pad):
     """The THINC flavour of K14 and K13 at its R rows against their plain
     versions bit for bit on the limited initial interface-advection state,
-    with flagged face points; its launches count under
-    mm_face_wflux_thinc only."""
+    with flagged face points, on a box that leaves both kernels a ragged
+    last block; with pad, every 7th face is a pad face (the unit state and
+    all-ones carriers).  Its launches count under mm_face_wflux_thinc
+    only."""
+    import dataclasses
+
     from quinoa_tpu_torch.ops.face_fused import (mm_face_pass,
                                                  mm_face_wflux_plain)
 
     solver = _thinc(card, dtype, nmat)
     sy, g = solver.system, solver.geom
+    assert _ragged(g.nelem) and _ragged(g.nface)
     U = solver._limit(solver.initial_state().u)
     X = sy.thinc_carriers(g, U.reshape(sy.ncomp, 4, -1))
     assert int((X[5::8] > 0.5).sum()) > 0
+    if pad:
+        g = dataclasses.replace(g, fmask=torch.where(
+            torch.arange(g.nface, device=card) % 7 == 0, 0.0, g.fmask))
     kernels.reset_launches()
     wfl, mx = kernels.mm_face_wflux(U, g.el, g.er, g.fn, g.farea, g.fmask,
                                     g.xi_l, g.xi_r, g.bctype, g.w_face,
