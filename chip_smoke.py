@@ -13,7 +13,8 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
            and load the library;
 3. kernels each kernel against its plain torch version on the card:
-           K1-K4 on a perturbed Sedov state, K5 and K6 on GaussHump
+           K1-K4 on a perturbed Sedov state (K1 and K3 bit for bit, a
+           NaN matching a NaN), K5 and K6 on GaussHump
            transport rows, float32 at 48^3 and float64 on small meshes,
            with the device time of the kernel at 48^3 (device_ms: CUDA
            events around a call the host enqueued in full while a spin
@@ -49,13 +50,14 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
            mm_thinc; u atol 1e-11 of max(1, max|u|));
 4. p1      the Sedov DG(P1) HLLC + Superbee step (bench.py) from its
            initial_state(): 1 warm-up and 10 timed steps through K1, K2
-           and K3, 33 launches each; then the same 11 steps from the
-           initial state tools/bench_l2_known_good.json was harvested
-           from (see tpu_precision_initial_u), whose L2(sol) must match
-           that file at rtol 5e-4;
+           and K3, 33 launches each, then 5 steps under torch.profiler
+           (wall, device busy and idle, launches a step); then the same
+           11 steps from the initial state tools/bench_l2_known_good.json
+           was harvested from (see tpu_precision_initial_u), whose L2(sol)
+           must match that file at rtol 5e-4;
 5. pdg     the p-adaptive Sedov step (bench.py --pdg): 1 + 10 steps
            through K4, K2 and K3, 33 launches each; finite, with P0 and
-           P1 elements;
+           P1 elements; then 5 steps under torch.profiler;
 6. hump    GaussHump transport on Dirichlet faces (the face Gauss-point
            path): 1 + 10 steps through K5 (left and right face states of
            every rhs and dt sweep: 8 launches a step) and K6 (3 a step);
@@ -551,8 +553,14 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def bit_identical(got, want):
+    """Bit for bit, a NaN matching a NaN (+0 and -0 compare equal)."""
+    return all(g.shape == w.shape and g.dtype == w.dtype and bool(
+        ((g == w) | (g.isnan() & w.isnan())).all()) for g, w in zip(got, want))
+
+
 def measure(torch, name, label, kf, pf, inputs, ops, dtype_name, timed,
-            library=None):
+            library=None, bitwise=False):
     """kf() (the kernel) against pf() (its plain version) on the same
     inputs; when timed, the device times (device_ms, in turns) of the
     kernel and of library() (one PyTorch call computing the same function,
@@ -561,16 +569,27 @@ def measure(torch, name, label, kf, pf, inputs, ops, dtype_name, timed,
     holds: device_ms cannot keep the host out of it), and the bound: the
     larger of the bytes of the inputs (each read once) and outputs (each
     written once) over HBM_BYTES_PER_S and ops over F32_OPS_PER_S.
+    With bitwise the kernel must equal the plain version bit for bit (a
+    NaN matching a NaN; max_abs_err is then 0), else agree to TOL.
     Returns {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms,
     call_ms}."""
     got, want = kf(), pf()
     if not isinstance(got, tuple):
         got, want = (got,), (want,)
-    rec = {"max_abs_err": compare(name, got, want, dtype_name), "ms": None,
-           "plain_ms": None, "bound_ms": None, "bound_by": None,
-           "library_ms": None, "call_ms": None}
+    if bitwise:
+        if not bit_identical(got, want):
+            raise AssertionError(f"{name} ({dtype_name}): the kernel is not "
+                                 "bit-identical to the plain version")
+        nans = sum(int(w.isnan().sum()) for w in want)
+        err, how = 0.0, f"bit-identical, {nans} NaN matched"
+    else:
+        err = compare(name, got, want, dtype_name)
+        how = f"tol {TOL[dtype_name]:g} * max|plain|"
+    rec = {"max_abs_err": err, "ms": None, "plain_ms": None,
+           "bound_ms": None, "bound_by": None, "library_ms": None,
+           "call_ms": None}
     msg = (f"{name} {dtype_name} {label}: max|kernel-plain|="
-           f"{rec['max_abs_err']:.3e} (tol {TOL[dtype_name]:g} * max|plain|)")
+           f"{rec['max_abs_err']:.3e} ({how})")
     if timed:
         b = nbytes(*inputs, *got)
         t_bytes, t_ops = 1e3 * b / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
@@ -643,8 +662,10 @@ def kernel_checks(torch, geom, system, U, dtype_name, timed):
         ("face_to_elem", k3, p3, (cL, cR, mx, g.fose, g.fsideR, rv),
          OPS["face_to_elem"] * E),
     )
+    # K1 and K3 bit for bit: the same expressions in the same order
     out = {name: measure(torch, name, f"E={E} F={F}", kf, pf, inputs, ops,
-                         dtype_name, timed)
+                         dtype_name, timed,
+                         bitwise=name in ("limit_vol", "face_to_elem"))
            for name, kf, pf, inputs, ops in cases}
     # K2 + K3 together, as the step calls them
     got = fused_face_pass_nearfar(system, g, ulim, vol_rhs=rv)
@@ -1670,9 +1691,10 @@ def main():
     # 4. the Sedov P1 step
     counts = {}
     solver = DGSolver(system, big, cfl=0.5, limiter="superbeep1")
-    state, counts["p1"], _ = drive(torch, solver, "p1", card)
+    state, counts["p1"], wall = drive(torch, solver, "p1", card)
     diag = DGDiagnostics(system, big)
     phase("p1", f"L2(sol) from initial_state(): {diag.compute(state)[0]}")
+    profile_path(torch, solver, "p1", state, wall / NSTEPS)
 
     # the L2 gate, from the known-good's own initial state
     gate = dataclasses.replace(solver.initial_state(),
@@ -1692,13 +1714,14 @@ def main():
 
     # 5. the p-adaptive Sedov step
     solver = DGSolver(system, big, cfl=0.5, limiter="superbeep1", pref=True)
-    state, counts["pdg"], _ = drive(torch, solver, "pdg", card)
+    state, counts["pdg"], wall = drive(torch, solver, "pdg", card)
     n4 = int((state.ndofel == 4).sum())
     if not 0 < n4 < big.nelem:
         raise AssertionError(f"pdg: {n4} of {big.nelem} elements at P1, "
                              "expected a mix of P0 and P1")
     phase("pdg", f"P1 share {n4 / big.nelem:.6f} ({n4} of {big.nelem} "
           f"elements), L2(sol) {DGDiagnostics(system, big).compute(state)[0]}")
+    profile_path(torch, solver, "pdg", state, wall / NSTEPS)
 
     # 6. GaussHump transport on the face Gauss-point path
     state, counts["hump"], _ = drive(torch, hump_solver, "hump", card)

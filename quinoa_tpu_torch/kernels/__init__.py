@@ -43,6 +43,11 @@ TAB_BSELF, TAB_BVOL, TAB_WDB, TAB_WFACE, TAB_SIZE = 0, 48, 68, 128, 131
 #: face points.  K4-K6 and the transport flavours of K7-K8 take their row
 #: counts as arguments; K9 takes up to MAX_ROWS.
 C, K, G = 5, 4, 3
+#: the (mode, direction) entries of w_vol*dBdxi_vol that are not zero for
+#: the P1 Dubiner basis (dB0 = 0, dB2/dxi = 0, dB3/dxi = dB3/deta = 0);
+#: K1 adds only these (csrc/limit_vol.cu lv_wdb_nonzero)
+WDB_NONZERO = np.array([[False, False, False], [True, True, True],
+                        [False, True, True], [False, False, True]])
 MAX_ROWS = 8   # csrc/cg_assemble.cu MAXR
 #: the face kernels K12-K14 take DG(P0), DG(P1) and DG(P2): face points
 #: per number of modes (ops/quadrature.py ng_face)
@@ -86,6 +91,10 @@ def pack_tables(tables: dict, dtype: torch.dtype, device) -> torch.Tensor:
     wface = np.asarray(tables["w_face"])
     if bself.shape != (4, G, K) or bvol.shape != (5, K) or wface.shape != (G,):
         raise NotImplementedError("the kernels implement DG(P1) tables only")
+    if not np.array_equal(wdb != 0, np.broadcast_to(WDB_NONZERO, wdb.shape)):
+        raise ValueError("K1 adds w_vol*dBdxi_vol only where the P1 Dubiner "
+                         "basis has it nonzero (WDB_NONZERO); this table "
+                         "has other zeros")
     flat = np.concatenate([bself.ravel(), bvol.ravel(), wdb.ravel(), wface])
     assert flat.size == TAB_SIZE
     return torch.as_tensor(flat).to(dtype).to(device)

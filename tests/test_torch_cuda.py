@@ -66,7 +66,7 @@ def _geom(device, dtype, ndof=4, n=(6, 6, 4)):
 
 def _ragged(n):
     """n elements or faces leave a ragged last block for every tile and
-    lane group of K13 and K14 (32, 64 or 128 entries a block)."""
+    lane group of K1, K3, K13 and K14 (32, 64 or 128 entries a block)."""
     return n % 32 != 0
 
 
@@ -92,19 +92,54 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernels_match_plain_versions(card, dtype):
+    """K1 and K3 bit for bit (K3 on the plain K2's rows), K2 + K3 as the
+    step calls them to TOL."""
     system = DGCompFlow(SedovBlastwave())
     g = _geom(card, dtype)
     U = _state(g.nelem, dtype, card)
     kernels.reset_launches()
     ulim, rv = superbee_limit_window(g, U, system)
-    _close((ulim, rv), limit_vol_plain(system, g, U), dtype)
+    assert _same((ulim, rv), limit_vol_plain(system, g, U))
+    cL, cR, mx = face_flux_plain(system, g, ulim)
+    assert _same(kernels.face_to_elem(cL, cR, mx, g.fose, g.fsideR, rv),
+                 face_to_elem_plain(g, cL, cR, mx, rv))
     r, delt = fused_face_pass_nearfar(system, g, ulim, rv)
-    _close((r, delt),
-           face_to_elem_plain(g, *face_flux_plain(system, g, ulim), rv),
-           dtype)
+    _close((r, delt), face_to_elem_plain(g, cL, cR, mx, rv), dtype)
     torch.cuda.synchronize()
     assert kernels.launches == {**ZERO, "limit_vol": 1, "face_flux": 1,
-                                "face_to_elem": 1}
+                                "face_to_elem": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_limit_vol_and_face_to_elem_bit_for_bit(card, dtype):
+    """K1 and K3 against their plain versions bit for bit on a box whose
+    element count leaves every lane layout a ragged last block, with
+    boundary elements (esuelT = -1), an element whose volume points have
+    negative pressure and one without density or momentum (0/0: NaN in
+    its volume flux and its faces' fluxes, matched by position); K3 with
+    and without the volume term."""
+    system = DGCompFlow(SedovBlastwave())
+    g = _geom(card, dtype, 4, (6, 6, 3))
+    assert _ragged(g.nelem) and bool((g.esuelT < 0).any())
+    U = _state(g.nelem, dtype, card)
+    Uv = U.view(5, 4, -1)
+    Uv[1, 0, 5] = 3.0                  # kinetic energy 4.5 > rhoE 2.5
+    Uv[:4, :, g.nelem // 2] = 0.0
+    kernels.reset_launches()
+    got = kernels.limit_vol(U, g.esuelT, g.jacInv, g.vol * g.emask, g.ktab,
+                            2.0, system.eos)
+    ulim, rv = limit_vol_plain(system, g, U)
+    assert _same(got, (ulim, rv))
+    assert float(system.eos.pressure_cons_cm(ulim.view(5, 4, -1)[:, 0,
+                                                                 5])) < 0
+    assert bool(rv.isnan().any()) and not bool(rv.isnan().all())
+    cL, cR, mx = face_flux_plain(system, g, ulim)
+    assert bool(cL.isnan().any()) and bool(cR.isnan().any())
+    for base in (None, rv):
+        assert _same(kernels.face_to_elem(cL, cR, mx, g.fose, g.fsideR, base),
+                     face_to_elem_plain(g, cL, cR, mx, base))
+    torch.cuda.synchronize()
+    assert kernels.launches == {**ZERO, "limit_vol": 1, "face_to_elem": 2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -241,6 +241,20 @@ def test_cpu_tensors_leave_launch_counters_at_zero(runs):
     assert set(kernels.launches.values()) == {0}
 
 
+def test_pack_tables_holds_k1_to_the_p1_zeros(runs):
+    """The P1 tables' zeros of w_vol*dBdxi_vol are the ones K1 skips at
+    compile time; pack_tables refuses a table with other zeros."""
+    _, _, _, tg, _ = runs
+    wdb = tg.ktab[kernels.TAB_WDB:kernels.TAB_WFACE].reshape(5, 4, 3)
+    assert torch.equal(wdb != 0, torch.as_tensor(kernels.WDB_NONZERO).expand(
+        5, 4, 3))
+    dB = np.array(tg.tables["dBdxi_vol"])
+    dB[2, 1, 0] = 0.0
+    with pytest.raises(ValueError, match="other zeros"):
+        kernels.pack_tables({**tg.tables, "dBdxi_vol": dB}, torch.float64,
+                            "cpu")
+
+
 def test_unported_configurations_raise(runs):
     """Everything outside the port raises NotImplementedError."""
     _, jg, ts, tg, _ = runs
