@@ -13,8 +13,9 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
            and load the library;
 3. kernels each kernel against its plain torch version on the card:
-           K1-K4 on a perturbed Sedov state (K1 and K3 bit for bit, a
-           NaN matching a NaN), K5 and K6 on GaussHump
+           K1, K12 and K13 (p1's face pass) and K4 on a perturbed Sedov
+           state (K1, K12 and K13 bit for bit, a NaN matching a NaN, as
+           every K12 and K13 instance below), K5 and K6 on GaussHump
            transport rows, float32 at 48^3 and float64 on small meshes,
            with the device time of the kernel at 48^3 (device_ms: CUDA
            events around a call the host enqueued in full while a spin
@@ -25,10 +26,9 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
            VorticalFlow initial states, alone and as the stage rhs;
            K10 (1 and 5 rows) and K11 (sum rows, max rows, both at once,
            a NaN in a max row) on the DiagCG meshes; K12 and K13 on the
-           32^3 P2 TaylorGreen initial state (float64 on a small P2 mesh),
-           and K12 + K13 at P1 against K2 + K3 on the Sedov state (their
-           difference and both times); K12 and K13 at (K, G) = (1, 1) on a
-           perturbed 48^3 Sod state, K14 mm_face_wflux (nmat 2 at P0 and
+           32^3 P2 TaylorGreen initial state (float64 on a small P2 mesh);
+           K12 and K13 at (K, G) = (1, 1) on a perturbed 48^3 Sod state,
+           K14 mm_face_wflux (nmat 2 at P0 and
            P1, nmat 3 at P0) and K13 at its 16 and 22 rows on perturbed
            multimat states, K4 at mm_p1's 9 components, K5 on
            mm_iface's 12 rows and K6 on its Dirichlet face rows (22)
@@ -49,14 +49,14 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
            and six more (P0 Sod, the three multimat paths, p1_lf and
            mm_thinc; u atol 1e-11 of max(1, max|u|));
 4. p1      the Sedov DG(P1) HLLC + Superbee step (bench.py) from its
-           initial_state(): 1 warm-up and 10 timed steps through K1, K2
-           and K3, 33 launches each, then 5 steps under torch.profiler
+           initial_state(): 1 warm-up and 10 timed steps through K1, K12
+           and K13, 33 launches each, then 5 steps under torch.profiler
            (wall, device busy and idle, launches a step); then the same
            11 steps from the initial state tools/bench_l2_known_good.json
            was harvested from (see tpu_precision_initial_u), whose L2(sol)
            must match that file at rtol 5e-4;
 5. pdg     the p-adaptive Sedov step (bench.py --pdg): 1 + 10 steps
-           through K4, K2 and K3, 33 launches each; finite, with P0 and
+           through K4, K12 and K13, 33 launches each; finite, with P0 and
            P1 elements; then 5 steps under torch.profiler;
 6. hump    GaussHump transport on Dirichlet faces (the face Gauss-point
            path): 1 + 10 steps through K5 (left and right face states of
@@ -278,10 +278,6 @@ NSTEPS = 10                     # timed steps of each path, after 1 warm-up
 KERNELS = {
     "limit_vol": ("quinoa_tpu_torch/csrc/limit_vol.cu",
                   "quinoa_tpu/ops/nbr_bounds.py:541"),
-    "face_flux": ("quinoa_tpu_torch/csrc/face_flux.cu",
-                  "quinoa_tpu/ops/face_fused.py:762"),
-    "face_to_elem": ("quinoa_tpu_torch/csrc/face_to_elem.cu",
-                     "quinoa_tpu/ops/face_fused.py:839"),
     "nbr_bounds": ("quinoa_tpu_torch/csrc/nbr_bounds.cu",
                    "quinoa_tpu/ops/nbr_bounds.py:258"),
     "face_gather": ("quinoa_tpu_torch/csrc/face_gather.cu",
@@ -302,6 +298,7 @@ KERNELS = {
                     "quinoa_tpu/ops/node_window.py:261"),
     "node_assemble": ("quinoa_tpu_torch/csrc/node_assemble.cu",
                       "quinoa_tpu/ops/node_window.py:347"),
+    # B11 (p2's single-stream pass); on the other paths B2-B5 (NEARFAR)
     "face_wflux": ("quinoa_tpu_torch/csrc/face_wflux.cu",
                    "quinoa_tpu/ops/face_fused.py:333"),
     "basis_accum": ("quinoa_tpu_torch/csrc/basis_accum.cu",
@@ -315,11 +312,15 @@ KERNELS = {
     "mm_face_wflux_thinc": ("quinoa_tpu_torch/csrc/mm_face_wflux.cu",
                             "quinoa_tpu/ops/face_fused.py:762"),
 }
-#: the kernel instances of paths 12-17, listed in the kernels line beside
+#: the kernel instances of the paths, listed in the kernels line beside
 #: the kernels above: (entry, launch counter, path); the source and the
-#: replaced TPU kernel are KERNELS[counter]'s, except that at P0 and for
-#: multimat the TPU runs the near/far kernels B2-B5 (NEARFAR)
+#: replaced TPU kernel are KERNELS[counter]'s, except that on every DG path
+#: but p2 the TPU runs the near/far kernels B2-B5 (NEARFAR)
 INSTANCES = (
+    ("face_wflux (K=4)", "face_wflux", "p1"),
+    ("basis_accum (R=5, K=4)", "basis_accum", "p1"),
+    ("face_wflux (K=10)", "face_wflux", "p2"),
+    ("basis_accum (R=5, K=10)", "basis_accum", "p2"),
     ("face_wflux (K=1)", "face_wflux", "p0"),
     ("basis_accum (R=5, K=1)", "basis_accum", "p0"),
     ("basis_accum (R=16, K=1)", "basis_accum", "mm_p0"),
@@ -345,8 +346,8 @@ EULER = ("p0", "p1_lf")
 MM_SMALL = (8, 3, 2)            # float64 card-vs-CPU and kernel meshes
 #: launches per step of each path; every other kernel must launch 0 times
 PATHS = {
-    "p1": {"limit_vol": 3, "face_flux": 3, "face_to_elem": 3},
-    "pdg": {"nbr_bounds": 3, "face_flux": 3, "face_to_elem": 3},
+    "p1": {"limit_vol": 3, "face_wflux": 3, "basis_accum": 3},
+    "pdg": {"nbr_bounds": 3, "face_wflux": 3, "basis_accum": 3},
     "hump": {"face_gather": 8, "face_accum": 3},
     "alecg": {"alecg_vol": 3, "alecg_edge": 3, "cg_assemble": 3},
     "alecg_cf": {"alecg_vol_cf": 3, "alecg_edge_cf": 3, "cg_assemble": 3},
@@ -362,23 +363,21 @@ PATHS = {
                  "basis_accum": 3},
 }
 #: the path whose launches the kernels line reports for each kernel
-MAIN_PATH = {"limit_vol": "p1", "face_flux": "p1", "face_to_elem": "p1",
-             "nbr_bounds": "pdg", "face_gather": "hump",
-             "face_accum": "hump", "alecg_vol": "alecg",
+MAIN_PATH = {"limit_vol": "p1", "nbr_bounds": "pdg",
+             "face_gather": "hump", "face_accum": "hump", "alecg_vol": "alecg",
              "alecg_edge": "alecg", "cg_assemble": "alecg",
              "alecg_vol_cf": "alecg_cf", "alecg_edge_cf": "alecg_cf",
              "node_gather": "diagcg", "node_assemble": "diagcg",
-             "face_wflux": "p2", "basis_accum": "p2",
+             "face_wflux": "p1", "basis_accum": "p1",
              "mm_face_wflux": "mm_p0", "face_wflux_lf": "p1_lf",
              "mm_face_wflux_thinc": "mm_thinc"}
 #: floating-point operations a kernel does per entity (element, face,
 #: edge or node; per row where it says so), counted from its source and
 #: rounded up.  Every kernel here is bound by bytes by a wide margin.
-OPS = {"limit_vol": 2000, "face_flux": 1000, "face_to_elem": 100,
-       "nbr_bounds_row": 8, "face_gather": 0, "face_accum_row": 4,
-       "alecg_vol_row": 40, "alecg_vol_cf": 400, "alecg_edge_row": 3,
-       "alecg_edge_cf": 70, "cg_assemble_slot": 1, "node_gather": 0,
-       "node_assemble_slot": 1,
+OPS = {"limit_vol": 2000, "nbr_bounds_row": 8, "face_gather": 0,
+       "face_accum_row": 4, "alecg_vol_row": 40, "alecg_vol_cf": 400,
+       "alecg_edge_row": 3, "alecg_edge_cf": 70, "cg_assemble_slot": 1,
+       "node_gather": 0, "node_assemble_slot": 1,
        # K12 per face and K13 per element at K modes (K13 also by its
        # rows R); K14 per face by (nmat, K)
        "face_wflux": {1: 300, 4: 1000, 10: 3500},
@@ -616,12 +615,10 @@ def spread(t):
 
 
 def kernel_checks(torch, geom, system, U, dtype_name, timed):
-    """Each kernel against its plain version on the same inputs; returns
-    {name: (max_abs_err, ms, plain_ms)} (times only when timed)."""
+    """K1 on the Sedov state U, then K12 + K13 on its limited state and
+    volume term (p1's face pass), each against its plain version bit for
+    bit; returns {name: record} (times only when timed)."""
     from quinoa_tpu_torch import kernels
-    from quinoa_tpu_torch.ops.face_fused import (face_flux_plain,
-                                                 face_to_elem_plain,
-                                                 fused_face_pass_nearfar)
     from quinoa_tpu_torch.ops.nbr_bounds import limit_vol_plain
 
     g = geom
@@ -634,45 +631,12 @@ def kernel_checks(torch, geom, system, U, dtype_name, timed):
     def p1():
         return limit_vol_plain(system, g, U)
 
-    ulim, rv = p1()
-
-    def k2():
-        return kernels.face_flux(ulim, g.el, g.er, g.fn, g.farea, g.fmask,
-                                 g.xi_l, g.xi_r, g.bctype, g.ktab,
-                                 system.eos)
-
-    def p2():
-        return face_flux_plain(system, g, ulim)
-
-    cL, cR, mx = p2()
-
-    def k3():
-        return kernels.face_to_elem(cL, cR, mx, g.fose, g.fsideR, rv)
-
-    def p3():
-        return face_to_elem_plain(g, cL, cR, mx, rv)
-
-    E, F = g.nelem, g.nface
-    cases = (
-        ("limit_vol", k1, p1, (U, g.esuelT, g.jacInv, vole, g.ktab),
-         OPS["limit_vol"] * E),
-        ("face_flux", k2, p2, (ulim, g.el, g.er, g.fn, g.farea, g.fmask,
-                               g.xi_l, g.xi_r, g.bctype, g.ktab),
-         OPS["face_flux"] * F),
-        ("face_to_elem", k3, p3, (cL, cR, mx, g.fose, g.fsideR, rv),
-         OPS["face_to_elem"] * E),
-    )
-    # K1 and K3 bit for bit: the same expressions in the same order
-    out = {name: measure(torch, name, f"E={E} F={F}", kf, pf, inputs, ops,
-                         dtype_name, timed,
-                         bitwise=name in ("limit_vol", "face_to_elem"))
-           for name, kf, pf, inputs, ops in cases}
-    # K2 + K3 together, as the step calls them
-    got = fused_face_pass_nearfar(system, g, ulim, vol_rhs=rv)
-    want = face_to_elem_plain(g, *face_flux_plain(system, g, ulim), rv)
-    err = compare("face pass K2+K3", got, want, dtype_name)
-    phase("kernels", f"K2+K3 {dtype_name}: max|kernel-plain|={err:.3e} "
-          f"(tol {TOL[dtype_name]:g} * max|plain|)")
+    out = {"limit_vol": measure(
+        torch, "limit_vol", f"E={g.nelem}", k1, p1,
+        (U, g.esuelT, g.jacInv, vole, g.ktab), OPS["limit_vol"] * g.nelem,
+        dtype_name, timed, bitwise=True)}
+    out.update(single_stream_checks(torch, g, system, *p1(), dtype_name,
+                                    timed))
     return out
 
 
@@ -693,9 +657,9 @@ def p2_geom(n, dtype, device):
 
 def single_stream_checks(torch, geom, system, U, rv, dtype_name, timed):
     """K12 (the flavour of system.riemann_flux) and K13 against their plain
-    versions on the state U (C*K, E) of geom (P0, P1 or P2) with the volume
-    term rv, then both as the step calls them; returns {name: record}
-    (times only when timed)."""
+    versions bit for bit on the state U (C*K, E) of geom (P0, P1 or P2)
+    with the volume term rv, then both as the step calls them; returns
+    {name: record} (times only when timed)."""
     from quinoa_tpu_torch import kernels
     from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
                                                  face_wflux_plain,
@@ -733,14 +697,16 @@ def single_stream_checks(torch, geom, system, U, rv, dtype_name, timed):
     )
     label = f"{system.riemann_flux} K={K} E={E} F={F}"
     out = {name: measure(torch, name, label, kf, pf, inputs, ops, dtype_name,
-                         timed)
+                         timed, bitwise=True)
            for name, kf, pf, inputs, ops in cases}
     got = fused_face_pass(system, g, U, vol_rhs=rv)
     want = basis_accum_plain(g, *face_wflux_plain(system, g, U), rv)
-    err = compare("face pass K12+K13", got, want, dtype_name)
-    phase("kernels", f"K12+K13 {label} {dtype_name}: max|kernel-plain|="
-          f"{err:.3e} (tol {TOL[dtype_name]:g} * max|plain|); no single "
-          "PyTorch call computes either kernel's function")
+    if not bit_identical(got, want):
+        raise AssertionError(f"face pass K12+K13 {label} ({dtype_name}): "
+                             "not bit-identical to the plain versions")
+    phase("kernels", f"K12+K13 {label} {dtype_name}: bit-identical to the "
+          "plain versions; no single PyTorch call computes either kernel's "
+          "function")
     return out
 
 
@@ -926,33 +892,6 @@ def nbr_bounds_check(torch, solver, dtype_name, timed):
                    lambda: neighbor_mean_bounds_plain(g, U[::K]),
                    (U[::K], g.esuelT), OPS["nbr_bounds_row"] * C * g.nelem,
                    dtype_name, timed)
-
-
-def single_stream_vs_nearfar(torch, geom, system, U):
-    """DG(P1): K12 + K13 against K2 + K3 on the limited Sedov state and
-    its volume term: max|difference| of the rhs and of delt, and the
-    device time of each pair (device_ms, in turns)."""
-    from quinoa_tpu_torch.ops.face_fused import (fused_face_pass,
-                                                 fused_face_pass_nearfar)
-    from quinoa_tpu_torch.ops.nbr_bounds import limit_vol_plain
-
-    ulim, rv = limit_vol_plain(system, geom, U)
-
-    def single():
-        return fused_face_pass(system, geom, ulim, vol_rhs=rv)
-
-    def nearfar():
-        return fused_face_pass_nearfar(system, geom, ulim, vol_rhs=rv)
-
-    diff = [float((a - b).abs().max()) for a, b in zip(single(), nearfar())]
-    nf, ss = device_ms(torch, [nearfar, single])
-    phase("kernels", f"P1 E={geom.nelem} F={geom.nface}: K12+K13 vs K2+K3 "
-          f"max|dr|={diff[0]:.3e} max|ddelt|={diff[1]:.3e}; K12+K13 "
-          f"{spread(ss)}, K2+K3 {spread(nf)} (device, {REPS} in turns, "
-          "cold L2)")
-    if not all(d <= TOL["float32"] * float(w.abs().max())
-               for d, w in zip(diff, nearfar())):
-        raise AssertionError("K12+K13 and K2+K3 disagree at P1")
 
 
 def face_gp_kernel_checks(torch, geom, U, C, fgeom, Uf, cL, cR, base,
@@ -1518,6 +1457,8 @@ def main():
     U = torch.as_tensor(perturbed_state(big.nelem, 7)).to(torch.float32
                                                           ).to(dev)
     stats = kernel_checks(torch, big, system, U, "float32", timed=True)
+    stats["face_wflux (K=4)"] = stats["face_wflux"]
+    stats["basis_accum (R=5, K=4)"] = stats["basis_accum"]
     hump_solver = DGSolver(transport, hump, cfl=0.8)
     Uh = hump_solver.initial_state().u
     stats.update(face_gp_kernel_checks(torch, big, U, 5, hump, Uh,
@@ -1531,19 +1472,17 @@ def main():
     face_gp_kernel_checks(torch, small, U64, 5, hump_small, Uh64,
                           *hump_face_rows(torch, hump_small, Uh64),
                           "float64", timed=False)
-    single_stream_vs_nearfar(torch, big, system, U)
-    single_stream_checks(torch, small, system, U64,
-                         volume_rhs(system, small, U64), "float64",
-                         timed=False)
     t0 = time.perf_counter()
     p2 = p2_geom((N_P2,) * 3, torch.float32, dev)
     phase("kernels", f"32^3 P2 geometry (TaylorGreen): E={p2.nelem} "
           f"F={p2.nface}, {time.perf_counter() - t0:.1f} s on the host")
     p2_solver = DGSolver(taylor, p2, cfl=0.5, limiter=None)
     U2 = p2_solver.initial_state().u
-    stats.update(single_stream_checks(torch, p2, taylor, U2,
-                                      volume_rhs(taylor, p2, U2), "float32",
-                                      timed=True))
+    rec = single_stream_checks(torch, p2, taylor, U2,
+                               volume_rhs(taylor, p2, U2), "float32",
+                               timed=True)
+    stats["face_wflux (K=10)"] = rec["face_wflux"]
+    stats["basis_accum (R=5, K=10)"] = rec["basis_accum"]
     p2_small = p2_geom(P2_SMALL, torch.float64, dev)
     U2s = DGSolver(taylor, p2_small).initial_state().u
     single_stream_checks(torch, p2_small, taylor, U2s,
@@ -1766,7 +1705,7 @@ def main():
     rows = [(name, name, MAIN_PATH[name]) for name in KERNELS]
     print(json.dumps({"kernels": [
         {"name": entry, "route": "cuda", "source": KERNELS[counter][0],
-         "replaces": (path in MM and NEARFAR.get(counter)
+         "replaces": (path != "p2" and NEARFAR.get(counter)
                       or KERNELS[counter][1]),
          "launches": counts[path][counter],
          **{k: stats[entry][k] for k in keys}}

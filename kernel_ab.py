@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""A/B device times of the kernels K1 limit_vol, K3 face_to_elem, K13
+"""A/B device times of the kernels K1 limit_vol, K12 face_wflux, K13
 basis_accum and K14 mm_face_wflux on one NVIDIA GPU:
 
-    python3 kernel_ab.py [--kernels K,...] [--paths [P,...]] [--sass]
-                         NAME=DIR [NAME=DIR ...]
+    python3 kernel_ab.py [--kernels [K,...]] [--paths [P,...]] [--sass]
+                         [NAME=DIR ...]
 
 Each DIR holds a version of the sources in SOURCES beside the common.cuh
 they include (for example another commit's quinoa_tpu_torch/csrc, or an
@@ -14,49 +14,66 @@ with the ptxas report of registers and spills printed), and the version
 called NAME takes those kernels from them and everything else from this
 checkout's library ("this", whose own report is printed first).
 
---kernels picks the kernels (default: all of SOURCES).  At every instance
-of them on the port's paths, float32 at 48^3 (P2 at 32^3) on the states
-chip_smoke.py checks them on: K1 on p1's perturbed and initial Sedov
-states (whose smooth regions take no Superbee branch) and on p1_lf's
-perturbed Sod state, K3 on p1's limited state and on the face-pass
-input of pdg's first stage, K14 at nmat 2/3, P0/P1, with and without
-THINC, K13 at its seven (R, K) shapes; each version's kernel is held
-against the plain version bit for bit (NaN where the plain version has
-NaN), then all versions are timed in turns with chip_smoke.device_ms
-(device time of the kernel alone, each call from a cold L2; median
-[min-max] of REPS), beside the bound (chip_smoke's rule).  --paths runs
-the named paths (all of PATHS without a list) 1 + 10 steps with each
-version in turns (first to last, then back), with their launch counts
-checked; p1, pdg and p1_lf then run 5 steps under torch.profiler
-(chip_smoke.profile_path: launches, device busy and idle a step), mm_p1
-and mm_thinc print their stage breakdown (chip_smoke.mm_breakdown).  With
---sass, each version's float32 instances of the chosen kernels first
-print their global loads and the median distance from a load to its first
-use (cuobjdump).  Needs nvcc."""
+--kernels picks the kernels (default: all of SOURCES; an empty list:
+none).  At every instance of them on the port's paths, float32 at 48^3
+(P2 at 32^3) on the states chip_smoke.py checks them on: K1 on p1's
+perturbed and initial Sedov states (whose smooth regions take no
+Superbee branch) and on p1_lf's perturbed Sod state; K12 with HLLC at P0
+(p0's perturbed Sod state), at P1 on p1's limited Sedov state and on the
+face-pass input of pdg's first stage, at P2 (p2's TaylorGreen state),
+with Lax-Friedrichs at P1 (p1_lf's limited state) and, for its bits
+only, at P2; K14 at nmat 2/3, P0/P1, with and without THINC; K13 at its
+seven (R, K) shapes.  Each version's kernel is held against the plain
+version bit for bit (NaN where the plain version has NaN), then all
+versions are timed in turns with chip_smoke.device_ms (device time of
+the kernel alone, each call from a cold L2; median [min-max] of REPS),
+beside the bound (chip_smoke's rule).  --paths runs the named paths (all
+of PATHS without a list) 1 + 10 steps with each version in turns (first
+to last, then back; "this" twice when it is the only one), with their
+launch counts checked and a digest of the state they reach (runs that
+are bit-identical, in one checkout or two, print the same); the
+PROFILED paths then run 5 steps under
+torch.profiler (chip_smoke.profile_path: launches, device busy and idle
+a step, the largest kernels), mm_p1 and mm_thinc print their stage
+breakdown (chip_smoke.mm_breakdown).  With --sass, each version's float32
+instances of the chosen kernels first print their SASS size, global
+loads and the median distance from a load to its first use (cuobjdump).
+The routing between kernels is Python, so a change of it is compared by
+running this script with --kernels and no version from two checkouts in
+turns (another commit's chip_smoke.py and package beside a copy of this
+script).  Needs nvcc."""
 
 import argparse
 import ctypes
 import filecmp
+import hashlib
 import os
 import re
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("limit_vol", "face_to_elem", "basis_accum", "mm_face_wflux")
+SOURCES = ("limit_vol", "face_wflux", "basis_accum", "mm_face_wflux")
 PATHS = ("p1", "pdg", "p0", "mm_p0", "mm_p1", "p1_lf", "mm_thinc", "p2")
-PROFILED = ("p1", "pdg", "p1_lf")
+PROFILED = ("p1", "pdg", "p1_lf", "p0", "p2")
+
+
+def kernel_pattern(srcs):
+    """A regex of the mangled names of the kernels of the sources srcs
+    (a kernel's name starts with its source's: the length digit before
+    it keeps face_wflux from matching mm_face_wflux)."""
+    return re.compile(r"\d(" + "|".join(srcs) + r")_\w*kernelI")
 
 
 def ptxas_lines(log, srcs):
     """(kernel, report line) of the ptxas report log for the kernels of
     the sources srcs: registers, shared memory and spills."""
-    entry = ""
+    entry, pattern = "", kernel_pattern(srcs)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1].split("EEv")[0] + "EE"
         elif (("registers" in line or "spill" in line)
-              and any(s in entry for s in srcs)):
+              and pattern.search(entry)):
             yield entry, line.strip()
 
 
@@ -123,11 +140,11 @@ def load_to_use(kernels, so, srcs):
     tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", so], capture_output=True,
                           text=True, check=True).stdout
-    pattern = "(" + "|".join(srcs) + r")\w*_kernelIf"
+    pattern = kernel_pattern(srcs)
     out = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name = part.split("\n", 1)[0].strip()
-        if not re.search(pattern, name):
+        if not (pattern.search(name) and "kernelIf" in name):
             continue
         ins = re.findall(r"/\*[0-9a-f]{4}\*/\s+(.*?);", part)
         dist = []
@@ -147,7 +164,7 @@ def load_to_use(kernels, so, srcs):
 
 def pdg_face_inputs(solver):
     """The state and volume term pdg's first step hands its first stage's
-    face pass (K2 + K3): the p-adaptive Superbee limit of the initial
+    face pass (K12 + K13): the p-adaptive Superbee limit of the initial
     state, masked by its dofs."""
     seen = []
     face_pass = solver.p1_face_pass
@@ -170,9 +187,11 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: torch.cuda.is_available() is false")
     ap = argparse.ArgumentParser()
-    ap.add_argument("versions", nargs="+", help="NAME=DIR")
-    ap.add_argument("--kernels", default=",".join(SOURCES),
-                    help="comma-separated sources of SOURCES")
+    ap.add_argument("versions", nargs="*", help="NAME=DIR")
+    ap.add_argument("--kernels", nargs="?", const="",
+                    default=",".join(SOURCES),
+                    help="comma-separated sources of SOURCES (none without "
+                    "a list)")
     ap.add_argument("--paths", nargs="?", const=",".join(PATHS), default="",
                     help="comma-separated paths of PATHS (all without a "
                     "list)")
@@ -180,7 +199,7 @@ def main():
                     help="print each version's SASS size and load-to-use "
                     "distances")
     args = ap.parse_args()
-    srcs = tuple(args.kernels.split(","))
+    srcs = tuple(s for s in args.kernels.split(",") if s)
     paths = tuple(p for p in args.paths.split(",") if p)
     for s in srcs:
         if s not in SOURCES:
@@ -193,8 +212,6 @@ def main():
     from quinoa_tpu_torch import kernels
     from quinoa_tpu_torch.inciter.dg import DGSolver
     from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
-                                                 face_flux_plain,
-                                                 face_to_elem_plain,
                                                  face_wflux_plain,
                                                  mm_face_wflux_plain)
     from quinoa_tpu_torch.ops.nbr_bounds import limit_vol_plain
@@ -263,13 +280,19 @@ def main():
                 solvers[name] = cs.mm_solver(name, geom(name))
         return solvers[name]
 
-    def timed(label, kf, pf, inputs, ops):
+    def timed(label, kf, pf, inputs, ops, bits_only=False):
         want = pf()
         for n in names:
             use(n)
             if not cs.bit_identical(kf(), want):
                 raise AssertionError(f"{label}: {n}'s kernel differs from "
                                      "the plain version")
+        if bits_only:
+            use("this")
+            nans = sum(int(w.isnan().sum()) for w in want)
+            cs.phase("ab", f"{label}: every version bit-identical to the "
+                     f"plain version ({nans} NaN matched); not timed")
+            return want
         got = kf()
         b = cs.nbytes(*inputs, *got)
         bound = max(1e3 * b / cs.HBM_BYTES_PER_S, 1e3 * ops / cs.F32_OPS_PER_S)
@@ -285,7 +308,7 @@ def main():
 
     # K1 on p1's perturbed and initial Sedov states and on p1_lf's state
     U1 = None
-    if "limit_vol" in srcs or "face_to_elem" in srcs:
+    if "limit_vol" in srcs or "face_wflux" in srcs:
         U1 = torch.as_tensor(cs.perturbed_state(geom("p1").nelem, 7)).to(
             f32).to(dev)
     if "limit_vol" in srcs:
@@ -303,18 +326,35 @@ def main():
                   (U, g.esuelT, g.jacInv, vole, g.ktab),
                   cs.OPS["limit_vol"] * g.nelem)
 
-    # K3 on p1's limited state and on pdg's first face pass
-    if "face_to_elem" in srcs:
-        g = geom("p1")
-        for label, (uf, rv) in (("p1", limit_vol_plain(sedov, g, U1)),
-                                ("pdg", pdg_face_inputs(solver("pdg")))):
-            cL, cR, mx = face_flux_plain(sedov, g, uf)
-            timed(f"K3 {label} E={g.nelem} F={g.nface}",
-                  lambda: kernels.face_to_elem(cL, cR, mx, g.fose, g.fsideR,
-                                               rv),
-                  lambda: face_to_elem_plain(g, cL, cR, mx, rv),
-                  (cL, cR, mx, g.fose, g.fsideR, rv),
-                  cs.OPS["face_to_elem"] * g.nelem)
+    # K12 at each of its instances on the paths, Lax-Friedrichs at P2 for
+    # its bits only
+    if "face_wflux" in srcs:
+        p0, lf, p2 = solver("p0"), solver("p1_lf"), solver("p2")
+        g1 = geom("p1")
+        Up0 = torch.as_tensor(cs.perturbed_state(p0.geom.nelem, 23,
+                                                 K=1)).to(f32).to(dev)
+        ulf, _ = limit_vol_plain(lf.system, lf.geom,
+                                 cs.sod_perturbed(torch, lf))
+        U2 = p2.initial_state().u
+        taylor_lf = DGCompFlow(TaylorGreen(), riemann_flux="laxfriedrichs")
+        cases = (("HLLC P0 p0", p0.system, p0.geom, Up0, False),
+                 ("HLLC P1 p1", sedov, g1, limit_vol_plain(sedov, g1, U1)[0],
+                  False),
+                 ("HLLC P1 pdg", sedov, g1,
+                  pdg_face_inputs(solver("pdg"))[0], False),
+                 ("LF P1 p1_lf", lf.system, lf.geom, ulf, False),
+                 ("HLLC P2 p2", taylor, p2.geom, U2, False),
+                 ("LF P2", taylor_lf, p2.geom, U2, True))
+        for label, sy, g, U, bits_only in cases:
+            xi = (g.xi_l, g.xi_r) if g.ndof > 1 else ()
+            timed(f"K12 {label} E={g.nelem} F={g.nface}",
+                  lambda: kernels.face_wflux(
+                      U, g.el, g.er, g.fn, g.farea, g.fmask, g.xi_l, g.xi_r,
+                      g.bctype, g.w_face, sy.eos, sy.riemann_flux),
+                  lambda: face_wflux_plain(sy, g, U),
+                  (U, g.el, g.er, g.fn, g.farea, g.fmask, *xi, g.bctype,
+                   g.w_face), cs.OPS["face_wflux"][g.ndof] * g.nface,
+                  bits_only)
 
     if "mm_face_wflux" in srcs or "basis_accum" in srcs:
         # K14 (and the K13 instances after it) on chip_smoke's multimat
@@ -390,10 +430,13 @@ def main():
 
     for path in paths:
         s = solver(path)
-        for n in names + names[::-1]:
+        for n in names + names[::-1] if len(names) > 1 else names * 2:
             use(n)
             print(f"[ab] {path} with {n}:", flush=True)
             state, _, wall = cs.drive(torch, s, path, card)
+            digest = hashlib.sha1(state.u.cpu().numpy().tobytes())
+            cs.phase(path, f"state after {cs.NSTEPS + 1} steps: sha1 "
+                     f"{digest.hexdigest()[:16]}, t={float(state.t)!r}")
             if path in PROFILED:
                 cs.profile_path(torch, s, path, state, wall / cs.NSTEPS)
             if path in ("mm_p1", "mm_thinc"):

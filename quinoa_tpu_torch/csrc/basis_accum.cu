@@ -8,9 +8,10 @@
 // quinoa_tpu/ops/face_fused.py _make_basis_accum_kernel (basis_accum_pass:
 // the er-sorted weighted flux contracted with B_r and accumulated at the
 // right element) and the left-side accumulation of _make_fused_kernel,
-// and, for the multimat facade, the accumulation of the near/far kernels
-// B2-B5 (_make_nearfar_kernel, _make_far_raccum_kernel).  Plain version:
-// ops/face_fused.py basis_accum_plain.
+// and the accumulation of the near/far kernels B2-B5
+// (_make_nearfar_kernel, _make_far_raccum_kernel), which the JAX package
+// runs for DG(P1) Euler with HLLC and for the multimat facade.  Plain
+// version: ops/face_fused.py basis_accum_plain.
 //
 // For slot i < 4 of element e, with f = fose[i, e]:
 //   right = fsideR[i, e] > 0: the element is the face's right side;
@@ -20,8 +21,6 @@
 //   acc   = right ? acc + s : acc - s      (acc starts from rv, or 0);
 //   delt  = sum_i mx[f]                    (the dt sweep's charvel sum);
 // summed in slot order, so float32 runs repeat bit for bit (no atomics).
-// At K = 4 this is the same arithmetic as K2 + K3 (contribL = -s at el,
-// contribR = +s at er), so both forms give the same bits.
 //
 // Bound on the card: device-memory bytes.  At (R, K) = (22, 4) an element
 // reads 4 face ids and side flags, 4 x 66 weighted-flux words (each face

@@ -11,8 +11,7 @@
 //
 // summed in slot order from the base (zero when base is null), so float32
 // runs repeat bit for bit (no atomics) and the kernel agrees with its plain
-// version bit for bit.  K3 (face_to_elem.cu) is the same sum at the fixed
-// 20 rows of compressible Euler, with the dt sweep's charvel beside it.
+// version bit for bit.
 //
 // Bound on the card: device-memory bytes.  An element reads 4 face ids,
 // 4 side flags, R base words and 4R gathered face words and writes R.

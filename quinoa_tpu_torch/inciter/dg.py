@@ -17,8 +17,8 @@ on a TPU:
   then superbee_p1 in torch;
 - a system and faces that need no face coordinates (Euler on symmetry,
   extrapolate, outlet faces): the fused face pass on the state masked by
-  the dofmask, whose charvel gives the stage-0 dt: K2 + K3 with HLLC,
-  the single-stream K12 + K13 with Lax-Friedrichs (K2 has HLLC only);
+  the dofmask, whose charvel gives the stage-0 dt: K12 + K13 (HLLC or
+  Lax-Friedrichs), with the volume term of K1 or of torch beneath it;
 - otherwise the face Gauss-point path of dg_rhs (gathers K5, accumulation
   K6) and, at stage 0, the dg_dt face sweep;
 - DG(P2) and DG(P0) (compressible Euler, no limiter, faces that need no
@@ -76,8 +76,7 @@ class DGSolver:
     raises NotImplementedError: the WENO limiter, rDG (evolve_ndof), a P2
     limiter, p-adaptive P0 or P2, P2 on the face Gauss-point path, source
     terms at P1 and a compressible Euler flux other than HLLC and
-    Lax-Friedrichs on the fused face passes (Lax-Friedrichs takes the
-    single-stream pass K12 + K13 at every order, HLLC K2 + K3 at P1).  A
+    Lax-Friedrichs on the fused face pass (K12 + K13 at every order).  A
     limiter below P1 raises ValueError, as in the JAX package.
     """
 

@@ -39,8 +39,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: layout of the packed constant table (csrc/common.cuh TAB_*)
 TAB_BSELF, TAB_BVOL, TAB_WDB, TAB_WFACE, TAB_SIZE = 0, 48, 68, 128, 131
-#: DG(P1) compressible Euler, the shapes of K1-K3: components, modes,
-#: face points.  K4-K6 and the transport flavours of K7-K8 take their row
+#: DG(P1) compressible Euler, the shapes of K1: components, modes, face
+#: points.  K4-K6 and the transport flavours of K7-K8 take their row
 #: counts as arguments; K9 takes up to MAX_ROWS.
 C, K, G = 5, 4, 3
 #: the (mode, direction) entries of w_vol*dBdxi_vol that are not zero for
@@ -66,12 +66,12 @@ THINC_ROWS = 8
 FLUXES = {"hllc": (0, "face_wflux"), "laxfriedrichs": (1, "face_wflux_lf")}
 
 #: kernel launches since the last reset_launches()
-launches = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0,
-            "nbr_bounds": 0, "face_gather": 0, "face_accum": 0,
-            "alecg_vol": 0, "alecg_vol_cf": 0, "alecg_edge": 0,
-            "alecg_edge_cf": 0, "cg_assemble": 0, "node_gather": 0,
-            "node_assemble": 0, "face_wflux": 0, "face_wflux_lf": 0,
-            "basis_accum": 0, "mm_face_wflux": 0, "mm_face_wflux_thinc": 0}
+launches = {"limit_vol": 0, "nbr_bounds": 0, "face_gather": 0,
+            "face_accum": 0, "alecg_vol": 0, "alecg_vol_cf": 0,
+            "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0,
+            "node_gather": 0, "node_assemble": 0, "face_wflux": 0,
+            "face_wflux_lf": 0, "basis_accum": 0, "mm_face_wflux": 0,
+            "mm_face_wflux_thinc": 0}
 
 _lib = None
 
@@ -176,12 +176,6 @@ def build() -> ctypes.CDLL:
     for sfx in ("f32", "f64"):
         fn = getattr(lib, f"qtk_limit_vol_{sfx}")
         fn.argtypes = [P, P, P, P, P, D, D, D, P, P, L, P]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, f"qtk_face_flux_{sfx}")
-        fn.argtypes = [P] * 10 + [D, D, P, P, P, L, L, P]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, f"qtk_face_to_elem_{sfx}")
-        fn.argtypes = [P] * 8 + [L, L, P]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"qtk_nbr_bounds_{sfx}")
         fn.argtypes = [P] * 4 + [I, I, L, P]
@@ -289,56 +283,6 @@ def limit_vol(U, esuelT, jacInv, vole, ktab, beta, eos):
              float(beta), float(eos.gamma), float(eos.pstiff), _ptr(ulim),
              _ptr(rv), E], dev)
     return ulim, rv
-
-
-def face_flux(U, el, er, fn, farea, fmask, xi_l, xi_r, bctype, ktab, eos):
-    """K2 (csrc/face_flux.cu): (contribL, contribR, mx): (C*K, F) x 2,
-    (F,)."""
-    dev = _cuda_device(U)
-    dt = U.dtype
-    E, F = U.shape[1], el.shape[0]
-    _check("U", U, (C * K, E), dt, dev)
-    for name, t in (("el", el), ("er", er), ("bctype", bctype)):
-        _check(name, t, (F,), torch.int32, dev)
-    _check("fn", fn, (3, F), dt, dev)
-    _check("farea", farea, (F,), dt, dev)
-    _check("fmask", fmask, (F,), dt, dev)
-    _check("xi_l", xi_l, (3, G, F), dt, dev)
-    _check("xi_r", xi_r, (3, G, F), dt, dev)
-    _check("ktab", ktab, (TAB_SIZE,), dt, dev)
-    lib_fn = getattr(build(), f"qtk_face_flux_{_suffix(dt)}")
-    cL = torch.empty((C * K, F), dtype=dt, device=dev)
-    cR = torch.empty((C * K, F), dtype=dt, device=dev)
-    mx = torch.empty((F,), dtype=dt, device=dev)
-    _launch("face_flux", lib_fn,
-            [_ptr(U), _ptr(el), _ptr(er), _ptr(fn), _ptr(farea), _ptr(fmask),
-             _ptr(xi_l), _ptr(xi_r), _ptr(bctype), _ptr(ktab),
-             float(eos.gamma), float(eos.pstiff), _ptr(cL), _ptr(cR),
-             _ptr(mx), E, F], dev)
-    return cL, cR, mx
-
-
-def face_to_elem(cL, cR, mx, fose, fsideR, rv=None):
-    """K3 (csrc/face_to_elem.cu): (r (C*K, E), delt (E,)); r starts from
-    rv when given, from zero otherwise."""
-    dev = _cuda_device(cL)
-    dt = cL.dtype
-    F, E = cL.shape[1], fose.shape[1]
-    _check("contribL", cL, (C * K, F), dt, dev)
-    _check("contribR", cR, (C * K, F), dt, dev)
-    _check("mx", mx, (F,), dt, dev)
-    _check("fose", fose, (4, E), torch.int32, dev)
-    _check("fsideR", fsideR, (4, E), dt, dev)
-    if rv is not None:
-        _check("rv", rv, (C * K, E), dt, dev)
-    lib_fn = getattr(build(), f"qtk_face_to_elem_{_suffix(dt)}")
-    r = torch.empty((C * K, E), dtype=dt, device=dev)
-    delt = torch.empty((E,), dtype=dt, device=dev)
-    _launch("face_to_elem", lib_fn,
-            [_ptr(cL), _ptr(cR), _ptr(mx), _ptr(fose), _ptr(fsideR),
-             ctypes.c_void_p(0 if rv is None else rv.data_ptr()), _ptr(r),
-             _ptr(delt), E, F], dev)
-    return r, delt
 
 
 def nbr_bounds(U, esuelT, ncomp, ndof):

@@ -3,20 +3,16 @@
 Port of quinoa_tpu/ops/face_fused.py's two face passes.  The TPU versions
 split faces into near/far streams or el- and er-sorted tile passes and
 accumulate through one-hot window matmuls because a TPU core cannot gather
-or scatter in HBM.  Here each pass is two kernels, a thread per face and
-a thread per element:
+or scatter in HBM.  Here each pass is two kernels, one over faces and one
+over elements:
 
-- fused_face_pass_nearfar (DG(P1)): K2 face_flux (csrc/face_flux.cu), the
-  contracted per-face contributions contribL/contribR (C*K, F) and the
-  weighted charvel mx (F,); K3 face_to_elem (csrc/face_to_elem.cu), the
-  sum of an element's four faces through fose/fsideR plus the volume term;
-- fused_face_pass (DG(P0), DG(P1) and DG(P2), the single-stream pass):
-  K12 face_wflux (csrc/face_wflux.cu), the weighted flux (C*G, F) and mx,
-  with HLLC or Lax-Friedrichs (K2 has HLLC only, so a Lax-Friedrichs
-  system takes this pass at P1 too);
-  K13 basis_accum (csrc/basis_accum.cu), each element contracting its
-  faces' weighted flux with its own basis and summing them.  At P2 the
-  weighted flux is 30 rows a face against K2's 100;
+- fused_face_pass (compressible Euler at DG(P0), DG(P1) and DG(P2), HLLC
+  or Lax-Friedrichs; what the JAX package runs as the near/far pass
+  fused_face_pass_nearfar or the single-stream fused_face_pass):
+  K12 face_wflux (csrc/face_wflux.cu), the weighted flux (C*G, F) and the
+  weighted charvel mx (F,); K13 basis_accum (csrc/basis_accum.cu), each
+  element contracting its faces' weighted flux with its own basis and
+  summing them on top of the volume term;
 - mm_face_pass (multimat DG(P0) and DG(P1)): K14 mm_face_wflux
   (csrc/mm_face_wflux.cu), the multimat flavour of K12 (AUSM+up and the
   riemannDeriv rows, R = 3*nmat + 3 + 3*nmat + 1 a face point; at P1
@@ -34,13 +30,11 @@ import torch
 from .. import kernels
 from ..pde.dg import BC_INTERIOR, require_fused_physics, uview
 from .basis import eval_basis_cm
-from .face_accum import accumulate_faces_plain
 
 
 def _face_points(system, geom, U):
-    """Per face point g, in point order: (g, B_l (K, F), B_r (K, F), the
-    HLLC flux fl (C, F), the weight wt = w_g * area * fmask (F,), the
-    weighted charvel (F,)), the arithmetic K2 and K12 share."""
+    """Per face point g, in point order: (g, the Riemann flux fl (C, F),
+    the weight wt = w_g * area * fmask (F,), the weighted charvel (F,))."""
     C, K = system.ncomp, geom.ndof
     Uv = uview(U, C, K)
     UvL = Uv[:, :, geom.el.long()]                       # (C,K,F)
@@ -68,30 +62,7 @@ def _face_points(system, geom, U):
         vl = system.charvel(sL, fn)
         vr = system.charvel(sR, fn)
         m = wt * torch.where(interior, torch.maximum(vl, vr), vl)
-        yield g, B_l[:, g], B_r[:, g], fl, wt, m
-
-
-def face_flux_plain(system, geom, U):
-    """K2's plain version: (contribL, contribR, mx), summed over the G
-    face points in point order as the kernel does."""
-    C, K = system.ncomp, geom.ndof
-    cL = cR = mx = None
-    for g, Bl, Br, fl, wt, m in _face_points(system, geom, U):
-        wfl = fl * wt                                    # (C,F)
-        tl = Bl[None] * wfl[:, None]                     # (C,K,F)
-        tr = Br[None] * wfl[:, None]
-        if g == 0:
-            cL, cR, mx = tl, tr, m
-        else:
-            cL, cR, mx = cL + tl, cR + tr, mx + m
-    return -cL.reshape(C * K, -1), cR.reshape(C * K, -1), mx
-
-
-def face_to_elem_plain(geom, contribL, contribR, mx, rv=None):
-    """K3's plain version: each element gathers its four faces in slot
-    order (quinoa_tpu/pde/dg.py:446-449, :489); returns (r, delt)."""
-    return (accumulate_faces_plain(geom, contribL, contribR, rv),
-            delt_plain(geom, mx))
+        yield g, fl, wt, m
 
 
 def delt_plain(geom, mx):
@@ -109,7 +80,7 @@ def face_wflux_plain(system, geom, U):
     it (quinoa_tpu/ops/face_fused.py:181), and the weighted charvel summed
     in point order."""
     wfl, mx = [], None
-    for g, _, _, fl, wt, m in _face_points(system, geom, U):
+    for g, fl, wt, m in _face_points(system, geom, U):
         wfl.append(fl * wt)
         mx = m if g == 0 else mx + m
     return torch.stack(wfl, dim=1).reshape(-1, geom.nface), mx
@@ -141,25 +112,11 @@ def basis_accum_plain(geom, wfl, mx, rv=None):
     return acc, delt_plain(geom, mx)
 
 
-def fused_face_pass_nearfar(system, geom, U, vol_rhs=None):
-    """DG(P1): U (C*K, E) -> (acc (C*K, E), delt (E,)) through K2 + K3:
-    the accumulated surface integral (plus vol_rhs when given, so acc is
-    then the full rhs) and the per-element summed charvel of the dt
-    sweep."""
-    require_fused_physics(system, geom, face_pass=True)
-    if U.device.type == "cpu":
-        cL, cR, mx = face_flux_plain(system, geom, U)
-        return face_to_elem_plain(geom, cL, cR, mx, vol_rhs)
-    cL, cR, mx = kernels.face_flux(U, geom.el, geom.er, geom.fn, geom.farea,
-                                   geom.fmask, geom.xi_l, geom.xi_r,
-                                   geom.bctype, geom.ktab, system.eos)
-    return kernels.face_to_elem(cL, cR, mx, geom.fose, geom.fsideR, vol_rhs)
-
-
 def fused_face_pass(system, geom, U, vol_rhs=None):
-    """The single-stream face pass, DG(P0), DG(P1) or DG(P2): U (C*K, E)
-    -> (acc (C*K, E), delt (E,)) through K12 + K13, as
-    fused_face_pass_nearfar returns them."""
+    """The compressible-Euler face pass, DG(P0), DG(P1) or DG(P2): U (C*K,
+    E) -> (acc (C*K, E), delt (E,)) through K12 + K13: the accumulated
+    surface integral (plus vol_rhs when given, so acc is then the full
+    rhs) and the per-element summed charvel of the dt sweep."""
     require_fused_physics(system, geom, face_pass=True, ndofs=(1, 4, 10),
                           fluxes=tuple(kernels.FLUXES))
     if U.device.type == "cpu":
@@ -174,13 +131,8 @@ def fused_face_pass(system, geom, U, vol_rhs=None):
 
 
 def face_pass_for(system, ndof):
-    """The fused face pass a compressible-Euler system takes at ndof: K2 +
-    K3 (fused_face_pass_nearfar) at DG(P1) with HLLC, the single-stream K12
-    + K13 (fused_face_pass) otherwise: DG(P0), DG(P2), and Lax-Friedrichs
-    at every order, since K2 has HLLC only.  At P1 the two passes agree
-    bit for bit on HLLC."""
-    if ndof == 4 and getattr(system, "riemann_flux", "hllc") == "hllc":
-        return fused_face_pass_nearfar
+    """The fused face pass a compressible-Euler system takes at ndof:
+    K12 + K13 (fused_face_pass) at every order, with either flux."""
     return fused_face_pass
 
 

@@ -2,8 +2,9 @@
 
 Port of quinoa_tpu/ops/riemann.py (reference src/PDE/Integrate/Riemann/
 {HLLC,LaxFriedrichs,Upwind}.hpp).  States are (C, ...), normals (3, ...).  The
-face kernel (csrc/face_flux.cu) evaluates hllc in the same operation
-order, so the two agree to rounding on the card.
+face kernel (csrc/face_wflux.cu, csrc/common.cuh) evaluates hllc and
+lax_friedrichs in the same operation order, so the two agree bit for bit
+on the card.
 """
 
 from __future__ import annotations

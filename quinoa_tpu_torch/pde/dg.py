@@ -347,8 +347,8 @@ def require_slice(system, geom: DGGeom):
     that need face coordinates); source terms at P1 (its volume integral
     is the limit + volume kernel's, which has none); and on the fused face
     passes (compressible Euler on faces that need no coordinates) a flux
-    other than HLLC and Lax-Friedrichs (the latter takes the single-stream
-    pass at every order: ops/face_fused.py face_pass_for)."""
+    other than HLLC and Lax-Friedrichs (ops/face_fused.py
+    fused_face_pass)."""
     if geom.ndof not in (1, 4, 10):
         raise NotImplementedError(f"ndof={geom.ndof}: only DG(P0), DG(P1) "
                                   "and DG(P2) are ported")
@@ -373,8 +373,7 @@ def require_fused_physics(system, geom: DGGeom, face_pass: bool = False,
     with a coordinate-free flux at an ndof in ndofs: kernel K1 (the limit
     + volume pass, DG(P1) without a source); with face_pass the face
     passes on faces whose ghost needs no coordinates, with a Riemann flux
-    in fluxes: K2 + K3 implement HLLC, K12 + K13 (P0, P1 and P2) HLLC and
-    Lax-Friedrichs."""
+    in fluxes (K12 + K13 implement HLLC and Lax-Friedrichs)."""
     if geom.ndof not in ndofs:
         raise NotImplementedError(f"ndof={geom.ndof}: the fused kernels "
                                   f"here take ndof in {tuple(ndofs)}")
@@ -461,10 +460,9 @@ def dg_rhs(system, geom: DGGeom, U, dofmask=None, t=0.0, face_gp=False,
     The volume integral includes the system's source, if any (the
     XLA formulation, volume_rhs; without a source at P1 the sum order of
     the limit + volume kernel, volume_rhs_plain).  face_gp=False takes a
-    fused face pass (face_pass_for): at P1 with HLLC K2 + K3 on a card
-    (fused_face_pass_nearfar), at P0, at P2 and with Lax-Friedrichs K12 +
-    K13 (fused_face_pass); with want_charvel it
-    also returns delt (E,), the dt sweep's per-element summed charvel.
+    fused face pass (face_pass_for: K12 + K13 on a card at every order and
+    flux); with want_charvel it also returns delt (E,), the dt sweep's
+    per-element summed charvel.
     face_gp=True takes the face Gauss-point path (:396-453): face states
     through the gather (K5), ghosts and the flux at the face coordinates
     in torch, element sums through the accumulation (K6).  vol_rhs, when

@@ -20,10 +20,9 @@ class DGCompFlow:
     """Compressible Euler for cell-centered DG.
 
     riemann_flux: 'hllc' (default) or 'laxfriedrichs'.  On faces that
-    need no coordinates the single-stream face kernel K12 has both fluxes
-    (a Lax-Friedrichs system takes it at every order); the DG(P1) face
-    kernel K2 has HLLC only.  The face Gauss-point path (Dirichlet or
-    inlet faces) runs either flux in torch.
+    need no coordinates the face kernel K12 has both fluxes at every
+    order.  The face Gauss-point path (Dirichlet or inlet faces) runs
+    either flux in torch.
     """
 
     ncomp = 5

@@ -21,27 +21,22 @@ from quinoa_tpu_torch.ops.face_accum import (accumulate_faces,
                                              accumulate_faces_plain,
                                              face_gather, face_gather_plain)
 from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
-                                             face_flux_plain,
-                                             face_to_elem_plain,
                                              face_wflux_plain,
-                                             fused_face_pass,
-                                             fused_face_pass_nearfar)
+                                             fused_face_pass)
 from quinoa_tpu_torch.ops.nbr_bounds import (limit_vol_plain,
                                              neighbor_mean_bounds,
                                              neighbor_mean_bounds_plain,
                                              superbee_limit_window)
-from quinoa_tpu_torch.pde.dg import BC_DIRICHLET, BC_SYMMETRY, build_dggeom
+from quinoa_tpu_torch.pde.dg import (BC_DIRICHLET, BC_EXTRAPOLATE,
+                                     BC_SYMMETRY, build_dggeom)
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow, DGTransport
 from quinoa_tpu_torch.pde.problems import (GaussHump, SedovBlastwave,
                                            TaylorGreen)
 
 pytestmark = pytest.mark.cuda
 
-#: kernel and plain version share operation order and build without
-#: fused multiply-adds: they agree to a few ulp of the largest entry
-TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 #: every kernel's launch count at zero
-ZERO = {"limit_vol": 0, "face_flux": 0, "face_to_elem": 0, "nbr_bounds": 0,
+ZERO = {"limit_vol": 0, "nbr_bounds": 0,
         "face_gather": 0, "face_accum": 0, "alecg_vol": 0, "alecg_vol_cf": 0,
         "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0,
         "node_gather": 0, "node_assemble": 0, "face_wflux": 0,
@@ -66,7 +61,8 @@ def _geom(device, dtype, ndof=4, n=(6, 6, 4)):
 
 def _ragged(n):
     """n elements or faces leave a ragged last block for every tile and
-    lane group of K1, K3, K13 and K14 (32, 64 or 128 entries a block)."""
+    lane group of K1, K12, K13 and K14 (a multiple of 32 entries a
+    block)."""
     return n % 32 != 0
 
 
@@ -84,40 +80,32 @@ def _state(E, dtype, device):
     return torch.as_tensor(U).to(dtype).to(device)
 
 
-def _close(got, want, dtype):
-    for g, w in zip(got, want):
-        assert float((g - w).abs().max()) <= TOL[dtype] * float(
-            w.abs().max())
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernels_match_plain_versions(card, dtype):
-    """K1 and K3 bit for bit (K3 on the plain K2's rows), K2 + K3 as the
-    step calls them to TOL."""
+    """K1, then K12 + K13 as the DG(P1) step calls them (fused_face_pass on
+    K1's limited state and volume term), bit for bit."""
     system = DGCompFlow(SedovBlastwave())
     g = _geom(card, dtype)
     U = _state(g.nelem, dtype, card)
     kernels.reset_launches()
     ulim, rv = superbee_limit_window(g, U, system)
     assert _same((ulim, rv), limit_vol_plain(system, g, U))
-    cL, cR, mx = face_flux_plain(system, g, ulim)
-    assert _same(kernels.face_to_elem(cL, cR, mx, g.fose, g.fsideR, rv),
-                 face_to_elem_plain(g, cL, cR, mx, rv))
-    r, delt = fused_face_pass_nearfar(system, g, ulim, rv)
-    _close((r, delt), face_to_elem_plain(g, cL, cR, mx, rv), dtype)
+    assert _same(fused_face_pass(system, g, ulim, rv),
+                 basis_accum_plain(g, *face_wflux_plain(system, g, ulim), rv))
     torch.cuda.synchronize()
-    assert kernels.launches == {**ZERO, "limit_vol": 1, "face_flux": 1,
-                                "face_to_elem": 2}
+    assert kernels.launches == {**ZERO, "limit_vol": 1, "face_wflux": 1,
+                                "basis_accum": 1}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_limit_vol_and_face_to_elem_bit_for_bit(card, dtype):
-    """K1 and K3 against their plain versions bit for bit on a box whose
-    element count leaves every lane layout a ragged last block, with
-    boundary elements (esuelT = -1), an element whose volume points have
-    negative pressure and one without density or momentum (0/0: NaN in
-    its volume flux and its faces' fluxes, matched by position); K3 with
-    and without the volume term."""
+def test_limit_vol_and_basis_accum_bit_for_bit(card, dtype):
+    """K1 and K13 (on the plain K12's rows of K1's limited state) against
+    their plain versions bit for bit on a box whose element count leaves
+    every lane layout a ragged last block, with boundary elements (esuelT
+    = -1), an element whose volume points have negative pressure and one
+    without density or momentum (0/0: NaN in its volume flux and its
+    faces' fluxes, matched by position); K13 with and without the volume
+    term."""
     system = DGCompFlow(SedovBlastwave())
     g = _geom(card, dtype, 4, (6, 6, 3))
     assert _ragged(g.nelem) and bool((g.esuelT < 0).any())
@@ -133,13 +121,14 @@ def test_limit_vol_and_face_to_elem_bit_for_bit(card, dtype):
     assert float(system.eos.pressure_cons_cm(ulim.view(5, 4, -1)[:, 0,
                                                                  5])) < 0
     assert bool(rv.isnan().any()) and not bool(rv.isnan().all())
-    cL, cR, mx = face_flux_plain(system, g, ulim)
-    assert bool(cL.isnan().any()) and bool(cR.isnan().any())
+    wfl, mx = face_wflux_plain(system, g, ulim)
+    assert bool(wfl.isnan().any())
     for base in (None, rv):
-        assert _same(kernels.face_to_elem(cL, cR, mx, g.fose, g.fsideR, base),
-                     face_to_elem_plain(g, cL, cR, mx, base))
+        assert _same(kernels.basis_accum(wfl, mx, g.fose, g.fsideR, g.xi_l,
+                                         g.xi_r, 4, base),
+                     basis_accum_plain(g, wfl, mx, base))
     torch.cuda.synchronize()
-    assert kernels.launches == {**ZERO, "limit_vol": 1, "face_to_elem": 2}
+    assert kernels.launches == {**ZERO, "limit_vol": 1, "basis_accum": 2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -167,33 +156,72 @@ def test_face_gp_kernels_match_plain_versions(card, dtype):
                                 "face_accum": 2}
 
 
-def test_face_kernel_pad_faces(card):
-    """fmask = 0 faces contribute exactly nothing even over all-zero
-    (0/0) states, in the kernel as in the plain version."""
+@pytest.mark.parametrize("case", ["faces", "pad", "nan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("flux", ["hllc", "laxfriedrichs"])
+@pytest.mark.parametrize("ndof", [1, 4, 10])
+def test_face_kernel_pad_faces(card, ndof, flux, dtype, case):
+    """K12 (a face tile or a thread per face, as the instance takes it)
+    against its plain version bit for bit, with either flux, on a box
+    whose face count leaves every tile a ragged last block (16 or 32
+    faces) and which has symmetry and extrapolate faces.  pad: every 7th
+    face is a pad face (fmask 0), whose left states are all zero (0/0,
+    NaN on the real faces that share those elements); with HLLC it
+    contributes exactly nothing (with Lax-Friedrichs the unit state's
+    negative pressure gives NaN there, as in the JAX package's B11);
+    nan: one element's mean has more kinetic energy than energy (negative
+    pressure: a NaN sound speed at its face points, as Sedov's first stage
+    has) and another has no density or momentum (0/0 states), matched NaN
+    for NaN."""
     import dataclasses
 
-    system = DGCompFlow(SedovBlastwave())
-    g = _geom(card, torch.float64)
-    pad = torch.zeros(g.nface, dtype=torch.bool, device=card)
-    pad[::7] = True
-    g = dataclasses.replace(g, fmask=torch.where(pad, 0.0, g.fmask))
-    U = _state(g.nelem, torch.float64, card)
-    U[:, g.el[pad].long()] = 0.0
-    got = kernels.face_flux(U, g.el, g.er, g.fn, g.farea, g.fmask, g.xi_l,
-                            g.xi_r, g.bctype, g.ktab, system.eos)
-    for k, p in zip(got, face_flux_plain(system, g, U)):
-        assert bool((k[..., pad] == 0).all()) and bool(
-            (p[..., pad] == 0).all())
+    system = DGCompFlow(SedovBlastwave(), riemann_flux=flux)
+    mesh, _ = hilbert_element_reorder(box_tet_mesh(6, 5, 3,
+                                                   hi=(0.6, 0.5, 0.3)))
+    g = build_dggeom(mesh, ndof, {i: BC_SYMMETRY if i < 4 else BC_EXTRAPOLATE
+                                  for i in range(1, 7)},
+                     dtype=dtype, device=card)
+    assert _ragged(g.nface) and g.nface % 16 != 0
+    assert {BC_SYMMETRY, BC_EXTRAPOLATE} <= set(g.bctype.tolist())
+    rng = np.random.default_rng(13)
+    U = rng.random((5 * ndof, g.nelem)) * 0.01
+    U[0] += 1.0
+    U[4 * ndof] += 2.5
+    U = torch.as_tensor(U).to(dtype).to(card)
+    Uv = U.view(5, ndof, -1)
+    if case == "pad":
+        pad = torch.arange(g.nface, device=card) % 7 == 0
+        g = dataclasses.replace(g, fmask=torch.where(pad, 0.0, g.fmask))
+        U[:, g.el[pad].long()] = 0.0
+    elif case == "nan":
+        Uv[1, 0, 5] = 3.0                  # kinetic energy 4.5 > rhoE 2.5
+        Uv[:4, :, g.nelem // 2] = 0.0
+    kernels.reset_launches()
+    wfl, mx = kernels.face_wflux(U, g.el, g.er, g.fn, g.farea, g.fmask,
+                                 g.xi_l, g.xi_r, g.bctype, g.w_face,
+                                 system.eos, flux)
+    pw, pm = face_wflux_plain(system, g, U)
+    assert _same((wfl, mx), (pw, pm))
+    assert bool(pw.isnan().any()) == (case != "faces")
+    if case == "pad" and flux == "hllc":
+        assert bool((pw[:, pad] == 0).all()) and bool((pm[pad] == 0).all())
+    torch.cuda.synchronize()
+    assert kernels.launches == {**ZERO, kernels.FLUXES[flux][1]: 1}
 
 
 def test_solver_on_card_matches_cpu(card):
     """Two float64 steps from the Sedov IC (which has face points of
-    negative pressure: NaN propagation must match), atol 1e-11."""
+    negative pressure: NaN propagation must match), atol 1e-11; each step
+    launches K1, K12 and K13 three times and nothing else."""
     system = DGCompFlow(SedovBlastwave())
     a = DGSolver(system, _geom(card, torch.float64), limiter="superbeep1")
     b = DGSolver(system, _geom("cpu", torch.float64), limiter="superbeep1")
+    kernels.reset_launches()
     sa = a.nsteps(a.initial_state(), 2)
     sb = b.nsteps(b.initial_state(), 2)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**ZERO, "limit_vol": 6, "face_wflux": 6,
+                                "basis_accum": 6}
     assert bool(torch.isfinite(sa.u).all())
     assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11
     assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
@@ -204,7 +232,8 @@ def test_solver_on_card_matches_cpu(card):
 def test_new_paths_on_card_match_cpu(card, case):
     """The p-adaptive and face Gauss-point paths, two float64 steps on
     the card against the CPU: u atol 1e-11, dt rtol 1e-12, ndofel
-    equal."""
+    equal, only the path's kernels launched (Sedov pdg: K4, K12 and K13
+    three times a step)."""
     def solver(device):
         if case == "sedov_pdg":
             return DGSolver(DGCompFlow(SedovBlastwave()),
@@ -225,10 +254,12 @@ def test_new_paths_on_card_match_cpu(card, case):
     assert torch.equal(sa.ndofel.cpu(), sb.ndofel)
     assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11
     assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
-    path = {"sedov_pdg": ("nbr_bounds", "face_flux", "face_to_elem"),
+    path = {"sedov_pdg": ("nbr_bounds", "face_wflux", "basis_accum"),
             "gausshump": ("face_gather", "face_accum"),
             "gausshump_pdg": ("face_gather", "face_accum")}[case]
     assert {k for k, v in kernels.launches.items() if v} == set(path)
+    if case == "sedov_pdg":
+        assert kernels.launches == {**ZERO, **{k: 6 for k in path}}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

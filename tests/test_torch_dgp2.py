@@ -9,6 +9,9 @@ and its DG(P2) slice against quinoa_tpu.
 - K13's plain version, and the pass as a whole, against that call's
   accumulated surface integral, atol 1e-11, and the dt from its charvel
   against dg_dt, rtol 1e-12;
+- the pass at P1 with HLLC on top of a volume term against the JAX
+  package's near/far pass (fused_face_pass_nearfar, interpret mode),
+  rhs atol 1e-11, delt rtol 1e-12;
 - the volume integral with the TaylorGreen source at P2 against the XLA
   dg_rhs minus its surface part, atol 1e-11;
 - two steps of the P2 TaylorGreen solver against the JAX DGSolver (its
@@ -34,6 +37,7 @@ from quinoa_tpu.mesh import box_tet_mesh
 from quinoa_tpu.mesh.reorder import hilbert_element_reorder
 from quinoa_tpu.ops.face_accum import build_accum_plan
 from quinoa_tpu.ops.face_fused import fused_face_pass as j_fused_face_pass
+from quinoa_tpu.ops.face_fused import fused_face_pass_nearfar as j_nearfar
 from quinoa_tpu.pde.dg import BC_DIRICHLET, BC_SYMMETRY, build_dggeom
 from quinoa_tpu.pde.dg import dg_dt as j_dg_dt
 from quinoa_tpu.pde.dg import dg_rhs as j_dg_rhs
@@ -44,8 +48,6 @@ from quinoa_tpu.pde.problems import TaylorGreen as JTaylorGreen
 from quinoa_tpu_torch import convert
 from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
 from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
-                                             face_flux_plain,
-                                             face_to_elem_plain,
                                              face_wflux_plain,
                                              fused_face_pass)
 from quinoa_tpu_torch.pde.dg import _make_tables
@@ -142,19 +144,24 @@ def test_face_pass_matches_pallas(face_case):
 
 
 def test_single_stream_equals_nearfar_at_p1():
-    """At P1, K12 + K13 compute the same arithmetic as K2 + K3 (their
-    plain versions agree bit for bit)."""
+    """At P1 with HLLC the port's face pass (K12 + K13) on top of a volume
+    term equals the JAX package's near/far pass (B2-B5, Pallas interpret
+    mode, near and far streams both live) plus that term: rhs atol 1e-11,
+    delt rtol 1e-12."""
     mesh = box_tet_mesh(5, 5, 4, hi=(0.5, 0.5, 0.4))
-    tg = t_build(mesh, 4, {i: BC_SYMMETRY for i in range(1, 5)},
-                 device="cpu")
-    tsys = TCompFlow(TSedov())
-    tU = torch.as_tensor(_sedov_like(tg.nelem, 4, 3))
-    rv = torch.as_tensor(np.random.default_rng(5).standard_normal(
-        (20, tg.nelem)))
-    got = fused_face_pass(tsys, tg, tU, rv)
-    want = face_to_elem_plain(tg, *face_flux_plain(tsys, tg, tU), rv)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    bc = {i: BC_SYMMETRY for i in range(1, 5)}
+    jg = build_dggeom(mesh, ndof=4, bc_sidesets=bc)
+    tg = convert.geom_from_arrays(_arrays(jg), device="cpu")
+    U0 = _sedov_like(tg.nelem, 4, 3)
+    rv = np.random.default_rng(5).standard_normal((20, tg.nelem))
+    plan = build_accum_plan(jg, TF=128, W=128)
+    assert plan.fused.Fn > 0 and plan.fused.Ff > 0
+    acc_j, delt_j = j_nearfar(JCompFlow(JSedov()), jg, plan, jnp.asarray(U0))
+    r, delt = fused_face_pass(TCompFlow(TSedov()), tg, torch.as_tensor(U0),
+                              torch.as_tensor(rv))
+    np.testing.assert_allclose(r.numpy(), rv + np.asarray(acc_j), rtol=0,
+                               atol=RHS_ATOL)
+    np.testing.assert_allclose(delt.numpy(), np.asarray(delt_j), rtol=1e-12)
 
 
 def test_pad_faces_carry_no_weighted_flux(face_case):

@@ -1,6 +1,7 @@
-"""The port's face pass (kernels K2 + K3, plain versions) against
-quinoa_tpu: the near/far Pallas face pass run in interpret mode through
-dg_rhs with an explicit accumulation plan, and the XLA dg_rhs + dg_dt.
+"""The port's DG(P1) HLLC face pass (kernels K12 + K13, plain versions)
+against quinoa_tpu: the near/far Pallas face pass run in interpret mode
+through dg_rhs with an explicit accumulation plan, and the XLA dg_rhs +
+dg_dt.
 
 Float64 on the CPU on the 5x5x4 box of the JAX package's own fused-pass
 test (both near and far streams live at TF=W=128).  Tolerances are the
@@ -27,8 +28,9 @@ from quinoa_tpu.pde.dg_compflow import DGCompFlow as JCompFlow
 from quinoa_tpu.pde.problems import SedovBlastwave as JSedov
 
 from quinoa_tpu_torch import convert
-from quinoa_tpu_torch.ops.face_fused import (face_flux_plain,
-                                             fused_face_pass_nearfar)
+from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
+                                             face_wflux_plain,
+                                             fused_face_pass)
 from quinoa_tpu_torch.ops.nbr_bounds import volume_rhs_plain
 from quinoa_tpu_torch.pde.dg import dg_dt, dg_dt_from_delt, dg_rhs
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow as TCompFlow
@@ -59,8 +61,8 @@ def case():
             U0[ck] = 0.01 * rng.random(E)
     tsys = TCompFlow(TSedov())
     tU = torch.as_tensor(U0)
-    r, delt = fused_face_pass_nearfar(tsys, tg, tU,
-                                      vol_rhs=volume_rhs_plain(tsys, tg, tU))
+    r, delt = fused_face_pass(tsys, tg, tU,
+                              vol_rhs=volume_rhs_plain(tsys, tg, tU))
     return jg, tg, U0, r.numpy(), delt
 
 
@@ -102,13 +104,22 @@ def test_face_pass_matches_xla_rhs_and_dt(case):
 def test_pad_faces_contribute_nothing(case):
     """fmask = 0 faces (padding) evaluate a finite unit state whose zero
     weight removes them, even where the gathered state is all zeros
-    (0/0 in the flux), as the Pallas kernels do (face_fused.py:501-503)."""
+    (0/0 in the flux), as the Pallas kernels do (face_fused.py:501-503):
+    the pass over a geometry with pad faces is, bit for bit, the pass over
+    the real faces alone."""
     _, tg, U0, _, _ = case
+    tsys = TCompFlow(TSedov())
     pad = torch.zeros(tg.nface, dtype=torch.bool)
     pad[::7] = True
     g = dataclasses.replace(tg, fmask=torch.where(pad, 0.0, tg.fmask))
-    U = torch.as_tensor(U0).clone()
-    U[:, g.el[pad].long()] = 0.0     # left states of pad faces: 0/0
-    cL, cR, mx = face_flux_plain(TCompFlow(TSedov()), g, U)
-    for t in (cL[:, pad], cR[:, pad], mx[pad]):
-        assert bool((t == 0).all())
+    U = torch.as_tensor(U0)
+    rv = volume_rhs_plain(tsys, tg, U)
+    wfl, mx = face_wflux_plain(tsys, tg, U)
+    wfl[:, pad], mx[pad] = 0.0, 0.0
+    for a, b in zip(fused_face_pass(tsys, g, U, vol_rhs=rv),
+                    basis_accum_plain(tg, wfl, mx, rv)):
+        assert torch.equal(a, b)
+    Uz = U.clone()
+    Uz[:, g.el[pad].long()] = 0.0    # left states of pad faces: 0/0
+    wfl, mx = face_wflux_plain(tsys, g, Uz)
+    assert bool((wfl[:, pad] == 0).all()) and bool((mx[pad] == 0).all())

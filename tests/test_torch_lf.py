@@ -16,14 +16,14 @@ plain versions) and the solver routes that take it.
   Lax-Friedrichs keeps, and NaN times the pad faces' zero weight poisons
   every element of the tile (HLLC falls through to a finite flux there);
 - one DG(P1) stage on a small Sod box: the port's dg_rhs (volume integral
-  in K1's order, then K12 + K13, where HLLC takes K2 + K3) and its dt
+  in K1's order, then K12 + K13, as with HLLC) and its dt
   against the JAX XLA dg_rhs and dg_dt, rhs atol 1e-11 and dt rtol 1e-12
   (tests/test_dg.py:240-244);
 - two DGSolver steps of Sod with Lax-Friedrichs at P0, P1 (Superbee, with
   and without p-adaptivity, and unlimited) and P2 against the JAX
   DGSolver: u atol 1e-11, dt rtol 1e-12;
-- the routing: K2's pass (fused_face_pass_nearfar) still refuses
-  Lax-Friedrichs, the solver's DG(P1) pass is the single-stream one.
+- the routing: both fluxes take K12 + K13 at every order, the solver's
+  DG(P1) pass included, and the pass refuses a Dirichlet face.
 
 Float64 on the CPU, inputs made from a numpy seed.  Sod, not Sedov: a
 Sedov stage's face points have negative pressures, whose NaN sound speed
@@ -54,8 +54,9 @@ from quinoa_tpu_torch.inciter.dg import DGSolver
 from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
                                              face_pass_for,
                                              face_wflux_plain,
-                                             fused_face_pass,
-                                             fused_face_pass_nearfar)
+                                             fused_face_pass)
+from quinoa_tpu_torch.pde.dg import BC_DIRICHLET as T_DIRICHLET
+from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE as T_EXTRAPOLATE
 from quinoa_tpu_torch.pde.dg import dg_dt, dg_dt_from_delt, dg_rhs
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow as TCompFlow
 from quinoa_tpu_torch.pde.problems import SodShocktube as TSod
@@ -209,16 +210,20 @@ def test_lf_solver_matches_jax(sod_p1, ndof, kw):
 
 
 def test_lf_routing(sod_p1):
-    """Lax-Friedrichs takes the single-stream pass at every order; K2's
-    pass (HLLC only) still refuses it; HLLC keeps K2 + K3 at P1."""
+    """Lax-Friedrichs and HLLC take K12 + K13 (fused_face_pass) at every
+    order, the solver's DG(P1) pass included; the pass refuses faces whose
+    ghost needs the face coordinates (Dirichlet)."""
     _, _, tg = sod_p1
     lf, hllc = TCompFlow(TSod(), riemann_flux=LF), TCompFlow(TSod())
     for ndof in (1, 4, 10):
         assert face_pass_for(lf, ndof) is fused_face_pass
-    assert face_pass_for(hllc, 4) is fused_face_pass_nearfar
-    assert DGSolver(lf, tg, limiter="superbeep1").p1_face_pass is (
-        fused_face_pass)
+        assert face_pass_for(hllc, ndof) is fused_face_pass
+    for system in (lf, hllc):
+        assert DGSolver(system, tg, limiter="superbeep1").p1_face_pass is (
+            fused_face_pass)
+    gd = dataclasses.replace(tg, bctype=torch.where(
+        tg.bctype == T_EXTRAPOLATE, T_DIRICHLET, tg.bctype))
     U = torch.ones((5 * 4, tg.nelem), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="implements hllc, not "
-                                                  "laxfriedrichs"):
-        fused_face_pass_nearfar(lf, tg, U)
+    with pytest.raises(NotImplementedError, match="no Dirichlet/inlet "
+                                                  "ghost"):
+        fused_face_pass(lf, gd, U)

@@ -10,7 +10,10 @@ seed and handed to both packages; the geometry goes through convert.py.
 Tolerances: bounds and the indicator are selects and comparisons (exact);
 Superbee is min/max/select plus a 4-term sum (atol 1e-13, the JAX
 package's own limiter tolerance); the solver takes the two-step solver
-tolerance of tests/test_dg.py (u atol 1e-11, dt rtol 1e-12).
+tolerance of tests/test_dg.py (u atol 1e-11, dt rtol 1e-12), and the
+first stage's face pass (K12 + K13 on the masked state) against the
+near/far Pallas pass its fused-pass tolerance (rhs atol 1e-11, dt rtol
+1e-12).
 """
 
 import dataclasses
@@ -25,9 +28,12 @@ from quinoa_tpu.inciter.dg import DGDiagnostics as JDiag
 from quinoa_tpu.inciter.dg import DGSolver as JSolver
 from quinoa_tpu.mesh import box_tet_mesh
 from quinoa_tpu.mesh.reorder import hilbert_element_reorder
+from quinoa_tpu.ops.face_accum import build_accum_plan
 from quinoa_tpu.ops.nbr_bounds import build_bounds_plan
 from quinoa_tpu.ops.nbr_bounds import neighbor_mean_bounds as j_bounds
 from quinoa_tpu.pde.dg import BC_SYMMETRY, build_dggeom
+from quinoa_tpu.pde.dg import dg_dt_from_delt as j_dt_from_delt
+from quinoa_tpu.pde.dg import dg_rhs as j_dg_rhs
 from quinoa_tpu.pde.dg import eval_ndof_sticky as j_eval_ndof
 from quinoa_tpu.pde.dg import propagate_ndof as j_propagate
 from quinoa_tpu.pde.dg_compflow import DGCompFlow as JCompFlow
@@ -37,7 +43,8 @@ from quinoa_tpu.pde.problems import SedovBlastwave as JSedov
 from quinoa_tpu_torch import convert
 from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
 from quinoa_tpu_torch.ops.nbr_bounds import neighbor_mean_bounds
-from quinoa_tpu_torch.pde.dg import eval_ndof_sticky, propagate_ndof
+from quinoa_tpu_torch.pde.dg import (dg_dt_from_delt, eval_ndof_sticky,
+                                     propagate_ndof)
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow as TCompFlow
 from quinoa_tpu_torch.pde.limiter import superbee_p1
 from quinoa_tpu_torch.pde.problems import SedovBlastwave as TSedov
@@ -45,6 +52,7 @@ from quinoa_tpu_torch.pde.problems import SedovBlastwave as TSedov
 C, K = 5, 4
 ATOL_LIM = 1e-13
 U_ATOL = 1e-11
+RHS_ATOL = 1e-11
 DT_RTOL = 1e-12
 L2_RTOL = 1e-12
 
@@ -167,3 +175,41 @@ def test_mixed_p0_diagnostics_match_jax(sedov_pdg):
     for x, y in zip(DGDiagnostics(ts.system, tg).compute(b),
                     JDiag(js.system, jg).compute(a)):
         np.testing.assert_allclose(x, y, rtol=L2_RTOL, atol=1e-14)
+
+
+def test_pdg_stage_face_pass_matches_pallas_nearfar(sedov_pdg):
+    """pdg's first RK stage: the masked P0/P1 state and volume term the
+    port's solver hands its face pass (K12 + K13), through that pass,
+    against the JAX dg_rhs on the same state and volume term through the
+    near/far Pallas kernels B2-B5 (interpret mode, an explicit
+    accumulation plan with near and far streams live): rhs atol 1e-11,
+    dt from the charvel rtol 1e-12 (tests/test_dg.py's fused-pass
+    tolerances)."""
+    _, jg, ts, tg, _ = sedov_pdg
+    seen = []
+    face_pass = ts.p1_face_pass
+
+    def spy(system, g, uf, vol_rhs):
+        seen.append((uf, vol_rhs))
+        return face_pass(system, g, uf, vol_rhs=vol_rhs)
+
+    ts.p1_face_pass = spy
+    try:
+        ndofel = ts.step(ts.initial_state()).ndofel.numpy()
+    finally:
+        ts.p1_face_pass = face_pass
+    uf, rv = seen[0]
+    assert (ndofel == 1).any() and (ndofel == 4).any()
+    zero = (uf.reshape(C, K, -1)[:, 1:] == 0).all(dim=(0, 1)).numpy()
+    assert zero.any() and not zero.all()     # the stage state is masked
+    r, delt = face_pass(ts.system, tg, uf, vol_rhs=rv)
+    plan = build_accum_plan(jg, TF=128, W=128)
+    assert plan.fused.Fn > 0 and plan.fused.Ff > 0
+    r_j, delt_j = j_dg_rhs(JCompFlow(JSedov()), jg, jnp.asarray(uf.numpy()),
+                           None, 0.0, accum_plan=plan, face_gp=False,
+                           want_charvel=True,
+                           vol_rhs=jnp.asarray(rv.numpy()))
+    r_j = np.asarray(r_j)
+    np.testing.assert_allclose(r.numpy(), r_j, rtol=0, atol=RHS_ATOL)
+    assert np.isclose(float(dg_dt_from_delt(tg, delt)),
+                      float(j_dt_from_delt(jg, delt_j)), rtol=DT_RTOL)

@@ -29,7 +29,7 @@ from quinoa_tpu.pde.problems import SedovBlastwave as JSedov
 
 from quinoa_tpu_torch import convert, kernels
 from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
-from quinoa_tpu_torch.ops.face_fused import fused_face_pass_nearfar
+from quinoa_tpu_torch.ops.face_fused import fused_face_pass
 from quinoa_tpu_torch.pde.dg import build_dggeom as t_build
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow as TCompFlow
 from quinoa_tpu_torch.pde.dg_compflow import DGTransport as TTransport
@@ -209,8 +209,7 @@ def test_cpu_tensors_leave_launch_counters_at_zero(runs):
                  device="cpu")
     p2 = DGSolver(TCompFlow(TTaylorGreen()), g2)
     p2.nsteps(p2.initial_state(), 1)
-    assert kernels.launches == {"limit_vol": 0, "face_flux": 0,
-                                "face_to_elem": 0, "nbr_bounds": 0,
+    assert kernels.launches == {"limit_vol": 0, "nbr_bounds": 0,
                                 "face_gather": 0, "face_accum": 0,
                                 "alecg_vol": 0, "alecg_vol_cf": 0,
                                 "alecg_edge": 0, "alecg_edge_cf": 0,
@@ -265,13 +264,16 @@ def test_unported_configurations_raise(runs):
             DGSolver(system, tg, **kw)
     with pytest.raises(ValueError):
         DGSolver(system, tg, limiter="minmod")
-    # Lax-Friedrichs takes the single-stream pass (K12 + K13); the DG(P1)
-    # face kernel K2 implements HLLC only and still refuses it
-    lf = TCompFlow(TSedov(), riemann_flux="laxfriedrichs")
-    DGSolver(lf, tg, limiter="superbeep1")
-    with pytest.raises(NotImplementedError):
-        fused_face_pass_nearfar(lf, tg, torch.ones((20, tg.nelem),
-                                                   dtype=torch.float64))
+    # both fluxes take the face pass K12 + K13 at P1; it refuses a system
+    # whose flux needs the face coordinates (transport)
+    U = torch.ones((20, tg.nelem), dtype=torch.float64)
+    for flux in ("hllc", "laxfriedrichs"):
+        sy = TCompFlow(TSedov(), riemann_flux=flux)
+        DGSolver(sy, tg, limiter="superbeep1")
+        r, delt = fused_face_pass(sy, tg, U)
+        assert r.shape == U.shape and delt.shape == (tg.nelem,)
+    with pytest.raises(NotImplementedError, match="compressible Euler"):
+        fused_face_pass(TTransport(TGaussHump()), tg, U)
     mesh = box_tet_mesh(2, 2, 2)
     # a limiter below P1 is a ValueError, as in the JAX package
     for ndof, error in ((1, ValueError), (10, NotImplementedError)):
