@@ -24,8 +24,10 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
            of the kernel (call_ms) and of the plain version;
            K7-K9 (both flavours of K7 and K8) on the SlotCyl and
            VorticalFlow initial states, alone and as the stage rhs;
-           K10 (1 and 5 rows) and K11 (sum rows, max rows, both at once,
-           a NaN in a max row) on the DiagCG meshes; K12 and K13 on the
+           K10 (1 and 5 rows) and K11 at the three calls of a step of
+           each DiagCG leg (rhs + diffusion sums, P sums + Q maxima,
+           limited A sums; K9 and K11 bit for bit), max rows alone and a
+           NaN in a max row, on the DiagCG meshes; K12 and K13 on the
            32^3 P2 TaylorGreen initial state (float64 on a small P2 mesh);
            K12 and K13 at (K, G) = (1, 1) on a perturbed 48^3 Sod state,
            K14 mm_face_wflux (nmat 2 at P0 and
@@ -333,6 +335,12 @@ INSTANCES = (
     ("mm_face_wflux THINC (nmat 3, K=4)", "mm_face_wflux_thinc", "mm_thinc"),
     ("basis_accum (R=22, K=4)", "basis_accum", "mm_thinc"),
     ("nbr_bounds (C=12, K=4)", "nbr_bounds", "mm_thinc"),
+    ("cg_assemble (R=5)", "cg_assemble", "alecg_cf"),
+    ("node_assemble P+Q (R=2+2)", "node_assemble", "diagcg"),
+    ("node_assemble A (R=1)", "node_assemble", "diagcg"),
+    ("node_assemble (R=10)", "node_assemble", "diagcg_cf"),
+    ("node_assemble P+Q (R=10+10)", "node_assemble", "diagcg_cf"),
+    ("node_assemble A (R=5)", "node_assemble", "diagcg_cf"),
 )
 NEARFAR = {"face_wflux": "quinoa_tpu/ops/face_fused.py:762",
            "basis_accum": "quinoa_tpu/ops/face_fused.py:839"}
@@ -1032,7 +1040,8 @@ def alecg_kernel_checks(torch, solver, dtype_name, timed):
          lambda: acc.index_add_(1, idx, src)),
     )
     out = {name: measure(torch, name, f"N={N} E={E} nE={nE} rows={R}", kf,
-                         pf, inputs, ops, dtype_name, timed, library)
+                         pf, inputs, ops, dtype_name, timed, library,
+                         bitwise=name == "cg_assemble")
            for name, kf, pf, inputs, ops, library in cases}
     err = compare("stage rhs K7+K8+K9", (alecg_rhs(sy, g, e, rows, u),),
                   (cg_assemble_plain(cv, d, g.nsup, e.ensup),), dtype_name)
@@ -1066,11 +1075,14 @@ def diagcg_solver(name, dtype, device, small=False):
 
 def diagcg_kernel_checks(torch, solver, dtype_name, timed):
     """K10 on the solver's initial state (and on 2C rows, as the limiter's
-    gather) and K11 as the step calls it: the rhs + diffusion sums (2C
-    rows), the P sums and Q maxima (2C + 2C rows, Q one row per element),
-    the limited A (C rows), and max rows alone; then a NaN in a max row.
-    Returns {name: record} of K10 at C rows and K11 at the rhs pass (times
-    only when timed); the other shapes are timed into the log."""
+    gather) and K11 at the three calls of a step, bit for bit: the rhs +
+    diffusion sums (2C rows), the P sums + Q maxima (2C + 2C rows, Q one
+    row per element) and the limited A sums (C rows), each timed with its
+    one-call yardstick (index_add_ for the sums; none for P + Q); then
+    max rows alone (fct.alw's call, off the step: bits only) and a NaN in
+    a max row.  Returns {name: record}: K10 at C rows as "node_gather",
+    K11 as "node_assemble (R=2C)", "node_assemble P+Q (R=2C+2C)" and
+    "node_assemble A (R=C)" (times only when timed)."""
     from quinoa_tpu_torch.ops.node_window import (node_assemble,
                                                   node_assemble_plain,
                                                   node_gather,
@@ -1089,31 +1101,30 @@ def diagcg_kernel_checks(torch, solver, dtype_name, timed):
     xa2, xa1 = randn(4, 2 * C, E), randn(4, C, E)
     xm = randn(1, 2 * C, E)
     idx = g.inpoelT.reshape(-1).long()
-    low = torch.finfo(u.dtype).min
 
     def add_call(x):
         acc = torch.zeros((x.shape[1], N), dtype=x.dtype, device=x.device)
         src = x.permute(1, 0, 2).reshape(x.shape[1], 4 * E)
         return lambda: acc.index_add_(1, idx, src)
 
-    amax = torch.full((2 * C, N), low, dtype=u.dtype, device=u.device)
-    msrc = xm.expand(4, -1, -1).permute(1, 0, 2).reshape(2 * C, 4 * E)
-    midx = idx[None].expand(2 * C, -1).contiguous()
     out = {}
     for rows, U in ((C, u), (2 * C, u2)):
         rec = measure(torch, "node_gather", f"N={N} E={E} rows={rows}",
                       lambda U=U: node_gather(U, g.inpoelT),
                       lambda U=U: node_gather_plain(U, g.inpoelT),
                       (U, g.inpoelT), 0, dtype_name, timed,
-                      lambda U=U: torch.index_select(U, 1, idx))
+                      lambda U=U: torch.index_select(U, 1, idx),
+                      bitwise=True)
         out.setdefault("node_gather", rec)
     slots = OPS["node_assemble_slot"] * D * N
-    for label, xa, m, lib in (
-            ("rhs+diffusion sums", xa2, None, add_call(xa2)),
-            ("P sums + Q maxima", xa2, xm, None),
-            ("limited A sums", xa1, None, add_call(xa1)),
-            ("Q maxima", None, xm,
-             lambda: amax.scatter_reduce_(1, midx, msrc, "amax"))):
+    for key, label, xa, m, lib, when in (
+            (f"node_assemble (R={2 * C})", "rhs+diffusion sums", xa2, None,
+             add_call(xa2), timed),
+            (f"node_assemble P+Q (R={2 * C}+{2 * C})", "P sums + Q maxima",
+             xa2, xm, None, timed),
+            (f"node_assemble A (R={C})", "limited A sums", xa1, None,
+             add_call(xa1), timed),
+            (None, "Q maxima alone (off the step)", None, xm, None, False)):
         rows = (0 if xa is None else xa.shape[1]) + (
             0 if m is None else m.shape[1])
         rec = measure(torch, "node_assemble",
@@ -1121,8 +1132,9 @@ def diagcg_kernel_checks(torch, solver, dtype_name, timed):
                       lambda xa=xa, m=m: node_assemble(xa, m, g.nsup),
                       lambda xa=xa, m=m: node_assemble_plain(xa, m, g.nsup),
                       [t for t in (xa, m, g.nsup) if t is not None],
-                      slots * rows, dtype_name, timed, lib)
-        out.setdefault("node_assemble", rec)
+                      slots * rows, dtype_name, when, lib, bitwise=True)
+        if key is not None:
+            out[key] = rec
     bad = xm.clone()
     bad[0, 2 * C - 1, E // 3] = float("nan")
     got = node_assemble(xa2, bad, g.nsup)
@@ -1328,7 +1340,7 @@ def profile_path(torch, solver, name, state, step_s, steps=5):
         phase(name, "profiler: no device activity recorded; device busy "
               "and idle not measured")
         return state
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     busy_s = busy / 1e6 / steps
     phase(name, f"profiler over {steps} steps: wall {1e3 * wall / steps:.4f}"
           f" ms/step, device busy {1e3 * busy_s:.4f} ms/step, idle "
@@ -1568,9 +1580,12 @@ def main():
           f"{alecg['alecg'].edget.ensup.shape[0]}, "
           f"{time.perf_counter() - t0:.1f} s on the host")
     for name in ALECG:
-        # K9 reports its time at the transport leg's row count
-        for k, v in alecg_kernel_checks(torch, alecg[name], "float32",
-                                        timed=True).items():
+        # K9 reports its time at the transport leg's row count, and at
+        # alecg_cf's 5 rows as an instance
+        recs = alecg_kernel_checks(torch, alecg[name], "float32", timed=True)
+        if name == "alecg_cf":
+            stats["cg_assemble (R=5)"] = recs.pop("cg_assemble")
+        for k, v in recs.items():
             stats.setdefault(k, v)
         alecg_kernel_checks(torch, alecg_solver(name, ALECG_SMALL[name][0],
                                                 torch.float64, dev),
@@ -1584,10 +1599,16 @@ def main():
         f"{int(s.bcmask[0].sum())}" for name, s in diagcg.items())
         + f", {time.perf_counter() - t0:.1f} s on the host")
     for name in DIAGCG:
-        # K10 and K11 report their times at the transport leg's shapes
-        for k, v in diagcg_kernel_checks(torch, diagcg[name], "float32",
-                                         timed=True).items():
-            stats.setdefault(k, v)
+        # K10 reports its time at the transport leg's shape; K11 at each
+        # instance of both legs, the transport leg's rhs sums as its main
+        # entry
+        recs = diagcg_kernel_checks(torch, diagcg[name], "float32",
+                                    timed=True)
+        gather = recs.pop("node_gather")
+        if name == MAIN_PATH["node_assemble"]:
+            stats["node_gather"] = gather
+            stats["node_assemble"] = recs.pop("node_assemble (R=2)")
+        stats.update(recs)
         diagcg_kernel_checks(torch, diagcg_solver(name, torch.float64, dev,
                                                   small=True),
                              "float64", timed=False)

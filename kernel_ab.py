@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """A/B device times of the kernels K1 limit_vol, K12 face_wflux, K13
-basis_accum and K14 mm_face_wflux on one NVIDIA GPU:
+basis_accum, K14 mm_face_wflux, K9 cg_assemble and K11 node_assemble on
+one NVIDIA GPU:
 
     python3 kernel_ab.py [--kernels [K,...]] [--paths [P,...]] [--sass]
                          [NAME=DIR ...]
@@ -23,7 +24,11 @@ Superbee branch) and on p1_lf's perturbed Sod state; K12 with HLLC at P0
 face-pass input of pdg's first stage, at P2 (p2's TaylorGreen state),
 with Lax-Friedrichs at P1 (p1_lf's limited state) and, for its bits
 only, at P2; K14 at nmat 2/3, P0/P1, with and without THINC; K13 at its
-seven (R, K) shapes.  Each version's kernel is held against the plain
+seven (R, K) shapes; K9 and K11 at every instance the CG paths launch,
+on the inputs the first step of the path's solver hands them (K9: alecg's
+1 row and alecg_cf's 5 rows at 48^3; K11: the rhs + diffusion sums, the P
+sums + Q maxima and the limited A sums of diagcg at 64^3 and of
+diagcg_cf at 48^3).  Each version's kernel is held against the plain
 version bit for bit (NaN where the plain version has NaN), then all
 versions are timed in turns with chip_smoke.device_ms (device time of
 the kernel alone, each call from a cold L2; median [min-max] of REPS),
@@ -53,9 +58,15 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("limit_vol", "face_wflux", "basis_accum", "mm_face_wflux")
-PATHS = ("p1", "pdg", "p0", "mm_p0", "mm_p1", "p1_lf", "mm_thinc", "p2")
-PROFILED = ("p1", "pdg", "p1_lf", "p0", "p2")
+SOURCES = ("limit_vol", "face_wflux", "basis_accum", "mm_face_wflux",
+           "cg_assemble", "node_assemble")
+PATHS = ("p1", "pdg", "p0", "mm_p0", "mm_p1", "p1_lf", "mm_thinc", "p2",
+         "alecg", "alecg_cf", "diagcg", "diagcg_cf")
+PROFILED = ("p1", "pdg", "p1_lf", "p0", "p2", "alecg", "alecg_cf", "diagcg",
+            "diagcg_cf")
+#: the K11 calls of a DiagCG + FCT step, in order (inciter/diagcg.py)
+NODE_ASSEMBLE_CALLS = ("rhs + diffusion sums", "P sums + Q maxima",
+                       "limited A sums")
 
 
 def kernel_pattern(srcs):
@@ -181,6 +192,24 @@ def pdg_face_inputs(solver):
     return seen[0]
 
 
+def step_calls(solver, kernels, entry):
+    """The arguments of every call of kernels.<entry> (K9 or K11) in the
+    first step of solver, from its initial state."""
+    seen = []
+    launch = getattr(kernels, entry)
+
+    def spy(*args):
+        seen.append(args)
+        return launch(*args)
+
+    setattr(kernels, entry, spy)
+    try:
+        solver.step(solver.initial_state())
+    finally:
+        setattr(kernels, entry, launch)
+    return seen
+
+
 def main():
     import torch
 
@@ -269,7 +298,12 @@ def main():
     def solver(name):
         """chip_smoke.py's solver of path `name`, built once."""
         if name not in solvers:
-            if name in ("p1", "pdg"):
+            if name in cs.ALECG:
+                solvers[name] = cs.alecg_solver(name, (cs.N_BIG,) * 3, f32,
+                                                dev)
+            elif name in cs.DIAGCG:
+                solvers[name] = cs.diagcg_solver(name, f32, dev)
+            elif name in ("p1", "pdg"):
                 solvers[name] = DGSolver(sedov, geom(name), cfl=0.5,
                                          limiter="superbeep1",
                                          pref=name == "pdg")
@@ -427,6 +461,36 @@ def main():
                   tuple(t for t in (wfl, mx, g.fose, g.fsideR, *xi, rv)
                         if t is not None),
                   cs.OPS["basis_accum"][5, K] * g.nelem)
+
+    # K9 on alecg's and alecg_cf's first stage, K11 at the three calls of
+    # a diagcg and a diagcg_cf step
+    if "cg_assemble" in srcs:
+        from quinoa_tpu_torch.ops.alecg_fused import cg_assemble_plain
+        for name in cs.ALECG:
+            cv, d, nsup, ensup = step_calls(solver(name), kernels,
+                                            "cg_assemble")[0]
+            R, N = cv.shape[0], nsup.shape[1]
+            slots = (nsup.shape[0] + ensup.shape[0]) * N
+            timed(f"K9 {name} N={N} rows={R}",
+                  lambda: (kernels.cg_assemble(cv, d, nsup, ensup),),
+                  lambda: (cg_assemble_plain(cv, d, nsup, ensup),),
+                  (cv, d, nsup, ensup), cs.OPS["cg_assemble_slot"] * R * slots)
+    if "node_assemble" in srcs:
+        from quinoa_tpu_torch.ops.node_window import node_assemble_plain
+        for name in cs.DIAGCG:
+            calls = step_calls(solver(name), kernels, "node_assemble")
+            if len(calls) != len(NODE_ASSEMBLE_CALLS):
+                raise AssertionError(f"{name}: {len(calls)} K11 calls a "
+                                     f"step, expected "
+                                     f"{len(NODE_ASSEMBLE_CALLS)}")
+            for label, (xa, xm, nsup) in zip(NODE_ASSEMBLE_CALLS, calls):
+                rows = sum(t.shape[1] for t in (xa, xm) if t is not None)
+                D, N = nsup.shape
+                timed(f"K11 {name} {label} N={N} D={D} rows={rows}",
+                      lambda: (kernels.node_assemble(xa, xm, nsup),),
+                      lambda: (node_assemble_plain(xa, xm, nsup),),
+                      tuple(t for t in (xa, xm, nsup) if t is not None),
+                      cs.OPS["node_assemble_slot"] * D * N * rows)
 
     for path in paths:
         s = solver(path)

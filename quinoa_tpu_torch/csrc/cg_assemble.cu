@@ -1,6 +1,5 @@
 // K9 cg_assemble: the ALECG stage rhs at each node, the sum of its element
-// slots (K7's values) plus the sum of its edge slots (K8's values), one
-// thread per node, for up to MAXR rows.
+// slots (K7's values) plus the sum of its edge slots (K8's values).
 //
 // Replaces the assembly half of quinoa_tpu/ops/alecg_fused.py's window
 // passes (_sum_pass, alecg_fused.py:340-358): the lo/hi window
@@ -19,54 +18,101 @@
 // so float32 runs repeat bit for bit (no atomics) and agree with the
 // plain version bit for bit.
 //
-// Bound on the card: device-memory bytes.  A node reads D + D' slot ids,
-// gathers C values for each and writes C.  The slot tables are read
-// coalesced along the node axis; the value gathers stay near each other
-// because nodes are first-touch ordered along Hilbert-ordered elements.
+// Bound on the card: device-memory bytes; at one row the two slot tables
+// are most of them.  As in K11 (node_assemble.cu), the lanes of a node
+// (CA_RPL rows a lane, next to each other in a warp) read each group of
+// CA_GL slot ids once, coalesced along the node axis and shared by the
+// lanes, resolve them to (element or edge, side) in 32-bit compares
+// (common.cuh slot_corner), issue the group's value loads, and then add
+// its levels in order.  PERF.md (section 6, the K9/K11 slot core) has
+// the sweep that chose CA_RPL, CA_GL and CA_BLOCK, and what keeps the
+// kernel from its bound.
 
 #include "common.cuh"
 
 namespace qtk {
 
-constexpr int MAXR = 8;
+constexpr int CA_RPL = 5;       // rows a thread carries
+constexpr int CA_GL = 4;        // slot levels loaded before they add
+constexpr int CA_BLOCK = 512;   // threads a block
 
-template <typename T>
-__global__ void __launch_bounds__(128)
+template <typename T, int P>
+__global__ void __launch_bounds__(CA_BLOCK)
 cg_assemble_kernel(const T* __restrict__ cv, const T* __restrict__ d,
                    const int* __restrict__ nsup,
                    const int* __restrict__ ensup, T* __restrict__ r, int nc,
-                   int Dv, int Dd, long long N, long long E, long long nE) {
-  const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+                   int Dv, int Dd, int N, int E, int nE, int lanes) {
+  const int t = (int)(blockIdx.x * blockDim.x + threadIdx.x);
+  const int n = t / lanes;
   if (n >= N) return;
-  T vol[MAXR], dis[MAXR];
-  for (int lev = 0; lev < Dv; ++lev) {
-    const long long s = nsup[lev * N + n];
-    const bool pad = s >= 4 * E;
-    const long long e = pad ? 0 : s % E;
+  const int c0 = (t - n * lanes) * P;
+  const int nr = nc - c0;
+  T vol[P], dis[P];
+  for (int d0 = 0; d0 < Dv; d0 += CA_GL) {
+    int s[CA_GL];
+    load_slots<4, CA_GL>(nsup, d0, Dv, N, n, E, s);
+    T v[CA_GL][P];
 #pragma unroll
-    for (int c = 0; c < MAXR; ++c) {
-      if (c < nc) {
-        const T x = pad ? T(0) : cv[c * E + e];
-        vol[c] = lev == 0 ? x : vol[c] + x;
-      }
+    for (int g = 0; g < CA_GL; ++g) {
+      const int a = slot_corner<4>(s[g], E);
+      const T* x = cv + c0 * E + (s[g] - a * E);
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        v[g][j] = (a < 4 && j < nr) ? x[j * E] : T(0);
+    }
+#pragma unroll
+    for (int g = 0; g < CA_GL; ++g) {
+      if (d0 + g >= Dv) break;
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        vol[j] = d0 + g == 0 ? v[g][j] : vol[j] + v[g][j];
     }
   }
-  for (int lev = 0; lev < Dd; ++lev) {
-    const long long s = ensup[lev * N + n];
-    const int side = s < nE ? 0 : (s < 2 * nE ? 1 : 2);
-    const long long k = side == 0 ? s : (side == 1 ? s - nE : 0);
+  for (int d0 = 0; d0 < Dd; d0 += CA_GL) {
+    int s[CA_GL];
+    load_slots<2, CA_GL>(ensup, d0, Dd, N, n, nE, s);
+    T v[CA_GL][P];
 #pragma unroll
-    for (int c = 0; c < MAXR; ++c) {
-      if (c < nc) {
-        const T y = d[c * nE + k];
-        const T x = side == 0 ? y : (side == 1 ? -y : T(0));
-        dis[c] = lev == 0 ? x : dis[c] + x;
+    for (int g = 0; g < CA_GL; ++g) {
+      const int side = slot_corner<2>(s[g], nE);
+      const T* x = d + c0 * nE + (s[g] - side * nE);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const T y = (side < 2 && j < nr) ? x[j * nE] : T(0);
+        v[g][j] = side == 0 ? y : (side == 1 ? -y : T(0));
       }
+    }
+#pragma unroll
+    for (int g = 0; g < CA_GL; ++g) {
+      if (d0 + g >= Dd) break;
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        dis[j] = d0 + g == 0 ? v[g][j] : dis[j] + v[g][j];
     }
   }
 #pragma unroll
-  for (int c = 0; c < MAXR; ++c)
-    if (c < nc) r[c * N + n] = vol[c] + dis[c];
+  for (int j = 0; j < P; ++j)
+    if (j < nr) r[(size_t)(c0 + j) * N + n] = vol[j] + dis[j];
+}
+
+// P rows a thread: the instance of P (1 .. CA_RPL).
+template <typename T, int P>
+int ca_launch_p(int p, const void* cv, const void* d, const void* nsup,
+                const void* ensup, void* r, int nc, int Dv, int Dd, int N,
+                int E, int nE, int lanes, cudaStream_t stream) {
+  if constexpr (P == 0) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (p != P)
+      return ca_launch_p<T, P - 1>(p, cv, d, nsup, ensup, r, nc, Dv, Dd, N,
+                                   E, nE, lanes, stream);
+    const long long threads = (long long)N * lanes;
+    const unsigned grid = (unsigned)((threads + CA_BLOCK - 1) / CA_BLOCK);
+    cg_assemble_kernel<T, P><<<grid, CA_BLOCK, 0, stream>>>(
+        (const T*)cv, (const T*)d, (const int*)nsup, (const int*)ensup,
+        (T*)r, nc, Dv, Dd, N, E, nE, lanes);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -74,14 +120,17 @@ int launch_cg_assemble(const void* cv, const void* d, const void* nsup,
                        const void* ensup, void* r, int nc, int Dv, int Dd,
                        long long N, long long E, long long nE,
                        void* stream) {
-  if (nc < 1 || nc > MAXR || Dv < 1 || Dd < 1)
+  if (nc < 1 || Dv < 1 || Dd < 1 || N < 1 || E < 1 || nE < 1)
     return (int)cudaErrorInvalidValue;
-  const int block = 128;
-  const long long grid = (N + block - 1) / block;
-  cg_assemble_kernel<T><<<(unsigned)grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)cv, (const T*)d, (const int*)nsup, (const int*)ensup, (T*)r,
-      nc, Dv, Dd, N, E, nE);
-  return (int)cudaGetLastError();
+  const int p = nc < CA_RPL ? nc : CA_RPL;
+  const int lanes = (nc + p - 1) / p;
+  // 32-bit offsets: every slot, value offset and thread index fits an int
+  if (4 * E * nc >= (1LL << 31) || 2 * nE * nc >= (1LL << 31) ||
+      N * lanes + CA_BLOCK >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  return ca_launch_p<T, CA_RPL>(p, cv, d, nsup, ensup, r, nc, Dv, Dd,
+                                (int)N, (int)E, (int)nE, lanes,
+                                (cudaStream_t)stream);
 }
 
 }  // namespace qtk

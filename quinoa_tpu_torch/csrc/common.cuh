@@ -260,4 +260,29 @@ __device__ __forceinline__ void euler_flux_dir(const T* s, T p, int j,
   f[4] = (s[4] + p) * vj;
 }
 
+// K9 and K11: a node's slots in a (D, N) slot table, read along the node
+// axis.  A slot is s = a*M + e, corner a of entity e of M, and A*M is a
+// pad.  The corner comes from compares, not a division (the wrappers
+// check that A*M fits an int).
+template <int A>
+__device__ __forceinline__ int slot_corner(int s, int M) {
+  int a = 0;
+#pragma unroll
+  for (int k = 1; k <= A; ++k) a += s >= k * M;
+  return a;
+}
+
+// Levels d0 .. d0 + GL - 1 of node n's slots, all loads issued before any
+// is used; a level at or past D reads as the pad A*M.  Each id is read
+// once, so it streams past L1 (__ldcs), which keeps L1 for the value
+// gathers that neighbouring nodes share.
+template <int A, int GL>
+__device__ __forceinline__ void load_slots(const int* __restrict__ sup,
+                                           int d0, int D, int N, int n,
+                                           int M, int (&s)[GL]) {
+#pragma unroll
+  for (int g = 0; g < GL; ++g)
+    s[g] = d0 + g < D ? __ldcs(sup + (size_t)(d0 + g) * N + n) : A * M;
+}
+
 }  // namespace qtk

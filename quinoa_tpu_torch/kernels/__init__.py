@@ -40,15 +40,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: layout of the packed constant table (csrc/common.cuh TAB_*)
 TAB_BSELF, TAB_BVOL, TAB_WDB, TAB_WFACE, TAB_SIZE = 0, 48, 68, 128, 131
 #: DG(P1) compressible Euler, the shapes of K1: components, modes, face
-#: points.  K4-K6 and the transport flavours of K7-K8 take their row
-#: counts as arguments; K9 takes up to MAX_ROWS.
+#: points.  K4-K6, the transport flavours of K7-K8, K9 and K11 take their
+#: row counts as arguments.
 C, K, G = 5, 4, 3
 #: the (mode, direction) entries of w_vol*dBdxi_vol that are not zero for
 #: the P1 Dubiner basis (dB0 = 0, dB2/dxi = 0, dB3/dxi = dB3/deta = 0);
 #: K1 adds only these (csrc/limit_vol.cu lv_wdb_nonzero)
 WDB_NONZERO = np.array([[False, False, False], [True, True, True],
                         [False, True, True], [False, False, True]])
-MAX_ROWS = 8   # csrc/cg_assemble.cu MAXR
 #: the face kernels K12-K14 take DG(P0), DG(P1) and DG(P2): face points
 #: per number of modes (ops/quadrature.py ng_face)
 FACE_POINTS = {1: 1, 4: 3, 10: 6}
@@ -425,8 +424,8 @@ def cg_assemble(cv, d, nsup, ensup):
     nE = d.shape[1]
     Dv, N = nsup.shape
     Dd = ensup.shape[0]
-    if not 1 <= R <= MAX_ROWS:
-        raise ValueError(f"cg_assemble takes 1 to {MAX_ROWS} rows, not {R}")
+    if R < 1:
+        raise ValueError("cg_assemble needs at least one row")
     if Dv < 1 or Dd < 1:
         raise ValueError("cg_assemble needs at least one slot level")
     _check("cv", cv, (R, E), dt, dev)

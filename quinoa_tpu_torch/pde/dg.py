@@ -451,24 +451,38 @@ def volume_rhs(system, geom: DGGeom, U, t=0.0):
     return (Rv * (geom.vol * geom.emask)).reshape(C * K, E)
 
 
-def dg_rhs(system, geom: DGGeom, U, dofmask=None, t=0.0, face_gp=False,
-           want_charvel=False, vol_rhs=None):
-    """DG right-hand side (C*K, E): volume + surface integrals.
+def no_plan(accum_plan):
+    """The JAX package's accumulation-plan slot, which must be None: the
+    port has no plans (the card gathers and sums directly)."""
+    if accum_plan is not None:
+        raise ValueError("the port has no accumulation plans: accum_plan "
+                         "must be None")
+
+
+def dg_rhs(system, geom: DGGeom, U, dofmask, t, accum_plan=None,
+           face_gp=True, want_charvel=False, vol_rhs=None):
+    """DG right-hand side (C*K, E): volume + surface integrals, in the
+    JAX package's parameter layout (quinoa_tpu/pde/dg.py:312-313).
 
     dofmask (K, E) or None (every dof active): the state is masked and
     so is the result, as in quinoa_tpu/pde/dg.py:330-333, :451-452.
+    accum_plan must be None (no_plan).
     The volume integral includes the system's source, if any (the
     XLA formulation, volume_rhs; without a source at P1 the sum order of
-    the limit + volume kernel, volume_rhs_plain).  face_gp=False takes a
-    fused face pass (face_pass_for: K12 + K13 on a card at every order and
-    flux); with want_charvel it also returns delt (E,), the dt sweep's
-    per-element summed charvel.
-    face_gp=True takes the face Gauss-point path (:396-453): face states
+    the limit + volume kernel, volume_rhs_plain).  face_gp=False without
+    a dofmask takes the fused face pass where the JAX package takes its
+    fused kernels (face_pass_for: K12 + K13 on a card at every order and
+    flux; compressible Euler on coordinate-free faces only); with
+    want_charvel it also returns delt (E,), the dt sweep's per-element
+    summed charvel.  Otherwise (the JAX default face_gp=True, or a
+    dofmask) it takes the face Gauss-point path (:396-453): face states
     through the gather (K5), ghosts and the flux at the face coordinates
     in torch, element sums through the accumulation (K6).  vol_rhs, when
     given, replaces the volume integral (the limit + volume pass made it).
     t is the time the boundary ghosts, the flux and the source see.
     """
+    no_plan(accum_plan)
+    face_gp = face_gp or dofmask is not None
     if face_gp and want_charvel:
         raise ValueError("the face Gauss-point path has no charvel: use "
                          "dg_dt")

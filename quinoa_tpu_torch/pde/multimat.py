@@ -48,7 +48,7 @@ from ..ops.face_accum import accumulate_faces, face_gather
 from ..ops.face_fused import delt_plain, mm_face_pass
 from ..ops.nbr_bounds import neighbor_mean_bounds
 from .dg import (BC_DIRICHLET, BC_INTERIOR, BC_SYMMETRY, DGGeom, dg_dt,
-                 dg_dt_from_delt, dg_initialize, volume_rhs)
+                 dg_dt_from_delt, dg_initialize, no_plan, volume_rhs)
 from .eos import StiffenedGas
 from .limiter import consistent_mm_phi, superbee_phi
 
@@ -325,12 +325,14 @@ class MultiMatSystem:
         accv = acc.reshape(self.nrows, K, -1)
         return accv[:C], accv[C:C + 3 * nmat, 0], accv[C + 3 * nmat, 0]
 
-    def rhs_p0(self, geom: DGGeom, U, t, want_delt=False):
+    def rhs_p0(self, geom: DGGeom, U, t, accum_plan=None, want_delt=False):
         """Finite-volume rhs (C, E) with the non-conservative terms.  With
         fused_ok the multimat face pass (K14 + K13 on a card) takes the
         whole face sweep, and want_delt also returns its per-element summed
         charvel; otherwise the Dirichlet route (quinoa_tpu/pde/multimat.py
-        :345-405, face sums through K6)."""
+        :345-405, face sums through K6).  accum_plan, at the JAX package's
+        position, must be None: the port has no accumulation plans."""
+        no_plan(accum_plan)
         nmat, C = self.nmat, self.ncomp
         if self.fused_ok:
             acc, delt = mm_face_pass(self, geom, U)
@@ -374,13 +376,19 @@ class MultiMatSystem:
         return (torch.cat([contribL, dapL, divL[None]]),
                 torch.cat([contribR, -dapL, -divL[None]]))
 
-    def rhs(self, geom: DGGeom, U, t, want_delt=False):
+    def rhs(self, geom: DGGeom, U, t, accum_plan=None, want_delt=False,
+            face_gp=False):
         """Order-dispatching rhs (C*K, E) [, delt]: P0 keeps the finite-
         volume path (intsharp ignored); P1 (ndof 4) adds the XLA-formulation
         volume integral to the multimat face pass (its THINC flavour, on
         the carriers of U, with intsharp) and integrates the
         non-conservative terms at the volume Gauss points.  The THINC
-        carriers accumulate nothing, so the pass's R rows are the same."""
+        carriers accumulate nothing, so the pass's R rows are the same.
+        accum_plan and face_gp sit at the JAX package's positions
+        (quinoa_tpu/pde/multimat.py:407-408); accum_plan must be None, and
+        face_gp changes nothing: the multimat pass runs on faces whose
+        flux and ghosts read no coordinates (fused_ok), either way."""
+        no_plan(accum_plan)
         K = geom.ndof
         if K == 1:
             return self.rhs_p0(geom, U, t, want_delt=want_delt)

@@ -216,6 +216,34 @@ def test_gather_and_assemble_exact(slots):
         np.asarray(j_gather_nodes(jnp.asarray(U), jnp.asarray(inpoelT))))
 
 
+@pytest.mark.parametrize("rows", [1, 5])
+def test_cg_assemble_plain_bitwise_at_path_rows(rows):
+    """K9's plain version at the ALECG paths' rows (1: alecg, 5:
+    alecg_cf) equals the JAX package's assemble_add of cv at its four
+    corners plus its assemble_add of [d, -d] over the edge slots, added as
+    quinoa_tpu/inciter/alecg.py adds them, bit for bit in float64; both
+    slot tables have nodes with fewer slots than D (pad slots)."""
+    from quinoa_tpu.mesh.derived import gen_inpoed
+
+    mesh = _ordered(4, 3, 3)
+    edges = gen_inpoed(mesh.inpoel).astype(np.int32)
+    E, nE = mesh.nelem, len(edges)
+    nsup, _ = build_nsup(mesh.inpoel, mesh.nnode)
+    ensup, _ = build_nsup(edges, mesh.nnode)
+    assert (nsup == 4 * E).any() and (ensup == 2 * nE).any()
+    rng = np.random.default_rng(40 + rows)
+    cv = rng.standard_normal((rows, E))
+    d = rng.standard_normal((rows, nE))
+    got = cg_assemble_plain(_t(cv), _t(d), torch.from_numpy(nsup),
+                            torch.from_numpy(ensup))
+    vol = j_assemble_add(jnp.broadcast_to(jnp.asarray(cv), (4, rows, E)),
+                         jnp.asarray(nsup))
+    dis = j_assemble_add(jnp.stack([jnp.asarray(d), -jnp.asarray(d)]),
+                         jnp.asarray(ensup))
+    assert got.shape == (rows, mesh.nnode)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(vol + dis))
+
+
 def test_numpy_build_nsup_matches_native():
     """The port's numpy build_nsup builds the JAX package's native table
     (its numpy fallback where the library is not built), for element and

@@ -444,6 +444,51 @@ def test_node_kernels_match_plain_versions(card, rows, dtype):
     assert kernels.launches == {**ZERO, "node_gather": 1, "node_assemble": 6}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [1, 5])
+def test_cg_assembly_path_instances_bit_for_bit(card, C, dtype):
+    """K11 at the three instances of a DiagCG + FCT step ((2C), (2C + 2C,
+    one max row per element), (C) rows) and K9 at C rows, at C = 1 and 5,
+    bit for bit against their plain versions on meshes with pad slots; a
+    NaN in one element's max row makes exactly its 4 nodes' maxima NaN."""
+    from quinoa_tpu_torch.ops.alecg_fused import (cg_assemble,
+                                                  cg_assemble_plain)
+    from quinoa_tpu_torch.ops.node_window import (node_assemble,
+                                                  node_assemble_plain)
+
+    g = _diagcg("slotcyl", card, dtype).geom
+    a = _alecg("slotcyl", card, dtype)
+    gen = torch.Generator(device=card).manual_seed(17 + C)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=card, dtype=dtype)
+
+    E = g.nelem
+    assert bool((g.nsup == 4 * E).any())
+    xm = randn(1, 2 * C, E)
+    e0 = E // 2
+    xm[0, -1, e0] = float("nan")
+    kernels.reset_launches()
+    for xa, m in ((randn(4, 2 * C, E), None), (randn(4, 2 * C, E), xm),
+                  (randn(4, C, E), None)):
+        got = node_assemble(xa, m, g.nsup)
+        assert _same((got,), (node_assemble_plain(xa, m, g.nsup),))
+    got = node_assemble(randn(4, 2 * C, E), xm, g.nsup)
+    nan = torch.isnan(got)
+    assert int(nan.sum()) == 4
+    assert set(torch.nonzero(nan[-1]).flatten().tolist()) == set(
+        g.inpoelT[:, e0].tolist())
+    n_e = a.edget.ensup
+    nE = a.edget.edges.shape[1]
+    assert bool((n_e == 2 * nE).any())
+    cv, d = randn(C, a.geom.nelem), randn(C, nE)
+    assert _same((cg_assemble(cv, d, a.geom.nsup, n_e),),
+                 (cg_assemble_plain(cv, d, a.geom.nsup, n_e),))
+    torch.cuda.synchronize()
+    assert kernels.launches == {**ZERO, "node_assemble": 4,
+                                "cg_assemble": 1}
+
+
 @pytest.mark.parametrize("case", ["slotcyl", "vortical"])
 def test_diagcg_on_card_matches_cpu(card, case):
     """Two float64 DiagCG + FCT steps on the card against the CPU with

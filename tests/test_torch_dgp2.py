@@ -216,7 +216,8 @@ def test_volume_integral_with_source_matches_jax(tg_mesh):
     assert float(np.abs(full - surf).max()) > 1.0
     np.testing.assert_allclose(rv.numpy(), full - surf, rtol=0,
                                atol=RHS_ATOL)
-    np.testing.assert_allclose(dg_rhs(tsys, tg, torch.as_tensor(U0), t=t),
+    np.testing.assert_allclose(dg_rhs(tsys, tg, torch.as_tensor(U0), None, t,
+                                      face_gp=False),
                                full, rtol=0, atol=RHS_ATOL)
 
 

@@ -163,6 +163,47 @@ def test_node_assemble_max_rows_match_jax(window_mesh, corners):
     np.testing.assert_array_equal(both[2:].numpy(), got.numpy())
 
 
+#: the K11 calls of a DiagCG + FCT step (inciter/diagcg.py), as sum rows
+#: and max rows (one row per element) per component: the rhs + diffusion
+#: sums, the P sums + Q maxima and the limited A sums
+K11_CALLS = {"rhs+diffusion": (2, 0), "P+Q": (2, 2), "limited A": (1, 0)}
+
+
+@pytest.mark.parametrize("C", [1, 5])
+@pytest.mark.parametrize("call", list(K11_CALLS))
+def test_node_assemble_path_instances_bitwise(window_mesh, C, call):
+    """K11's plain version at every instance a DiagCG + FCT step launches,
+    (2C), (2C + 2C, one max row per element) and (C) rows at C = 1
+    (diagcg) and 5 (diagcg_cf), equals the JAX package's assemble_add, or
+    its assemble_add_max of the element rows broadcast to the four
+    corners, bit for bit in float64.  The mesh has nodes with fewer slots
+    than D (pad slots); a NaN in one element's max row makes exactly its
+    4 nodes' maxima NaN."""
+    mesh, _, nsup = window_mesh
+    E = mesh.nelem
+    assert (nsup == 4 * E).any()
+    fa, fm = K11_CALLS[call]
+    rng = np.random.default_rng(30 + C)
+    xa = rng.normal(size=(4, fa * C, E))
+    xm = rng.normal(size=(1, fm * C, E)) if fm else None
+    ns = torch.from_numpy(nsup)
+    if xm is None:
+        got = node_assemble_plain(_t(xa), None, ns).numpy()
+        want = np.asarray(j_assemble_add(jnp.asarray(xa), jnp.asarray(nsup)))
+    else:
+        e0 = E // 2
+        xm[0, -1, e0] = np.nan
+        got = node_assemble_plain(_t(xa), _t(xm), ns).numpy()
+        x4 = jnp.asarray(np.broadcast_to(xm, (4,) + xm.shape[1:]))
+        ja, jm = j_assemble_add_max(jnp.asarray(xa), x4, jnp.asarray(nsup))
+        want = np.concatenate([np.asarray(ja), np.asarray(jm)])
+        nan = np.isnan(got)
+        assert int(nan.sum()) == 4
+        assert set(np.nonzero(nan[-1])[0]) == set(mesh.inpoel[e0])
+    assert got.shape == ((fa + fm) * C, mesh.nnode)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_node_assemble_pads_and_nan():
     """A node that no slot touches reads 0 in a sum row and finfo.min in a
     max row; a NaN slot makes its nodes' maxima NaN (torch.maximum, as

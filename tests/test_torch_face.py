@@ -96,8 +96,9 @@ def test_face_pass_matches_xla_rhs_and_dt(case):
 
     tsys = TCompFlow(TSedov())
     tU = torch.as_tensor(U0)
-    np.testing.assert_allclose(dg_rhs(tsys, tg, tU).numpy(), r_x, rtol=0,
-                               atol=RHS_ATOL)
+    np.testing.assert_allclose(
+        dg_rhs(tsys, tg, tU, None, 0.0, face_gp=False).numpy(), r_x, rtol=0,
+        atol=RHS_ATOL)
     assert np.isclose(float(dg_dt(tsys, tg, tU)), dt_x, rtol=DT_RTOL)
 
 

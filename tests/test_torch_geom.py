@@ -4,10 +4,16 @@ initial projection.
 
 Float64 on the CPU.  The port builds the geometry with numpy written in the
 operation order of the JAX package's native passes, so tables are
-compared for exact equality.
+compared for exact equality whenever the JAX package's native library
+loads.  Where it does not (QUINOA_TPU_NO_NATIVE=1, or no toolchain), the
+JAX package takes its numpy fallback, whose face coordinates xi_l differ
+from the native pass's by 1 ulp in some entries: the float fields are then
+held to 1 ulp of 1 (FALLBACK_ATOL), the integer fields still exactly.
 """
 
 import dataclasses
+import os
+import time
 
 import numpy as np
 import pytest
@@ -28,6 +34,24 @@ from quinoa_tpu_torch.pde.dg import build_dggeom as t_build
 from quinoa_tpu_torch.pde.dg import dg_initialize as t_init
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow as TCompFlow
 from quinoa_tpu_torch.pde.problems import SedovBlastwave as TSedov
+
+
+#: one ulp of 1 in float64 (2.2e-16), rounded up: the JAX numpy
+#: fallback's xi_l against the native pass's
+FALLBACK_ATOL = 2.3e-16
+
+
+def jax_native_loads():
+    """Whether the JAX package's native library loads.  Its loader runs
+    make in every process and caches a failed load, and a process that
+    loads the library while another rebuilds it in place fails: so a
+    failed load is tried once more, a second later, from a reset loader."""
+    import quinoa_tpu.native as qn
+
+    if qn.lib() is None and os.environ.get("QUINOA_TPU_NO_NATIVE") != "1":
+        time.sleep(1.0)
+        qn._TRIED, qn._LIB = False, None
+    return qn.lib() is not None
 
 
 def jax_geom_arrays(g):
@@ -64,15 +88,26 @@ def test_hilbert_reorder_matches(meshes):
 ])
 def test_build_dggeom_tables_equal(meshes, bc):
     """Every field and table of the port's geometry equals quinoa_tpu's:
-    face order, fose, fsideR and esuelT included."""
+    face order, fose, fsideR and esuelT included; bit for bit against the
+    JAX package's native geometry, or within FALLBACK_ATOL on the float
+    fields against its numpy fallback where the native library does not
+    load."""
     _, mesh = meshes
+    native = jax_native_loads()
+    against = ("the JAX package's native geometry" if native else
+               f"the JAX package's numpy fallback (atol {FALLBACK_ATOL})")
     jg = jax_geom_arrays(j_build(mesh, ndof=4, bc_sidesets=bc))
     tg = convert.geom_to_arrays(t_build(mesh, ndof=4, bc_sidesets=bc,
                                         dtype=torch.float64, device="cpu"))
     for name in GEOM_TENSOR_FIELDS:
-        assert tg[name].shape == jg[name].shape, name
-        assert tg[name].dtype == jg[name].dtype, name
-        np.testing.assert_array_equal(tg[name], jg[name], err_msg=name)
+        msg = f"{name} against {against}"
+        assert tg[name].shape == jg[name].shape, msg
+        assert tg[name].dtype == jg[name].dtype, msg
+        if native or not np.issubdtype(jg[name].dtype, np.floating):
+            np.testing.assert_array_equal(tg[name], jg[name], err_msg=msg)
+        else:
+            np.testing.assert_allclose(tg[name], jg[name], rtol=0,
+                                       atol=FALLBACK_ATOL, err_msg=msg)
     assert tg["ndof"] == jg["ndof"] and tg["nelem_real"] == jg["nelem_real"]
     assert set(tg["tables"]) == set(jg["tables"])
     for k, v in jg["tables"].items():

@@ -170,7 +170,8 @@ def test_lf_p1_stage_matches_xla(sod_p1):
     U0 = _sod_state(jsys, jg, 5)
     want = np.asarray(j_dg_rhs(jsys, jg, jnp.asarray(U0), None, 0.0,
                                face_gp=False))
-    r, delt = dg_rhs(tsys, tg, torch.as_tensor(U0), want_charvel=True)
+    r, delt = dg_rhs(tsys, tg, torch.as_tensor(U0), None, 0.0, face_gp=False,
+                     want_charvel=True)
     assert float(np.abs(want).max()) > 1e-3
     np.testing.assert_allclose(r.numpy(), want, rtol=0, atol=RHS_ATOL)
     dt_j = float(j_dg_dt(jsys, jg, jnp.asarray(U0), None))

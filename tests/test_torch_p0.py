@@ -123,8 +123,9 @@ def test_p0_face_pass_matches_pallas_and_xla(sod):
     np.testing.assert_allclose(acc.numpy(), r_x, rtol=0, atol=RHS_ATOL)
     r, delt2 = fused_face_pass(tsys, tg, tU)
     assert torch.equal(r, acc) and torch.equal(delt2, delt)
-    np.testing.assert_allclose(dg_rhs(tsys, tg, tU).numpy(), r_x, rtol=0,
-                               atol=RHS_ATOL)
+    np.testing.assert_allclose(
+        dg_rhs(tsys, tg, tU, None, 0.0, face_gp=False).numpy(), r_x, rtol=0,
+        atol=RHS_ATOL)
     dt_j = float(j_dg_dt(jsys, jg, jnp.asarray(U0), None))
     assert np.isclose(float(dg_dt_from_delt(tg, delt)), dt_j, rtol=DT_RTOL)
 
@@ -140,7 +141,7 @@ def test_p0_rhs_with_source_matches_jax():
     U0 = np.asarray(JSolver(jsys, jg).initial_state().u)
     want = np.asarray(j_dg_rhs(jsys, jg, jnp.asarray(U0), None, 0.3,
                                face_gp=False))
-    got = dg_rhs(tsys, tg, torch.tensor(U0), t=0.3)
+    got = dg_rhs(tsys, tg, torch.tensor(U0), None, 0.3, face_gp=False)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=RHS_ATOL)
 
 

@@ -329,23 +329,36 @@ def test_newly_ported_configurations_match_jax(runs, dirichlet_geoms, kw,
     assert np.isclose(float(b.dt), float(a.dt), rtol=DT_RTOL)
 
 
-@pytest.mark.parametrize("pair", ["DGSolver", "diagcg_advance"])
+@pytest.mark.parametrize("pair", ["DGSolver", "diagcg_advance", "dg_rhs",
+                                  "MultiMatSystem.rhs",
+                                  "MultiMatSystem.rhs_p0"])
 def test_signatures_match_jax(pair):
     """The parameter names, order and defaults of DGSolver (cweight
-    between limiter and pref) and diagcg_advance (combine_min between
-    combine_max and bc_n) equal the JAX package's."""
+    between limiter and pref), diagcg_advance (combine_min between
+    combine_max and bc_n), dg_rhs (dofmask and t without defaults, then
+    accum_plan, face_gp=True) and MultiMatSystem.rhs and rhs_p0 (accum_plan
+    after t; face_gp last on rhs) equal the JAX package's."""
     import inspect
 
     from quinoa_tpu.inciter import diagcg as j_diagcg
     from quinoa_tpu.inciter import dg as j_dg
+    from quinoa_tpu.pde import dg as j_pdg
+    from quinoa_tpu.pde import multimat as j_mm
 
     from quinoa_tpu_torch.inciter import diagcg as t_diagcg
     from quinoa_tpu_torch.inciter import dg as t_dg
+    from quinoa_tpu_torch.pde import dg as t_pdg
+    from quinoa_tpu_torch.pde import multimat as t_mm
 
-    if pair == "DGSolver":
-        ref, port = j_dg.DGSolver.__init__, t_dg.DGSolver.__init__
-    else:
-        ref, port = j_diagcg.diagcg_advance, t_diagcg.diagcg_advance
+    ref, port = {
+        "DGSolver": (j_dg.DGSolver.__init__, t_dg.DGSolver.__init__),
+        "diagcg_advance": (j_diagcg.diagcg_advance, t_diagcg.diagcg_advance),
+        "dg_rhs": (j_pdg.dg_rhs, t_pdg.dg_rhs),
+        "MultiMatSystem.rhs": (j_mm.MultiMatSystem.rhs,
+                               t_mm.MultiMatSystem.rhs),
+        "MultiMatSystem.rhs_p0": (j_mm.MultiMatSystem.rhs_p0,
+                                  t_mm.MultiMatSystem.rhs_p0),
+    }[pair]
     rp = inspect.signature(ref).parameters
     pp = inspect.signature(port).parameters
     assert list(pp) == list(rp)
@@ -356,6 +369,52 @@ def test_signatures_match_jax(pair):
             assert d(3.5) == p.default(3.5) == 3.5, name
         else:
             assert d == p.default, name
+
+
+@pytest.mark.parametrize("case", ["sedov_fused", "transport_dirichlet"])
+def test_positional_jax_shaped_dg_rhs_calls(runs, case):
+    """dg_rhs called positionally as the JAX package is called gives its
+    rhs (float64, atol 1e-11): dg_rhs(s, g, U, None, 0.0, None, False) on
+    the Sedov P1 box takes the fused pass (a (r) result, not a tuple), and
+    dg_rhs(s, g, U, None, 0.0) with the JAX defaults on a 4x4x2
+    GaussHump DGTransport box with Dirichlet faces takes the face
+    Gauss-point route instead of refusing the system.  A plan in the
+    accum_plan slot raises."""
+    from quinoa_tpu.pde.dg import dg_rhs as j_dg_rhs
+    from quinoa_tpu.pde.dg_compflow import DGTransport as JTransport
+    from quinoa_tpu.pde.problems import GaussHump as JGaussHump
+
+    from quinoa_tpu_torch.pde.dg import dg_rhs
+
+    rng = np.random.default_rng(41)
+    if case == "sedov_fused":
+        _, jg, _, tg, _ = runs
+        jsys, tsys = JCompFlow(JSedov()), TCompFlow(TSedov())
+        U = np.zeros((5 * 4, jg.nelem))
+        U[0] = 1.0 + 0.05 * rng.random(jg.nelem)
+        U[16] = 2.5 + 0.05 * rng.random(jg.nelem)
+        U[[k for k in range(20) if k % 4]] += 0.01 * rng.random(
+            (15, jg.nelem))
+        args = (None, 0.0, None, False)
+    else:
+        mesh = box_tet_mesh(4, 4, 2, hi=(0.4, 0.4, 0.2))
+        jg = build_dggeom(mesh, ndof=4,
+                          bc_sidesets={i: BC_DIRICHLET for i in range(1, 7)})
+        tg = t_build(mesh, ndof=4,
+                     bc_sidesets={i: BC_DIRICHLET for i in range(1, 7)},
+                     dtype=torch.float64, device="cpu")
+        jsys, tsys = JTransport(JGaussHump()), TTransport(TGaussHump())
+        U = 0.05 * rng.standard_normal((4, jg.nelem))
+        U[0] += 0.5
+        args = (None, 0.0)
+    want = np.asarray(j_dg_rhs(jsys, jg, U, *args))
+    got = dg_rhs(tsys, tg, torch.as_tensor(U), *args)
+    assert isinstance(got, torch.Tensor)
+    assert got.shape == want.shape == U.shape
+    assert float(np.abs(want).max()) > 1e-5
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=U_ATOL)
+    with pytest.raises(ValueError, match="accum_plan"):
+        dg_rhs(tsys, tg, torch.as_tensor(U), None, 0.0, object())
 
 
 def test_positional_dgsolver_call_builds_pdg(runs):
