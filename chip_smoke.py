@@ -23,7 +23,10 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
            each call from a cold L2) and the host-inclusive one-call time
            of the kernel (call_ms) and of the plain version;
            K7-K9 (both flavours of K7 and K8) on the SlotCyl and
-           VorticalFlow initial states, alone and as the stage rhs;
+           VorticalFlow initial states, alone and as the stage rhs, bit
+           for bit (also, untimed, SlotCyl with three components and
+           ALECG_TAIL, a box whose edge and element counts leave K8 a
+           ragged last run and K7 a ragged last block);
            K10 (1 and 5 rows) and K11 at the three calls of a step of
            each DiagCG leg (rhs + diffusion sums, P sums + Q maxima,
            limited A sums; K9 and K11 bit for bit), max rows alone and a
@@ -140,6 +143,11 @@ ALECG = {"alecg": ("slotcyl", (0.0, 0.0, 0.0), (1.0, 1.0, 1.0), 0.8),
 ALECG_SMALL = {"alecg": ((10, 10, 5), (0.0, 0.0, 0.0), (1.0, 1.0, 0.5), 0.8),
                "alecg_cf": ((8, 8, 8), (-0.5, -0.5, -0.5), (0.5, 0.5, 0.5),
                             0.6)}
+#: a box whose edge count (1675) is not a multiple of the runs of edges K8
+#: gives a thread (its entry-by-entry loads and a ragged last run) and
+#: whose element count (1134) leaves K7 a ragged last block; each leg's
+#: ALECG_SMALL box and cfl otherwise
+ALECG_TAIL = (9, 7, 3)
 #: DiagCG + FCT legs: (problem, n, box lo, box hi, cfl); SlotCyl is
 #: bench_cg.py at its default n = 64, VorticalFlow the configuration of
 #: tests/test_cg_compflow.py at 48^3; the small float64 card-vs-CPU meshes
@@ -976,10 +984,10 @@ def mm_face_gp_checks(torch, p1_solver, iface_solver, dtype_name, timed):
         p1_solver.system.ncomp, g, Uf, XL, XR, None, dtype_name, timed)
 
 
-def alecg_solver(name, n, dtype, device):
+def alecg_solver(name, n, dtype, device, ncomp=1):
     """The ALECG solver of one bench_alecg.py leg on an n = (nx, ny, nz)
     box in Hilbert element and first-touch node order, every boundary
-    node pinned."""
+    node pinned; SlotCyl with ncomp components on the transport leg."""
     from quinoa_tpu_torch.inciter.alecg import make_alecg
     from quinoa_tpu_torch.mesh import (box_tet_mesh, first_touch_node_reorder,
                                        hilbert_element_reorder)
@@ -990,7 +998,7 @@ def alecg_solver(name, n, dtype, device):
     problem, lo, hi, cfl = ALECG[name]
     if n != (N_BIG,) * 3:
         _, lo, hi, cfl = ALECG_SMALL[name]
-    system = (CGTransport(SlotCyl()) if problem == "slotcyl"
+    system = (CGTransport(SlotCyl(ncomp=ncomp)) if problem == "slotcyl"
               else CGCompFlow(VorticalFlow()))
     mesh, _ = hilbert_element_reorder(box_tet_mesh(*n, lo=lo, hi=hi))
     mesh, _ = first_touch_node_reorder(mesh)
@@ -1000,8 +1008,8 @@ def alecg_solver(name, n, dtype, device):
 
 def alecg_kernel_checks(torch, solver, dtype_name, timed):
     """K7, K8 (the solver's flavour) and K9 against their plain versions on
-    the solver's initial state, then the three as the stage rhs; returns
-    {name: (max_abs_err, ms, plain_ms)} (times only when timed)."""
+    the solver's initial state, then the three as the stage rhs, each bit
+    for bit; returns {name: record} (times only when timed)."""
     from quinoa_tpu_torch.ops.alecg_fused import (alecg_edge,
                                                   alecg_edge_plain,
                                                   alecg_rhs, alecg_vol,
@@ -1041,12 +1049,14 @@ def alecg_kernel_checks(torch, solver, dtype_name, timed):
     )
     out = {name: measure(torch, name, f"N={N} E={E} nE={nE} rows={R}", kf,
                          pf, inputs, ops, dtype_name, timed, library,
-                         bitwise=name == "cg_assemble")
+                         bitwise=True)
            for name, kf, pf, inputs, ops, library in cases}
-    err = compare("stage rhs K7+K8+K9", (alecg_rhs(sy, g, e, rows, u),),
-                  (cg_assemble_plain(cv, d, g.nsup, e.ensup),), dtype_name)
-    phase("kernels", f"K7+K8+K9{sfx} {dtype_name}: max|kernel-plain|="
-          f"{err:.3e} (tol {TOL[dtype_name]:g} * max|plain|)")
+    if not bit_identical((alecg_rhs(sy, g, e, rows, u),),
+                         (cg_assemble_plain(cv, d, g.nsup, e.ensup),)):
+        raise AssertionError(f"stage rhs K7+K8+K9{sfx} ({dtype_name}): not "
+                             "bit-identical to the plain versions")
+    phase("kernels", f"K7+K8+K9{sfx} {dtype_name} N={N} E={E} nE={nE} "
+          f"rows={R}: the stage rhs is bit-identical to the plain versions")
     return out
 
 
@@ -1587,9 +1597,20 @@ def main():
             stats["cg_assemble (R=5)"] = recs.pop("cg_assemble")
         for k, v in recs.items():
             stats.setdefault(k, v)
-        alecg_kernel_checks(torch, alecg_solver(name, ALECG_SMALL[name][0],
-                                                torch.float64, dev),
-                            "float64", timed=False)
+        for n in (ALECG_SMALL[name][0], ALECG_TAIL):
+            alecg_kernel_checks(torch, alecg_solver(name, n, torch.float64,
+                                                    dev), "float64",
+                                timed=False)
+        alecg_kernel_checks(torch, alecg_solver(name, ALECG_TAIL,
+                                                torch.float32, dev),
+                            "float32", timed=False)
+    # K7 and K8 at three rows: SlotCyl with three components
+    alecg_kernel_checks(torch, alecg_solver("alecg", (N_BIG,) * 3,
+                                            torch.float32, dev, ncomp=3),
+                        "float32", timed=False)
+    alecg_kernel_checks(torch, alecg_solver("alecg", ALECG_SMALL["alecg"][0],
+                                            torch.float64, dev, ncomp=3),
+                        "float64", timed=False)
     t0 = time.perf_counter()
     diagcg = {name: diagcg_solver(name, torch.float32, dev)
               for name in DIAGCG}

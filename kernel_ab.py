@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B device times of the kernels K1 limit_vol, K12 face_wflux, K13
-basis_accum, K14 mm_face_wflux, K9 cg_assemble and K11 node_assemble on
-one NVIDIA GPU:
+basis_accum, K14 mm_face_wflux, K7 alecg_vol, K8 alecg_edge, K9
+cg_assemble and K11 node_assemble on one NVIDIA GPU:
 
     python3 kernel_ab.py [--kernels [K,...]] [--paths [P,...]] [--sass]
                          [NAME=DIR ...]
@@ -24,29 +24,36 @@ Superbee branch) and on p1_lf's perturbed Sod state; K12 with HLLC at P0
 face-pass input of pdg's first stage, at P2 (p2's TaylorGreen state),
 with Lax-Friedrichs at P1 (p1_lf's limited state) and, for its bits
 only, at P2; K14 at nmat 2/3, P0/P1, with and without THINC; K13 at its
-seven (R, K) shapes; K9 and K11 at every instance the CG paths launch,
-on the inputs the first step of the path's solver hands them (K9: alecg's
-1 row and alecg_cf's 5 rows at 48^3; K11: the rhs + diffusion sums, the P
-sums + Q maxima and the limited A sums of diagcg at 64^3 and of
-diagcg_cf at 48^3).  Each version's kernel is held against the plain
-version bit for bit (NaN where the plain version has NaN), then all
-versions are timed in turns with chip_smoke.device_ms (device time of
-the kernel alone, each call from a cold L2; median [min-max] of REPS),
-beside the bound (chip_smoke's rule).  --paths runs the named paths (all
-of PATHS without a list) 1 + 10 steps with each version in turns (first
-to last, then back; "this" twice when it is the only one), with their
-launch counts checked and a digest of the state they reach (runs that
-are bit-identical, in one checkout or two, print the same); the
-PROFILED paths then run 5 steps under
-torch.profiler (chip_smoke.profile_path: launches, device busy and idle
-a step, the largest kernels), mm_p1 and mm_thinc print their stage
-breakdown (chip_smoke.mm_breakdown).  With --sass, each version's float32
-instances of the chosen kernels first print their SASS size, global
-loads and the median distance from a load to its first use (cuobjdump).
-The routing between kernels is Python, so a change of it is compared by
-running this script with --kernels and no version from two checkouts in
-turns (another commit's chip_smoke.py and package beside a copy of this
-script).  Needs nvcc."""
+seven (R, K) shapes; K7, K8, K9 and K11 at every instance the CG paths
+launch, on the inputs the first stage of the path's solver hands them
+(K7 and K8 in both flavours: alecg's transport at 1 row, alecg_cf's
+Euler at 5 rows, 48^3; K9 at the same two; K11: the rhs + diffusion
+sums, the P sums + Q maxima and the limited A sums of diagcg at 64^3 and
+of diagcg_cf at 48^3), and K7 and K8 for their bits only on SlotCyl with
+three components at 48^3 and on chip_smoke's float64 meshes, the ragged
+ALECG_TAIL box included.  A version whose K7 transport still reads its
+velocity per corner (the sources before it read it per node) gets the
+same node velocities gathered to the corners.  Each version's kernel is
+held against the plain version bit for bit (NaN where the plain version
+has NaN), then all versions are timed in turns with chip_smoke.device_ms
+(device time of the kernel alone, each call from a cold L2; median
+[min-max] of REPS), beside the bound (chip_smoke's rule) and, in the
+same turns, one torch copy that reads and writes as many bytes as the
+bound counts (what the card reaches on streaming bytes alone under the
+same timing).  --paths runs the named paths (all of PATHS without a
+list) 1 + 10 steps with each version in turns (first to last, then back;
+"this" twice when it is the only one), with their launch counts checked
+and a digest of the state they reach (runs that are bit-identical, in
+one checkout or two, print the same); the PROFILED paths then run 5
+steps under torch.profiler (chip_smoke.profile_path: launches, device
+busy and idle a step, the largest kernels), mm_p1 and mm_thinc print
+their stage breakdown (chip_smoke.mm_breakdown).  With --sass, each
+version's float32 instances of the chosen kernels first print their SASS
+size, global loads and the median distance from a load to its first use
+(cuobjdump).  The routing between kernels is Python, so a change of it
+is compared by running this script with --kernels and no version from
+two checkouts in turns (another commit's chip_smoke.py and package
+beside a copy of this script).  Needs nvcc."""
 
 import argparse
 import ctypes
@@ -59,7 +66,15 @@ import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("limit_vol", "face_wflux", "basis_accum", "mm_face_wflux",
-           "cg_assemble", "node_assemble")
+           "alecg_vol", "alecg_edge", "cg_assemble", "node_assemble")
+#: the C entry points (qtk_<entry>_f32/_f64) of a source, where they are
+#: not the source's own name
+ENTRIES = {"alecg_vol": ("alecg_vol_node", "alecg_vol_cf"),
+           "alecg_edge": ("alecg_edge", "alecg_edge_cf")}
+#: K7 transport's entry and argument types while it read its velocity per
+#: corner, (4, R, 3, E): u, inpoelT, grad, w, vel, cv, R, N, E, stream
+CORNER_VEL = ("alecg_vol", [ctypes.c_void_p] * 6 + [ctypes.c_int] +
+              [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
 PATHS = ("p1", "pdg", "p0", "mm_p0", "mm_p1", "p1_lf", "mm_thinc", "p2",
          "alecg", "alecg_cf", "diagcg", "diagcg_cf")
 PROFILED = ("p1", "pdg", "p1_lf", "p0", "p2", "alecg", "alecg_cf", "diagcg",
@@ -125,18 +140,26 @@ def build_versions(kernels, dirs, srcs):
 
 class Library:
     """The checkout's kernel library with some entry points taken from
-    other libraries (same C interface)."""
+    other libraries (same C interface).  ``corner_vel`` holds the other
+    library's per-corner K7 transport entries, by suffix, where it has
+    those instead of the node-velocity ones."""
 
     def __init__(self, base, sos):
-        self.base, self.fns = base, {}
+        self.base, self.fns, self.corner_vel = base, {}, {}
         for src, so in sos.items():
             lib = ctypes.CDLL(so)
-            for sfx in ("f32", "f64"):
-                sym = f"qtk_{src}_{sfx}"
-                fn = getattr(lib, sym)
-                fn.argtypes = getattr(base, sym).argtypes
-                fn.restype = ctypes.c_int
-                self.fns[sym] = fn
+            for entry in ENTRIES.get(src, (src,)):
+                for sfx in ("f32", "f64"):
+                    sym = f"qtk_{entry}_{sfx}"
+                    if entry == "alecg_vol_node" and not hasattr(lib, sym):
+                        fn = getattr(lib, f"qtk_{CORNER_VEL[0]}_{sfx}")
+                        fn.argtypes = CORNER_VEL[1]
+                        self.corner_vel[sfx] = fn
+                    else:
+                        fn = getattr(lib, sym)
+                        fn.argtypes = getattr(base, sym).argtypes
+                        self.fns[sym] = fn
+                    fn.restype = ctypes.c_int
 
     def __getattr__(self, sym):
         return self.fns[sym] if sym in self.fns else getattr(self.base, sym)
@@ -192,9 +215,40 @@ def pdg_face_inputs(solver):
     return seen[0]
 
 
+def route_corner_velocity(kernels, torch):
+    """Route kernels.alecg_vol (K7 transport) to the library in use: its
+    own wrapper, or, for a library whose K7 reads per-corner velocity rows,
+    that entry on the node rows gathered to the corners once (counted
+    under alecg_vol as the wrapper counts)."""
+    node_vol, corner = kernels.alecg_vol, {}
+
+    def alecg_vol(u, inpoelT, grad, w, vel):
+        fn = getattr(kernels._lib, "corner_vel", {}).get(
+            kernels._suffix(u.dtype))
+        if fn is None:
+            return node_vol(u, inpoelT, grad, w, vel)
+        (R, N), E = u.shape, inpoelT.shape[1]
+        key = (vel.data_ptr(), inpoelT.data_ptr(), R)
+        if key not in corner:
+            corner[key] = vel[:, :, inpoelT.long()].permute(
+                2, 0, 1, 3).expand(4, R, 3, E).contiguous()
+        cv = torch.empty((R, E), dtype=u.dtype, device=u.device)
+        ptr = [ctypes.c_void_p(t.data_ptr())
+               for t in (u, inpoelT, grad, w, corner[key], cv)]
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = fn(*ptr, R, N, E, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"per-corner alecg_vol failed with CUDA "
+                               f"error {err}")
+        kernels.launches["alecg_vol"] += 1
+        return cv
+
+    kernels.alecg_vol = alecg_vol
+
+
 def step_calls(solver, kernels, entry):
-    """The arguments of every call of kernels.<entry> (K9 or K11) in the
-    first step of solver, from its initial state."""
+    """The arguments of every call of kernels.<entry> (K7, K8, K9 or K11)
+    in the first step of solver, from its initial state."""
     seen = []
     launch = getattr(kernels, entry)
 
@@ -264,6 +318,7 @@ def main():
         libs[name] = Library(base, built)
         sos[name] = list(built.values())
     names = list(libs)
+    route_corner_velocity(kernels, torch)
     if args.sass:
         for name in names:
             for so in sos[name]:
@@ -330,13 +385,18 @@ def main():
         got = kf()
         b = cs.nbytes(*inputs, *got)
         bound = max(1e3 * b / cs.HBM_BYTES_PER_S, 1e3 * ops / cs.F32_OPS_PER_S)
+        # yardstick: one device copy that reads and writes b bytes in all
+        src = torch.empty(b // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
         times = cs.device_ms(torch, [lambda n=n: (use(n), kf())
-                                     for n in names])
+                                     for n in names] + [lambda: dst.copy_(src)])
         use("this")
+        copy = times.pop()
         cs.phase("ab", f"{label}: bit-identical to the plain version; " +
                  ", ".join(f"{n} {cs.spread(t)} ({100 * bound / t[0]:.1f}% "
                            "of bound)" for n, t in zip(names, times)) +
-                 f"; bound {bound:.4f} ms ({b} bytes); "
+                 f"; bound {bound:.4f} ms ({b} bytes); a copy of as many "
+                 f"bytes {cs.spread(copy)}; "
                  f"{names[0]}/{names[-1]} {times[0][0] / times[-1][0]:.3f}")
         return want
 
@@ -461,6 +521,46 @@ def main():
                   tuple(t for t in (wfl, mx, g.fose, g.fsideR, *xi, rv)
                         if t is not None),
                   cs.OPS["basis_accum"][5, K] * g.nelem)
+
+    # K7 and K8 on alecg's and alecg_cf's first stage; their bits on
+    # SlotCyl with three rows and on the float64 meshes
+    if "alecg_vol" in srcs or "alecg_edge" in srcs:
+        from quinoa_tpu_torch.ops.alecg_fused import (alecg_edge_plain,
+                                                      alecg_vol_plain)
+        cases = [(name, solver(name), False) for name in cs.ALECG]
+        cases.append(("alecg ncomp 3", cs.alecg_solver(
+            "alecg", (cs.N_BIG,) * 3, f32, dev, ncomp=3), True))
+        for name in cs.ALECG:
+            for n in (cs.ALECG_SMALL[name][0], cs.ALECG_TAIL):
+                cases.append((f"{name} {n} float64", cs.alecg_solver(
+                    name, n, torch.float64, dev), True))
+        for label, s, bits_only in cases:
+            sy, g, e, rows = s.system, s.geom, s.edget, s.rows
+            sfx = "" if sy.flavour == "transport" else "_cf"
+            u = s.initial_state().u
+            R, N, E, nE = u.shape[0], g.nnode, g.nelem, e.edges.shape[1]
+            shape = f"N={N} E={E} nE={nE} rows={R}"
+            if "alecg_vol" in srcs:
+                args = step_calls(s, kernels, "alecg_vol" + sfx)[0]
+                if sfx:
+                    kf = lambda: (kernels.alecg_vol_cf(*args),)
+                    ops = cs.OPS["alecg_vol_cf"] * E
+                else:
+                    kf = lambda: (kernels.alecg_vol(*args),)
+                    ops = cs.OPS["alecg_vol_row"] * R * E
+                timed(f"K7{sfx} {label} {shape}", kf,
+                      lambda: (alecg_vol_plain(sy, g, rows, args[0]),),
+                      [a for a in args if isinstance(a, torch.Tensor)], ops,
+                      bits_only)
+            if "alecg_edge" in srcs:
+                args = step_calls(s, kernels, "alecg_edge" + sfx)[0]
+                ops = (cs.OPS["alecg_edge_cf"] if sfx
+                       else cs.OPS["alecg_edge_row"] * R) * nE
+                timed(f"K8{sfx} {label} {shape}",
+                      lambda: (getattr(kernels, "alecg_edge" + sfx)(*args),),
+                      lambda: (alecg_edge_plain(sy, e, rows, args[0]),),
+                      [a for a in args if isinstance(a, torch.Tensor)], ops,
+                      bits_only)
 
     # K9 on alecg's and alecg_cf's first stage, K11 at the three calls of
     # a diagcg and a diagcg_cf step

@@ -185,8 +185,8 @@ def build() -> ctypes.CDLL:
         fn = getattr(lib, f"qtk_face_accum_{sfx}")
         fn.argtypes = [P] * 6 + [I, L, L, P]
         fn.restype = ctypes.c_int
-        fn = getattr(lib, f"qtk_alecg_vol_{sfx}")
-        fn.argtypes = [P] * 6 + [I, L, L, P]
+        fn = getattr(lib, f"qtk_alecg_vol_node_{sfx}")
+        fn.argtypes = [P] * 6 + [I, L, L, L, P]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"qtk_alecg_vol_cf_{sfx}")
         fn.argtypes = [P] * 4 + [D, D, P, L, L, P]
@@ -341,22 +341,26 @@ def face_accum(cL, cR, fose, fsideR, base=None):
 
 def alecg_vol(u, inpoelT, grad, w, vel):
     """K7 transport (csrc/alecg_vol.cu): cv (R, E), the element term
-    -w * sum_b sum_j grad_bj * (vel_bj * u_b) of the R rows of u (R, N),
-    with the static corner velocities vel (4, R, 3, E)."""
+    -w * sum_b sum_j grad_bj * (vel_j(n_b) * u_b) of the R rows of u (R,
+    N), with the static node velocities vel (Cv, 3, N): Cv = 1 when every
+    row has the same velocity, else R."""
     dev = _cuda_device(u)
     dt = u.dtype
     R, N = u.shape
     E = inpoelT.shape[1]
+    Cv = vel.shape[0]
+    if Cv not in (1, R):
+        raise ValueError(f"vel has {Cv} rows, expected 1 or {R}")
     _check("u", u, (R, N), dt, dev)
     _check("inpoelT", inpoelT, (4, E), torch.int32, dev)
     _check("grad", grad, (4, 3, E), dt, dev)
     _check("w", w, (E,), dt, dev)
-    _check("vel", vel, (4, R, 3, E), dt, dev)
-    fn = getattr(build(), f"qtk_alecg_vol_{_suffix(dt)}")
+    _check("vel", vel, (Cv, 3, N), dt, dev)
+    fn = getattr(build(), f"qtk_alecg_vol_node_{_suffix(dt)}")
     cv = torch.empty((R, E), dtype=dt, device=dev)
     _launch("alecg_vol", fn,
             [_ptr(u), _ptr(inpoelT), _ptr(grad), _ptr(w), _ptr(vel),
-             _ptr(cv), R, N, E], dev)
+             _ptr(cv), R, 0 if Cv == 1 else 3 * N, N, E], dev)
     return cv
 
 

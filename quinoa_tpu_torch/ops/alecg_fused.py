@@ -20,7 +20,7 @@ Here:
   its element slots of cv and its edge slots of +-d, level by level.
 
 Each comes in the flavour of the system (``system.flavour``): transport
-reads static corner velocities and a static edge weight A*lambda;
+reads static node velocities and a static edge weight A*lambda;
 compflow evaluates the EoS and Euler flux per corner and the charspeed
 per endpoint.  The static rows are built once per geometry
 (build_alecg_rows).  The plain versions evaluate the JAX package's XLA
@@ -44,8 +44,11 @@ class ALECGRows:
     """Static per-entity rows of the stage rhs.
 
     w   : (E,)            V/4 = J*emask/24
-    vel : (4, C, 3, E)    transport: the flux velocity at each corner
-                          (velocity(coords_n[b], 0)); None for compflow
+    vel : (Cv, 3, N)      transport: the flux velocity at each node
+                          (velocity(coords, 0)), read at an element's
+                          corners through inpoelT; Cv = 1 when every
+                          component has the same velocity, else C; None
+                          for compflow
     ew  : (nE,)           transport: A*lambda, lambda the larger corner
                           charspeed; compflow: A
     """
@@ -57,13 +60,18 @@ class ALECGRows:
 
 def build_alecg_rows(system, geom, edget) -> ALECGRows:
     """The static rows of ``system``'s flavour, in the geometry's dtype and
-    device.  The transport charspeed reads the coordinates only, as the
-    XLA path's does (quinoa_tpu/pde/cg.py:268-270)."""
+    device.  The velocity is pointwise in the coordinates, so its value at
+    a node is the JAX package's corner row at every corner of that node
+    (coords_n[b] is coords gathered through inpoelT[b]).  The transport
+    charspeed reads the coordinates only, as the XLA path's does
+    (quinoa_tpu/pde/cg.py:268-270)."""
     w = (geom.J * geom.emask) / 24.0
     flavour = getattr(system, "flavour", None)
     if flavour == "transport":
-        vel = torch.stack([system.problem.velocity(geom.coords_n[b], 0.0)
-                           for b in range(4)]).contiguous()
+        vel = system.problem.velocity(geom.coords, 0.0)  # (C, 3, N)
+        if all(torch.equal(vel[c], vel[0]) for c in range(1, vel.shape[0])):
+            vel = vel[:1]
+        vel = vel.contiguous()
         lam = torch.maximum(system.charspeed(None, edget.xyz[0]),
                             system.charspeed(None, edget.xyz[1]))
         return ALECGRows(w=w, vel=vel, ew=(edget.A * lam).contiguous())
@@ -80,7 +88,8 @@ def alecg_vol_plain(system, geom, rows: ALECGRows, u):
     divF = None
     for b in range(4):
         if rows.vel is not None:
-            fb = [rows.vel[b, :, j] * un[b] for j in range(3)]
+            vb = rows.vel[:, :, geom.inpoelT[b].long()]  # (Cv, 3, E)
+            fb = [vb[:, j] * un[b] for j in range(3)]
         else:
             fb = system.flux_at_nodes(un[b], None)
         g = geom.grad[b]

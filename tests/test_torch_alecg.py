@@ -1,15 +1,17 @@
 """The port's ALECG against quinoa_tpu: first-touch node order, CG
-geometry and edge tables, the nsup gather/assembly, SlotCyl and
-VorticalFlow (with its manufactured source through torch.func.jvp), the
-stage rhs of the kernels' plain versions (K7 alecg_vol, K8 alecg_edge,
-K9 cg_assemble) against the XLA formulation and against the Pallas B9/B10
-kernels in interpret mode, and the ALECG solver against make_alecg.
+geometry and edge tables, the nsup gather/assembly, SlotCyl (one and
+three components) and VorticalFlow (with its manufactured source through
+torch.func.jvp), K7's node velocity rows against the Pallas plan's
+per-corner rows, the stage rhs of the kernels' plain versions (K7
+alecg_vol, K8 alecg_edge, K9 cg_assemble) against the XLA formulation and
+against the Pallas B9/B10 kernels in interpret mode, and the ALECG solver
+against make_alecg.
 
 Float64 on the CPU.  Meshes are Hilbert-element and first-touch-node
 ordered as bench_alecg.py orders them; states are made with numpy from a
 seed.  Tolerances:
-- integer tables and the reorder are exact; float geometry 1e-14
-  relative (the same float64 numpy code on both sides);
+- integer tables, the reorder and the velocity rows are exact; float
+  geometry 1e-14 relative (the same float64 numpy code on both sides);
 - problems and the manufactured source 1e-13 (the same closed forms;
   the source differs by the order of the two AD systems' jvp terms);
 - the stage rhs 1e-13 of its largest entry against XLA (the same order,
@@ -69,11 +71,16 @@ U_TOL = 1e-12
 DT_RTOL = 1e-12
 
 #: (mesh, system pair, cfl, steps): the meshes of tests/test_alecg_fused.py
-#: (its SlotCyl and VorticalFlow parity runs)
+#: (its SlotCyl and VorticalFlow parity runs), and SlotCyl with three
+#: components (each the field phase-shifted, all with one velocity)
 CASES = {
     "slotcyl": (dict(nx=10, ny=10, nz=5, hi=(1.0, 1.0, 0.5)),
                 lambda: (JTransport(JSlotCyl()), CGTransport(SlotCyl())),
                 0.8, 4),
+    "slotcyl3": (dict(nx=10, ny=10, nz=5, hi=(1.0, 1.0, 0.5)),
+                 lambda: (JTransport(JSlotCyl(ncomp=3)),
+                          CGTransport(SlotCyl(ncomp=3))),
+                 0.8, 2),
     "vortical": (dict(nx=8, ny=8, nz=8, lo=(-0.5, -0.5, -0.5),
                       hi=(0.5, 0.5, 0.5)),
                  lambda: (JCompFlow(JVortical()), CGCompFlow(VorticalFlow())),
@@ -98,10 +105,10 @@ def _rel(got, want):
 
 
 def _state(rng, case, N):
-    """A seeded nodal state (C, N): a random scalar field for transport,
+    """A seeded nodal state (C, N): random scalar fields for transport,
     physical conservative states for compflow."""
-    if case == "slotcyl":
-        return rng.random((1, N))
+    if case.startswith("slotcyl"):
+        return rng.random((3 if case == "slotcyl3" else 1, N))
     rho = 0.5 + rng.random(N)
     vel = rng.standard_normal((3, N))
     p = 0.1 + rng.random(N)
@@ -362,13 +369,36 @@ def test_stage_rhs_matches_pallas(name):
     js = j_make_alecg(jsys, mesh, cfl=cfl)
     ts = make_alecg(tsys, mesh, cfl=cfl, device="cpu")
     fp = build_alecg_fused_plan(jsys, js.geom, js.edget)
-    assert fp is not None and fp.kind == ("transport" if name == "slotcyl"
-                                          else "compflow")
+    assert fp is not None and fp.kind == ("compflow" if name == "vortical"
+                                          else "transport")
     u = _state(np.random.default_rng(8), name, mesh.nnode)
     want = np.asarray(alecg_rhs_fused(fp, jnp.asarray(u), interpret=True,
                                       system=jsys))
     got = alecg_rhs(ts.system, ts.geom, ts.edget, ts.rows, _t(u))
     assert _rel(got.numpy(), want) <= PALLAS_RTOL
+
+
+@pytest.mark.parametrize("name", ["slotcyl", "slotcyl3"])
+def test_velocity_rows_match_jax_corner_rows(name):
+    """K7 transport's node velocity rows, read at each element corner
+    through inpoelT, are the JAX package's per-corner rows of its fused
+    plan (v_n at estat rows 13 + (b*C + c)*3 + j) bit for bit; with three
+    components they are one row, the same at every component."""
+    meshkw, systems, cfl, _ = CASES[name]
+    mesh = _ordered(6, 6, 4, hi=meshkw["hi"])
+    jsys, tsys = systems()
+    js = j_make_alecg(jsys, mesh, cfl=cfl)
+    ts = make_alecg(tsys, mesh, cfl=cfl, device="cpu")
+    fp = build_alecg_fused_plan(jsys, js.geom, js.edget)
+    C, E = tsys.ncomp, mesh.nelem
+    vel = ts.rows.vel
+    assert vel.shape == (1, 3, mesh.nnode) and vel.is_contiguous()
+    estat = np.asarray(fp.estat)
+    for b in range(4):
+        corner = vel[0][:, ts.geom.inpoelT[b].long()].numpy()  # (3, E)
+        for c in range(C):
+            rows = estat[13 + (b * C + c) * 3:16 + (b * C + c) * 3, :E]
+            np.testing.assert_array_equal(corner, rows)
 
 
 def test_solver_matches_jax(case):
@@ -428,13 +458,13 @@ def test_cpu_tensors_launch_no_alecg_kernel(case):
     u = ts.initial_state().u
     g, e, rows = ts.geom, ts.edget, ts.rows
     with pytest.raises(ValueError, match="CUDA tensor"):
-        if name == "slotcyl":
+        if name != "vortical":
             kernels.alecg_vol(u, g.inpoelT, g.grad, rows.w, rows.vel)
         else:
             kernels.alecg_vol_cf(u, g.inpoelT, g.grad, rows.w,
                                  ts.system.eos)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        if name == "slotcyl":
+        if name != "vortical":
             kernels.alecg_edge(u, e.edges, rows.ew)
         else:
             kernels.alecg_edge_cf(u, e.edges, rows.ew, ts.system.eos)

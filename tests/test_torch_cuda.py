@@ -319,18 +319,24 @@ def test_p2_solver_on_card_matches_cpu(card):
 
 
 def _alecg(case, device, dtype=torch.float64):
-    """The ALECG solvers of chip_smoke.py's card-vs-CPU checks."""
+    """The ALECG solvers of chip_smoke.py's card-vs-CPU checks ("slotcyl",
+    "vortical"); SlotCyl with three components ("slotcyl3"); and both
+    flavours on a 9x7x3 box ("*_tail": nE = 1675 is not a multiple of the
+    runs of edges K8 gives a thread, so K8 takes its entry-by-entry loads
+    and a ragged last run; E = 1134 leaves K7 a ragged last block)."""
     from quinoa_tpu_torch.inciter.alecg import make_alecg
     from quinoa_tpu_torch.mesh import first_touch_node_reorder
     from quinoa_tpu_torch.pde.cg import CGTransport
     from quinoa_tpu_torch.pde.cg_compflow import CGCompFlow
     from quinoa_tpu_torch.pde.problems import SlotCyl, VorticalFlow
 
-    if case == "slotcyl":
-        mesh = box_tet_mesh(10, 10, 5, hi=(1.0, 1.0, 0.5))
-        system, cfl = CGTransport(SlotCyl()), 0.8
+    n = (9, 7, 3) if case.endswith("_tail") else None
+    if case.startswith("slotcyl"):
+        mesh = box_tet_mesh(*(n or (10, 10, 5)), hi=(1.0, 1.0, 0.5))
+        ncomp = 3 if case == "slotcyl3" else 1
+        system, cfl = CGTransport(SlotCyl(ncomp=ncomp)), 0.8
     else:
-        mesh = box_tet_mesh(8, 8, 8, lo=(-0.5, -0.5, -0.5),
+        mesh = box_tet_mesh(*(n or (8, 8, 8)), lo=(-0.5, -0.5, -0.5),
                             hi=(0.5, 0.5, 0.5))
         system, cfl = CGCompFlow(VorticalFlow()), 0.6
     mesh, _ = first_touch_node_reorder(hilbert_element_reorder(mesh)[0])
@@ -339,11 +345,13 @@ def _alecg(case, device, dtype=torch.float64):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", ["slotcyl", "vortical"])
+@pytest.mark.parametrize("case", ["slotcyl", "vortical", "slotcyl3",
+                                  "slotcyl_tail", "vortical_tail"])
 def test_alecg_kernels_match_plain_versions(card, case, dtype):
     """K7, K8 and K9 of each flavour against their plain versions on a
     perturbed state: bit for bit (the same expressions in the same order,
-    sums in slot-level order)."""
+    sums in slot-level order), also at three rows and on a mesh whose
+    element and edge counts leave ragged runs."""
     from quinoa_tpu_torch.ops.alecg_fused import (alecg_edge,
                                                   alecg_edge_plain,
                                                   alecg_rhs, alecg_vol,
@@ -366,7 +374,7 @@ def test_alecg_kernels_match_plain_versions(card, case, dtype):
     assert torch.equal(r, cg_assemble_plain(cv, d, g.nsup, e.ensup))
     assert torch.equal(alecg_rhs(sy, g, e, rows, u), r)
     torch.cuda.synchronize()
-    sfx = "" if case == "slotcyl" else "_cf"
+    sfx = "_cf" if case.startswith("vortical") else ""
     assert kernels.launches == {**ZERO, "alecg_vol" + sfx: 2,
                                 "alecg_edge" + sfx: 2, "cg_assemble": 2}
 
