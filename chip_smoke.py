@@ -6,8 +6,9 @@ Drives the port's three DG(P1) paths and its two ALECG paths at 48^3
 paths (SlotCyl at 64^3: 1,572,864 tets and 274,625 nodes; VorticalFlow at
 48^3), its DG(P2) path (TaylorGreen at 32^3: 196,608 tets, 399,360
 faces), its DG(P0) Sod path, its three multi-material paths, its
-Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
-(48^3) in float32 through their hand-written CUDA kernels:
+Lax-Friedrichs Sod DG(P1) path and its two THINC interface-advection paths
+(extrapolate and Dirichlet faces, 48^3) in float32 through their
+hand-written CUDA kernels:
 
 1. card    the name and power limit from nvidia-smi;
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -42,7 +43,11 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
            10 in float64), the THINC flavour of K14 (nmat 3) with K13 at 22
            rows and K4 at 12 components on the limited 48^3 interface
            advection state (THINC at nmat 2 and 3 in float64), with the
-           share of THINC-flagged face points; each timed kernel
+           share of THINC-flagged face points; K5 at mm_iface_p1's 108
+           rows (state and THINC carriers) and 48 rows (the dt sweep's
+           state) and K6 at its 88 face rows onto the volume term, bit for
+           bit, on that path's limited initial state (float32 at 48^3,
+           float64 on the small mesh); each timed kernel
            also gets its bound (bytes of its inputs read once and outputs
            written once over 3.35 TB/s, or its operations over 67 TFLOP/s,
            whichever is larger) and, where one PyTorch call computes the
@@ -51,8 +56,13 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
            P1, Sedov pdg, GaussHump, GaussHump pdg, ALECG and DiagCG
            SlotCyl and VorticalFlow, P2 TaylorGreen: 2 steps, u atol
            1e-11, dt rtol 1e-12, ndofel equal where the state has one),
-           and six more (P0 Sod, the three multimat paths, p1_lf and
-           mm_thinc; u atol 1e-11 of max(1, max|u|));
+           seven more (P0 Sod, the three multimat paths, p1_lf, mm_thinc
+           and mm_iface_p1; u atol 1e-11 of max(1, max|u|)) and the ten
+           SCHEMES solvers the same way (Sedov P1 with wenop1, Sedov
+           p0p1 with Superbee, NLEnergyGrowth P1 with Superbee on walls,
+           RayleighTaylor P1 on Dirichlet faces, GaussHump P2, TaylorGreen
+           P2 with Superbee, DiagCG with CylAdvect, ShearDiff (diffusion,
+           from t = 1) and RayleighTaylor, ALECG with RayleighTaylor);
 4. p1      the Sedov DG(P1) HLLC + Superbee step (bench.py) from its
            initial_state(): 1 warm-up and 10 timed steps through K1, K12
            and K13, 33 launches each, then 5 steps under torch.profiler
@@ -103,13 +113,20 @@ Lax-Friedrichs Sod DG(P1) path and its THINC interface-advection path
            interface sharpening (beta 2.5) and consistent Superbee,
            extrapolate on all six sides, cfl 0.4: K4 (12 components), the
            THINC flavour of K14 (mm_face_wflux_thinc) and K13 (22 rows).
-           Paths 12-17 gate L2(sol) after 11 steps against the JAX
+           Paths 12-18 gate L2(sol) after 11 steps against the JAX
            package's CPU float32 run (JAX_L2, jax_reference_l2.py) and,
            for multimat, the cell-mean fractions' minimum and sum; each
            ends with a torch.profiler window, mm_p1 and mm_thinc also with
            the host time of a stage's limiter, volume integral, face pass,
            non-conservative terms and alpha closure (mm_thinc: and its
            THINC carriers).
+18. mm_iface_p1 the THINC interface advection of path 17 with Dirichlet
+           on all six sides: the face Gauss-point route, K4 (3 a step), K5
+           (8 a step: el and er of each stage's rhs on the state and its
+           carriers, and of the stage-0 dt sweep) and K6 (3 a step), the
+           ghost, THINC and AUSM+up in torch; gated like paths 12-17, with
+           the host time of a stage's parts (the face Gauss-point pass and
+           the dt sweep in place of K14 + K13).
 
 Every path sets the launch counts to 0 just before it and reads them just
 after; a kernel of the path that did not launch as stated, or one that
@@ -225,6 +242,13 @@ JAX_L2 = {
                            42.29158020019531, 42.291534423828125,
                            0.09856325387954712, 147543.09375,
                            43291.5859375, 195302.15625]},
+    # path 18, the same way (t after 11 steps 5.974771e-6)
+    "mm_iface_p1": {"l2sol": [0.5889950394630432, 0.17312537133693695,
+                              0.7810274362564087, 5.890181541442871,
+                              0.20107600092887878, 0.9071171879768372,
+                              42.29158401489258, 42.291534423828125,
+                              0.09850376099348068, 147543.09375,
+                              43291.5859375, 195302.140625]},
 }
 JAX_L2_RTOL = 1e-4
 # Each L2 gate holds a component to rtol JAX_L2_RTOL plus L2_ULPS float32
@@ -252,10 +276,15 @@ L2_ULPS = 8
 # same initial state perturbed below one ulp (--ulp-seed 1, 2) move it by
 # 1.61e-4 and 1.43e-4, 32 and 28 ulps of the momentum kind's 42.29, while
 # every other component moves by less than rtol 1e-4.  The gate allows
-# twice the larger spread on that path.
-L2_ULPS_BY_PATH = {"mm_thinc": 64}
+# twice the larger spread on that path.  mm_iface_p1 (the same advection
+# on Dirichlet faces) is round-off there too: --ulp-seed 1 and 2 move its
+# z momentum (0.0985) by 1.626e-4 and 1.418e-4, 32.25 and 28.14 ulps of
+# 42.29, every other component by less than rtol 1e-4 (at most 9.2e-6
+# relative); twice the larger spread, rounded up, is 65 ulps.
+L2_ULPS_BY_PATH = {"mm_thinc": 64, "mm_iface_p1": 65}
 L2_SCALE = {"p2": "largest", "p0": "kind", "mm_p0": "kind", "mm_p1": "kind",
-            "mm_iface": "kind", "p1_lf": "kind", "mm_thinc": "kind"}
+            "mm_iface": "kind", "p1_lf": "kind", "mm_thinc": "kind",
+            "mm_iface_p1": "kind"}
 # The multimat cell-mean fractions after 11 steps: min alpha above
 # -ALPHA_MIN_ULPS float32 ulps of 1 and |sum alpha - 1| below
 # ALPHA_SUM_TOL.  The JAX package's own CPU float32 run of mm_p0 reaches
@@ -343,6 +372,9 @@ INSTANCES = (
     ("mm_face_wflux THINC (nmat 3, K=4)", "mm_face_wflux_thinc", "mm_thinc"),
     ("basis_accum (R=22, K=4)", "basis_accum", "mm_thinc"),
     ("nbr_bounds (C=12, K=4)", "nbr_bounds", "mm_thinc"),
+    ("face_gather (R=108)", "face_gather", "mm_iface_p1"),
+    ("face_gather (R=48)", "face_gather", "mm_iface_p1"),
+    ("face_accum (R=88)", "face_accum", "mm_iface_p1"),
     ("cg_assemble (R=5)", "cg_assemble", "alecg_cf"),
     ("node_assemble P+Q (R=2+2)", "node_assemble", "diagcg"),
     ("node_assemble A (R=1)", "node_assemble", "diagcg"),
@@ -352,11 +384,12 @@ INSTANCES = (
 )
 NEARFAR = {"face_wflux": "quinoa_tpu/ops/face_fused.py:762",
            "basis_accum": "quinoa_tpu/ops/face_fused.py:839"}
-#: paths 12-17: (problem, ndof, cfl); faces SOD_BC, Dirichlet on all six
-#: sides for mm_iface, extrapolate on all six for mm_thinc
+#: paths 12-18: (problem, ndof, cfl); faces SOD_BC, Dirichlet on all six
+#: sides for mm_iface and mm_iface_p1, extrapolate on all six for mm_thinc
 MM = {"p0": ("sod", 1, 0.5), "mm_p0": ("mm_sod", 1, 0.5),
       "mm_p1": ("mm_sod", 4, 0.5), "mm_iface": ("mm_iface", 1, 0.4),
-      "p1_lf": ("sod", 4, 0.5), "mm_thinc": ("mm_iface", 4, 0.4)}
+      "p1_lf": ("sod", 4, 0.5), "mm_thinc": ("mm_iface", 4, 0.4),
+      "mm_iface_p1": ("mm_iface", 4, 0.4)}
 #: the Euler paths among them (the others are multimat)
 EULER = ("p0", "p1_lf")
 MM_SMALL = (8, 3, 2)            # float64 card-vs-CPU and kernel meshes
@@ -377,6 +410,9 @@ PATHS = {
     "p1_lf": {"limit_vol": 3, "face_wflux_lf": 3, "basis_accum": 3},
     "mm_thinc": {"nbr_bounds": 3, "mm_face_wflux_thinc": 3,
                  "basis_accum": 3},
+    # K5: el and er of each stage's rhs (108 rows) and of the stage-0 dt
+    # sweep (48 rows)
+    "mm_iface_p1": {"nbr_bounds": 3, "face_gather": 8, "face_accum": 3},
 }
 #: the path whose launches the kernels line reports for each kernel
 MAIN_PATH = {"limit_vol": "p1", "nbr_bounds": "pdg",
@@ -727,10 +763,11 @@ def single_stream_checks(torch, geom, system, U, rv, dtype_name, timed):
 
 
 def mm_geom(name, n, dtype, device):
-    """DG geometry of path 12-17 `name` on a Hilbert-ordered box of n =
+    """DG geometry of path 12-18 `name` on a Hilbert-ordered box of n =
     (nx, ny, nz) cells spanning (1, ny/nx, nz/nx): the Sod tube's faces
     (extrapolate on the x faces, symmetry on the others), Dirichlet on all
-    six sides for mm_iface, extrapolate on all six for mm_thinc."""
+    six sides for mm_iface and mm_iface_p1, extrapolate on all six for
+    mm_thinc."""
     from quinoa_tpu_torch.mesh import box_tet_mesh, hilbert_element_reorder
     from quinoa_tpu_torch.pde.dg import (BC_DIRICHLET, BC_EXTRAPOLATE,
                                          BC_SYMMETRY, build_dggeom)
@@ -738,7 +775,7 @@ def mm_geom(name, n, dtype, device):
     nx, ny, nz = n
     mesh, _ = hilbert_element_reorder(box_tet_mesh(
         nx, ny, nz, hi=(1.0, ny / nx, nz / nx)))
-    if name == "mm_iface":
+    if name in ("mm_iface", "mm_iface_p1"):
         bc = {i: BC_DIRICHLET for i in range(1, 7)}
     elif name == "mm_thinc":
         bc = {i: BC_EXTRAPOLATE for i in range(1, 7)}
@@ -750,7 +787,7 @@ def mm_geom(name, n, dtype, device):
 
 
 def mm_solver(name, geom, nmat=None):
-    """The solver of path 12-17 `name` on geom; nmat (2 or 3) makes a
+    """The solver of path 12-18 `name` on geom; nmat (2 or 3) makes a
     multimat path's problem the interface advection with that many
     materials."""
     from quinoa_tpu_torch.inciter.dg import DGSolver
@@ -766,10 +803,9 @@ def mm_solver(name, geom, nmat=None):
         return DGSolver(DGCompFlow(SodShocktube(), riemann_flux=flux), geom,
                         cfl=cfl, limiter=limiter)
     problem = (MMInterfaceAdvection(nmat=nmat or 3)
-               if name in ("mm_iface", "mm_thinc") or nmat
-               else MMSodShocktube())
-    return MultiMatSolver(MultiMatSystem(problem,
-                                         intsharp=name == "mm_thinc"),
+               if MM[name][0] == "mm_iface" or nmat else MMSodShocktube())
+    thinc = name in ("mm_thinc", "mm_iface_p1")
+    return MultiMatSolver(MultiMatSystem(problem, intsharp=thinc),
                           geom, cfl=cfl, limiter=limiter)
 
 
@@ -984,6 +1020,58 @@ def mm_face_gp_checks(torch, p1_solver, iface_solver, dtype_name, timed):
         p1_solver.system.ncomp, g, Uf, XL, XR, None, dtype_name, timed)
 
 
+def mm_iface_p1_checks(torch, solver, dtype_name, timed):
+    """K5 and K6 at the instances of mm_iface_p1's face Gauss-point route,
+    bit for bit against their plain versions on the path's limited
+    initial state: K5 on the C + 5 nmat rows of K modes (the state and its
+    THINC carriers, 108 at nmat 3) at el and er, K5 on the C*K state rows
+    of the dt sweep (48) at el and er, and K6 on the route's face rows
+    (R*K, 88 at nmat 3) onto the volume term; each timed (el for K5) with
+    its one-call yardstick, index_select or index_add_.  Returns {entry:
+    record}."""
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.ops.face_accum import (accumulate_faces_plain,
+                                                 face_gather_plain)
+    from quinoa_tpu_torch.pde.dg import face_gp_rows, volume_rhs
+
+    sy, g = solver.system, solver.geom
+    C, K, E, F = sy.ncomp, g.ndof, g.nelem, g.nface
+    u = solver._limit(solver.initial_state().u)
+    X = sy.thinc_carriers(g, u.reshape(C, K, E))
+    Ug = torch.cat([u.reshape(C, K, E), sy.thinc_modes(X, K)]).reshape(
+        -1, E).contiguous()
+    Rv = volume_rhs(sy, g, u, 0.0)
+    cL, cR = face_gp_rows(sy.thinc_facade, g, Ug, 0.0)
+    base = torch.cat([Rv, Rv.new_zeros(((sy.nrows - C) * K, E))])
+    R = cL.shape[0]
+    el, er = g.el.long(), g.er.long()
+    inner = el != er
+    acc = base.clone()
+    src = torch.cat([cL, cR[:, inner]], dim=1)
+    idx = torch.cat([el, er[inner]])
+    out = {}
+    for rows in (Ug, u):
+        entry = f"face_gather (R={rows.shape[0]})"
+        out[entry] = measure(
+            torch, "face_gather", f"E={E} F={F} rows={rows.shape[0]} el",
+            lambda rows=rows: kernels.face_gather(rows, g.el),
+            lambda rows=rows: face_gather_plain(rows, g.el), (rows, g.el), 0,
+            dtype_name, timed,
+            lambda rows=rows: torch.index_select(rows, 1, g.el),
+            bitwise=True)
+        measure(torch, "face_gather", f"E={E} F={F} rows={rows.shape[0]} er",
+                lambda rows=rows: kernels.face_gather(rows, g.er),
+                lambda rows=rows: face_gather_plain(rows, g.er),
+                (rows, g.er), 0, dtype_name, False, bitwise=True)
+    out[f"face_accum (R={R})"] = measure(
+        torch, "face_accum", f"E={E} F={F} rows={R} onto the volume term",
+        lambda: kernels.face_accum(cL, cR, g.fose, g.fsideR, base),
+        lambda: accumulate_faces_plain(g, cL, cR, base),
+        (cL, cR, g.fose, g.fsideR, base), OPS["face_accum_row"] * R * E,
+        dtype_name, timed, lambda: acc.index_add_(1, idx, src), bitwise=True)
+    return out
+
+
 def alecg_solver(name, n, dtype, device, ncomp=1):
     """The ALECG solver of one bench_alecg.py leg on an n = (nx, ny, nz)
     box in Hilbert element and first-touch node order, every boundary
@@ -1160,19 +1248,21 @@ def diagcg_kernel_checks(torch, solver, dtype_name, timed):
     return out
 
 
-def card_vs_cpu(torch, name, make):
-    """Two float64 steps of make(device) on the card and on the CPU;
-    ndofel must agree where the state has one (DG).  On paths 12-15 (MM)
-    the atol is SOLVER_ATOL of max(1, max|u|) (the multimat energies reach
-    2.5e5), elsewhere SOLVER_ATOL."""
+def card_vs_cpu(torch, name, make, t0=0.0):
+    """Two float64 steps of make(device) from its initial state at t0 on
+    the card and on the CPU; ndofel must agree where the state has one
+    (DG).  On paths 12-18 (MM) and the SCHEMES solvers the atol is
+    SOLVER_ATOL of max(1, max|u|) (the multimat energies reach 2.5e5),
+    elsewhere SOLVER_ATOL."""
     on_card, on_cpu = make("card"), make("cpu")
-    sa = on_card.nsteps(on_card.initial_state(), 2)
-    sb = on_cpu.nsteps(on_cpu.initial_state(), 2)
+    sa = on_card.nsteps(on_card.initial_state(t0), 2)
+    sb = on_cpu.nsteps(on_cpu.initial_state(t0), 2)
     err = float((sa.u.cpu() - sb.u).abs().max())
     dterr = abs(float(sa.dt) - float(sb.dt))
     dg = hasattr(sb, "ndofel")
     same = not dg or bool(torch.equal(sa.ndofel.cpu(), sb.ndofel))
-    atol = SOLVER_ATOL * (max(1.0, float(sb.u.abs().max())) if name in MM
+    scaled = name in MM or name in SCHEMES
+    atol = SOLVER_ATOL * (max(1.0, float(sb.u.abs().max())) if scaled
                           else 1.0)
     if not (err <= atol and dterr <= 1e-12 * float(sb.dt) and same):
         raise AssertionError(f"{name} card vs CPU: |du|={err:.3e} "
@@ -1182,6 +1272,75 @@ def card_vs_cpu(torch, name, make):
     phase("kernels", f"small solver {name} (E={on_cpu.geom.nelem}, f64, 2 "
           f"steps) card vs CPU: max|du|={err:.3e} |ddt|={dterr:.3e}"
           f"{extra} (atol {atol:g}, dt rtol 1e-12)")
+
+
+#: the small float64 card-vs-CPU solvers of the schemes, sources and
+#: problems ported last: (solver, problem, ndof or None for CG, faces,
+#: mesh cells, box lo, box hi, cfl, t0, solver keywords)
+SCHEMES = {
+    "sedov_wenop1": ("dg", "SedovBlastwave", 4, "symmetry", SMALL,
+                     (0.0, 0.0, 0.0), (0.6, 0.6, 0.4), 0.5, 0.0,
+                     {"limiter": "wenop1"}),
+    "sedov_p0p1": ("dg", "SedovBlastwave", 4, "symmetry", SMALL,
+                   (0.0, 0.0, 0.0), (0.6, 0.6, 0.4), 0.5, 0.0,
+                   {"limiter": "superbeep1", "evolve_ndof": 1}),
+    "nlenergygrowth_p1": ("dg", "NLEnergyGrowth", 4, "symmetry", SMALL,
+                          (0.0, 0.0, 0.0), (0.6, 0.6, 0.4), 0.5, 0.0,
+                          {"limiter": "superbeep1"}),
+    "rayleightaylor_p1": ("dg", "RayleighTaylor", 4, "dirichlet", (4, 4, 3),
+                          (0.0, 0.0, 0.0), (0.4, 0.4, 0.3), 0.5, 0.0,
+                          {"limiter": "superbeep1"}),
+    "gausshump_p2": ("dg", "GaussHump", 10, "dirichlet", (4, 4, 2),
+                     (0.0, 0.0, 0.0), (1.0, 1.0, 0.5), 0.5, 0.0, {}),
+    "taylorgreen_p2_superbee": ("dg", "TaylorGreen", 10, "symmetry",
+                                P2_SMALL, (0.0, 0.0, 0.0), (1.0, 1.0, 0.75),
+                                0.5, 0.0, {"limiter": "superbeep1"}),
+    "diagcg_cyladvect": ("diagcg", "CylAdvect", None, None, (12, 12, 3),
+                         (0.0, 0.0, 0.0), (1.0, 1.0, 0.25), 0.8, 0.0, {}),
+    "diagcg_sheardiff": ("diagcg", "ShearDiff", None, None, (8, 4, 4),
+                         (0.0, -0.25, -0.25), (1.0, 0.25, 0.25), 0.5, 1.0,
+                         {}),
+    "diagcg_rayleightaylor": ("diagcg", "RayleighTaylor", None, None,
+                              (5, 5, 5), (-0.5, -0.5, -0.5),
+                              (0.5, 0.5, 0.5), 0.5, 0.0, {}),
+    "alecg_rayleightaylor": ("alecg", "RayleighTaylor", None, None,
+                             (5, 5, 5), (-0.5, -0.5, -0.5), (0.5, 0.5, 0.5),
+                             0.5, 0.0, {}),
+}
+
+
+def scheme_solver(torch, name, device):
+    """The SCHEMES solver `name` in float64 on device ("card" or "cpu"):
+    DG on a Hilbert-ordered box, CG with every boundary node pinned."""
+    import quinoa_tpu_torch.pde.problems as problems
+    from quinoa_tpu_torch.inciter import DiagCGSolver, make_alecg
+    from quinoa_tpu_torch.inciter.dg import DGSolver
+    from quinoa_tpu_torch.mesh import box_tet_mesh, hilbert_element_reorder
+    from quinoa_tpu_torch.pde.cg import CGTransport, make_cggeom
+    from quinoa_tpu_torch.pde.cg_compflow import CGCompFlow
+    from quinoa_tpu_torch.pde.dg import (BC_DIRICHLET, BC_SYMMETRY,
+                                         build_dggeom)
+    from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow, DGTransport
+
+    kind, problem, ndof, faces, n, lo, hi, cfl, _, kw = SCHEMES[name]
+    where = "cuda" if device == "card" else "cpu"
+    prob = getattr(problems, problem)()
+    transport = hasattr(prob, "velocity")
+    mesh = box_tet_mesh(*n, lo=lo, hi=hi)
+    if kind == "dg":
+        mesh, _ = hilbert_element_reorder(mesh)
+        code = BC_DIRICHLET if faces == "dirichlet" else BC_SYMMETRY
+        g = build_dggeom(mesh, ndof, {i: code for i in range(1, 7)},
+                         dtype=torch.float64, device=where)
+        system = DGTransport(prob) if transport else DGCompFlow(prob)
+        return DGSolver(system, g, cfl=cfl, **kw)
+    system = CGTransport(prob) if transport else CGCompFlow(prob)
+    if kind == "alecg":
+        return make_alecg(system, mesh, cfl=cfl, bcnodes=mesh.all_bnodes(),
+                          dtype=torch.float64, device=where)
+    return DiagCGSolver(system, make_cggeom(mesh, dtype=torch.float64,
+                                            device=where),
+                        cfl=cfl, bcnodes=mesh.all_bnodes())
 
 
 def drive(torch, solver, name, card, state=None):
@@ -1396,7 +1555,9 @@ def mm_breakdown(torch, solver, name, state, reps=5):
     """Host-clock ms of one multimat P1 stage's parts, each call ending in
     a synchronize (median of reps): the consistent Superbee limit (K4 and
     the torch phi), the volume integral, with THINC the carriers, the face
-    pass K14 + K13, the non-conservative volume terms and the alpha
+    pass (K14 + K13, or on Dirichlet faces the face Gauss-point route: K5,
+    the ghost, THINC and AUSM+up in torch, K6; then also the stage-0 dt
+    sweep, K5 and torch), the non-conservative volume terms and the alpha
     closure."""
     from quinoa_tpu_torch.ops.face_fused import mm_face_pass
     from quinoa_tpu_torch.pde.dg import volume_rhs
@@ -1406,13 +1567,22 @@ def mm_breakdown(torch, solver, name, state, reps=5):
     C, K = sy.ncomp, g.ndof
     Uv = u.reshape(C, K, -1)
     X = sy.thinc_carriers(g, Uv) if sy.intsharp else None
-    _, dap, divu = sy._split_acc(mm_face_pass(sy, g, u, X)[0], K)
+    if sy.fused_ok:
+        face = {"face pass K14 + K13": lambda: mm_face_pass(sy, g, u, X)}
+        acc = mm_face_pass(sy, g, u, X)[0]
+    else:
+        Rv = volume_rhs(sy, g, u, t)
+        face = {"face Gauss-point pass K5 + torch + K6":
+                lambda: sy.dirichlet_face_gp_sums(g, u, X, Rv, t),
+                "dt sweep K5 + torch": lambda: sy.dt(g, u)}
+        acc = sy.dirichlet_face_gp_sums(g, u, X, Rv, t)
+    _, dap, divu = sy._split_acc(acc, K)
     parts = {
         "limit": lambda: solver._limit(u),
         "volume integral": lambda: volume_rhs(sy, g, u, t),
         **({"THINC carriers": lambda: sy.thinc_carriers(g, Uv)}
            if sy.intsharp else {}),
-        "face pass K14 + K13": lambda: mm_face_pass(sy, g, u, X),
+        **face,
         "non-conservative terms": lambda: sy._nonconservative_ho(
             g, Uv, dap, divu),
         "alpha closure": lambda: clean_alpha_closure(u, C, K, sy.nmat),
@@ -1518,7 +1688,8 @@ def main():
     # Lax-Friedrichs K12 and the THINC K14 (paths 16-17)
     t0 = time.perf_counter()
     mmg = {name: mm_geom(name, (N_BIG,) * 3, torch.float32, dev)
-           for name in ("p0", "mm_p1", "mm_iface", "mm_thinc")}
+           for name in ("p0", "mm_p1", "mm_iface", "mm_thinc",
+                        "mm_iface_p1")}
     mmg["mm_p0"] = mmg["p0"]
     mmg["p1_lf"] = mmg["mm_p1"]
     mm = {name: mm_solver(name, mmg[name]) for name in MM}
@@ -1558,6 +1729,9 @@ def main():
     stats["basis_accum (R=22, K=4)"] = rec["basis_accum"]
     stats["nbr_bounds (C=12, K=4)"] = nbr_bounds_check(
         torch, mm["mm_thinc"], "float32", timed=True)
+    # K5 at 108 and 48 rows, K6 at 88 rows (path 18)
+    stats.update(mm_iface_p1_checks(torch, mm["mm_iface_p1"], "float32",
+                                    timed=True))
     sm = {name: mm_solver(name, mm_geom(name, MM_SMALL, torch.float64, dev))
           for name in MM}
     U64p0 = torch.as_tensor(perturbed_state(sm["p0"].geom.nelem, 29,
@@ -1580,6 +1754,7 @@ def main():
     for nmat in (2, 3):
         mm_kernel_checks(torch, mm_solver("mm_thinc", sm["mm_thinc"].geom,
                                           nmat=nmat), "float64", timed=False)
+    mm_iface_p1_checks(torch, sm["mm_iface_p1"], "float64", timed=False)
     t0 = time.perf_counter()
     alecg = {name: alecg_solver(name, (N_BIG,) * 3, torch.float32, dev)
              for name in ALECG}
@@ -1668,6 +1843,9 @@ def main():
         card_vs_cpu(torch, name, lambda d, name=name: mm_solver(
             name, mm_geom(name, MM_SMALL, torch.float64,
                           dev if d == "card" else "cpu")))
+    for name in SCHEMES:
+        card_vs_cpu(torch, name, lambda d, name=name: scheme_solver(
+            torch, name, d), t0=SCHEMES[name][8])
 
     # 4. the Sedov P1 step
     counts = {}
@@ -1731,15 +1909,16 @@ def main():
     state = profile_path(torch, p2_solver, "p2", state, wall / NSTEPS)
     p2_breakdown(torch, p2_solver, state)
 
-    # 12-17. DG(P0) Sod, the multimat paths, Lax-Friedrichs Sod DG(P1)
-    # and THINC interface advection at 48^3
+    # 12-18. DG(P0) Sod, the multimat paths, Lax-Friedrichs Sod DG(P1)
+    # and THINC interface advection (extrapolate and Dirichlet faces) at
+    # 48^3
     for name, solver in mm.items():
         state, counts[name], wall = drive(torch, solver, name, card)
         l2_gate(name, solver, state)
         if name not in EULER:
             alpha_gate(name, solver, state)
         state = profile_path(torch, solver, name, state, wall / NSTEPS)
-        if name in ("mm_p1", "mm_thinc"):
+        if name in ("mm_p1", "mm_thinc", "mm_iface_p1"):
             mm_breakdown(torch, solver, name, state)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

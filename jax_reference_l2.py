@@ -3,7 +3,7 @@
 THINC paths from the JAX package on the CPU:
 python3 jax_reference_l2.py [--x64] [--ulp-seed N] [path ...]
 
-For each path (default: all six) builds the path's configuration with
+For each path (default: all seven) builds the path's configuration with
 quinoa_tpu in float32 (x64 off) on the Hilbert-ordered 48^3 box, runs 11
 step() calls from initial_state() and prints one JSON line
 {"path", "dtype", "t", "l2sol", "l2err", "alpha_min", "alpha_sum_err"}; the
@@ -28,6 +28,8 @@ far two float32 runs that differ by round-off drift apart.
     mm_thinc  MMInterfaceAdvection (nmat 3) with THINC (intsharp, beta
               2.5), DG(P1), consistent Superbee, extrapolate on all six
               sidesets, cfl 0.4
+    mm_iface_p1  the same with Dirichlet on all six sidesets (the face
+              Gauss-point route)
 """
 
 import dataclasses
@@ -36,7 +38,8 @@ import sys
 
 N = 48
 NSTEPS = 11
-PATHS = ("p0", "mm_p0", "mm_p1", "mm_iface", "p1_lf", "mm_thinc")
+PATHS = ("p0", "mm_p0", "mm_p1", "mm_iface", "p1_lf", "mm_thinc",
+         "mm_iface_p1")
 
 
 def run(name, x64=False, ulp_seed=None):
@@ -55,14 +58,15 @@ def run(name, x64=False, ulp_seed=None):
                                                   MMSodShocktube)
 
     mesh, _ = hilbert_element_reorder(box_tet_mesh(N, N, N))
-    if name == "mm_iface":
+    if name in ("mm_iface", "mm_iface_p1"):
         bc = {i: BC_DIRICHLET for i in range(1, 7)}
     elif name == "mm_thinc":
         bc = {i: BC_EXTRAPOLATE for i in range(1, 7)}
     else:
         bc = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE}
         bc.update({i: BC_SYMMETRY for i in range(3, 7)})
-    ndof = 4 if name in ("mm_p1", "p1_lf", "mm_thinc") else 1
+    p1 = ("mm_p1", "p1_lf", "mm_thinc", "mm_iface_p1")
+    ndof = 4 if name in p1 else 1
     g = build_dggeom(mesh, ndof=ndof, bc_sidesets=bc,
                      dtype=jnp.float64 if x64 else jnp.float32)
     if name in ("p0", "p1_lf"):
@@ -70,8 +74,8 @@ def run(name, x64=False, ulp_seed=None):
         system = DGCompFlow(SodShocktube(), riemann_flux=flux)
         solver = DGSolver(system, g, cfl=0.5,
                           limiter="superbeep1" if ndof == 4 else None)
-    elif name in ("mm_iface", "mm_thinc"):
-        thinc = name == "mm_thinc"
+    elif name in ("mm_iface", "mm_thinc", "mm_iface_p1"):
+        thinc = name in ("mm_thinc", "mm_iface_p1")
         system = MultiMatSystem(MMInterfaceAdvection(nmat=3), intsharp=thinc)
         solver = MultiMatSolver(system, g, cfl=0.4,
                                 limiter="superbeep1" if thinc else None)

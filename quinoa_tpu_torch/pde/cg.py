@@ -13,7 +13,7 @@ and device.
 cg_gather, cg_assemble_add and cg_assemble_add_max launch K10 and K11
 (ops/node_window.py) on a CUDA geometry and run their plain versions on a
 CPU one; there is no switch.  Not ported: the window NodePlan (a TPU
-device: the card gathers node values directly) and advection-diffusion.
+device: the card gathers node values directly).
 """
 
 from __future__ import annotations
@@ -155,18 +155,22 @@ def lumped_mass(geom: CGGeom) -> torch.Tensor:
 
 
 class CGTransport:
-    """Scalar advection for node-centred schemes, two-stage Taylor-Galerkin
-    (reference CGTransport.hpp rhs 183-330, dt 331-395).
-    Advection-diffusion (ShearDiff) is not ported."""
+    """Scalar advection(-diffusion) for node-centred schemes, two-stage
+    Taylor-Galerkin (reference CGTransport.hpp rhs 183-330, dt 331-395),
+    with the optional diagonal diffusion of CGAdvDiff (Physics/
+    CGAdvDiff.cpp:30-96) where the problem has diffusivities.  ALECG reads
+    no diffusivity (its rhs is the flux and the edge dissipation), as in
+    the JAX package."""
 
     flavour = "transport"
 
     def __init__(self, problem, ncomp: Optional[int] = None):
-        if getattr(problem, "diffusivity", ()):
-            raise NotImplementedError("transport with diffusion is not "
-                                      "ported")
         self.problem = problem
         self.ncomp = ncomp if ncomp is not None else problem.ncomp
+        d = getattr(problem, "diffusivity", ()) or ()
+        #: (C, 3) float64 diffusivities, or None
+        self.diffusivity = (np.asarray(d, dtype=np.float64).reshape(-1, 3)
+                            if len(d) else None)
         # dt() evaluates the velocity at t=0 (the reference's transport dt
         # law), so the sweep is a run constant that solvers cache
         self.static_dt = True
@@ -188,7 +192,9 @@ class CGTransport:
     def rhs_contrib(self, t, dt, geom: CGGeom, U, un):
         """Element-corner rhs contributions (4, C, E) from the step's nodal
         gather un (4, C, E): the element intermediate at t + dt/2 from the
-        corner velocities, then its flux with the centre velocity."""
+        corner velocities, then its flux with the centre velocity; with
+        diffusivities D minus dt J/6 D_k grad[a,k] grad[b,k] u[b]
+        (quinoa_tpu/pde/cg.py:247-257, in that summation order)."""
         C, E = self.ncomp, geom.nelem
         cn = geom.coords_n
         vel_n = [self.problem.velocity(cn[a], t) for a in range(4)]
@@ -202,7 +208,19 @@ class CGTransport:
         d = dt * geom.J * geom.emask / 6.0
         vdotg = [sum(geom.grad[a, j] * vel_c[:, j, :] for j in range(3))
                  for a in range(4)]
-        return torch.stack([d * g * ue for g in vdotg])
+        contrib = torch.stack([d * g * ue for g in vdotg])
+        if self.diffusivity is None:
+            return contrib
+        D = torch.as_tensor(self.diffusivity, dtype=U.dtype, device=U.device)
+        gb = [sum(geom.grad[b, k] * un[b] for b in range(4))
+              for k in range(3)]
+        diff = []
+        for a in range(4):
+            s = torch.zeros((C, E), dtype=U.dtype, device=U.device)
+            for k in range(3):
+                s = s + D[:, k][:, None] * geom.grad[a, k] * gb[k]
+            diff.append(s)
+        return contrib - d * torch.stack(diff)
 
     def flux_at_nodes(self, u, xyz):
         """F_j = v_j(x) u at nodal states u (C, n)."""
@@ -214,10 +232,15 @@ class CGTransport:
         return torch.sqrt((vel * vel).sum(dim=1)).amax(dim=0)
 
     def dt(self, geom: CGGeom, U):
-        """Minimum time step over the elements (before CFL scaling)."""
+        """Minimum time step over the elements (before CFL scaling): the
+        advective L / max|v|, with diffusion at most L^2 / (2 D_max)."""
         speeds = [self.charspeed(None, geom.coords_n[a]) for a in range(4)]
         maxvel = torch.maximum(torch.maximum(speeds[0], speeds[1]),
                                torch.maximum(speeds[2], speeds[3]))
-        elemdt = geom.elem_length / torch.clamp_min(maxvel, 1e-300)
+        L = geom.elem_length
+        elemdt = L / torch.clamp_min(maxvel, 1e-300)
+        if self.diffusivity is not None:
+            dmax = float(self.diffusivity.max())
+            elemdt = torch.minimum(elemdt, L * L / (2.0 * dmax))
         big = torch.finfo(U.dtype).max
         return torch.where(geom.emask > 0, elemdt, big).min()

@@ -4,8 +4,9 @@ tensors (feature-major layout).
 Port of quinoa_tpu/pde/dg.py for DG(P0), DG(P1) and DG(P2): the fused
 face passes of coordinate-free compressible Euler, the volume integral
 with a manufactured source, the face Gauss-point path (transport,
-Dirichlet and inlet faces; P0 and P1), the p-adaptive dofmask and its
-indicator (P1).
+Dirichlet and inlet faces, any dofmask; P0, P1 and P2, for a flux of any
+number of rows), the p-adaptive dofmask and its indicator, and the cell
+average.
 Layout as in the JAX package: the modal state is U (C*K, E) with row
 c*K+k, per-face slabs are (rows, F) and coordinates (3, n); the element or
 face axis is always last.
@@ -343,24 +344,14 @@ def needs_face_gp(system, geom: DGGeom) -> bool:
 
 def require_slice(system, geom: DGGeom):
     """Raise for what the port does not cover: anything but DG(P0), DG(P1)
-    and DG(P2); DG(P2) off the single-stream face pass (systems or faces
-    that need face coordinates); source terms at P1 (its volume integral
-    is the limit + volume kernel's, which has none); and on the fused face
-    passes (compressible Euler on faces that need no coordinates) a flux
-    other than HLLC and Lax-Friedrichs (ops/face_fused.py
-    fused_face_pass)."""
+    and DG(P2), as in the JAX package; and on the fused face passes
+    (compressible Euler on faces that need no coordinates) a flux other
+    than HLLC and Lax-Friedrichs (ops/face_fused.py fused_face_pass), which
+    DGCompFlow refuses already."""
     if geom.ndof not in (1, 4, 10):
         raise NotImplementedError(f"ndof={geom.ndof}: only DG(P0), DG(P1) "
                                   "and DG(P2) are ported")
-    face_gp = needs_face_gp(system, geom)
-    if geom.ndof == 10 and face_gp:
-        raise NotImplementedError("DG(P2) runs the single-stream face pass "
-                                  "only: its face Gauss-point path is not "
-                                  "ported")
-    if system.has_src and geom.ndof == 4:
-        raise NotImplementedError("source terms are ported at DG(P0) and "
-                                  "DG(P2) only")
-    if not face_gp:
+    if not needs_face_gp(system, geom):
         from ..kernels import FLUXES
 
         require_fused_physics(system, geom, face_pass=True, ndofs=(1, 4, 10),
@@ -371,7 +362,8 @@ def require_fused_physics(system, geom: DGGeom, face_pass: bool = False,
                           ndofs=(4,), fluxes=("hllc",)):
     """Raise unless the fused kernels cover the case, compressible Euler
     with a coordinate-free flux at an ndof in ndofs: kernel K1 (the limit
-    + volume pass, DG(P1) without a source); with face_pass the face
+    + flux volume pass of DG(P1); a source term is the caller's, see
+    source_rhs); with face_pass the face
     passes on faces whose ghost needs no coordinates, with a Riemann flux
     in fluxes (K12 + K13 implement HLLC and Lax-Friedrichs)."""
     if geom.ndof not in ndofs:
@@ -388,9 +380,6 @@ def require_fused_physics(system, geom: DGGeom, face_pass: bool = False,
         if geom.has_coord_bc:
             raise NotImplementedError("the face kernel has no Dirichlet/"
                                       "inlet ghost (face Gauss-point path)")
-    elif system.has_src:
-        raise NotImplementedError("the limit + volume kernel has no source "
-                                  "term")
 
 
 # -- operators ---------------------------------------------------------------
@@ -451,6 +440,20 @@ def volume_rhs(system, geom: DGGeom, U, t=0.0):
     return (Rv * (geom.vol * geom.emask)).reshape(C * K, E)
 
 
+def source_rhs(system, geom: DGGeom, t):
+    """The source integral (C*K, E) alone, w*B times the source at the
+    volume Gauss points and t, scaled by vol*emask: what the DG(P1) step
+    adds to the limit + volume kernel's flux integral (K1 has no source
+    term).  The JAX package sums it into the flux integral before the
+    scaling (quinoa_tpu/pde/dg.py:364-370); the two differ by round-off."""
+    C, K = system.ncomp, geom.ndof
+    tb = geom.tables
+    wB = torch.tensor(tb["w_vol"][:, None] * tb["B_vol"], dtype=geom.dtype,
+                      device=geom.device)                         # (G,K)
+    Rs = torch.einsum("gk,cge->cke", wB, system.src(geom.vol_gp, t))
+    return (Rs * (geom.vol * geom.emask)).reshape(C * K, -1)
+
+
 def no_plan(accum_plan):
     """The JAX package's accumulation-plan slot, which must be None: the
     port has no plans (the card gathers and sums directly)."""
@@ -499,29 +502,42 @@ def dg_rhs(system, geom: DGGeom, U, dofmask, t, accum_plan=None,
     else:
         Rv = volume_rhs(system, geom, Um, t)
     if face_gp:
-        sL, B_l, sR, B_r = _face_states(geom, Um, C)
-        gpf, fnf = geom.face_gp, geom.fn[:, None, :]
-        sR = torch.where(geom.bctype == BC_INTERIOR, sR,
-                         system.bc_state(geom.bctype, sL, fnf, gpf, t))
-        fl = system.riemann(fnf, sL, sR, gpf, t)         # (C,G,F)
-        wt = geom.farea * geom.fmask
-        wface = geom.tables["w_face"]
-        cL = cR = None
-        for g in range(len(wface)):
-            wfl = fl[:, g] * (float(wface[g]) * wt)      # (C,F)
-            tl = B_l[:, g][None] * wfl[:, None]          # (C,K,F)
-            tr = B_r[:, g][None] * wfl[:, None]
-            cL, cR = (tl, tr) if g == 0 else (cL + tl, cR + tr)
         # the test functions are not masked: the rows they would zero
         # belong to inactive dofs, which the dofmask below zeroes anyway
-        r = accumulate_faces(geom, -cL.reshape(C * K, -1),
-                             cR.reshape(C * K, -1), Rv)
+        r = accumulate_faces(geom, *face_gp_rows(system, geom, Um, t), Rv)
         delt = None
     else:
         r, delt = face_pass_for(system, K)(system, geom, Um, vol_rhs=Rv)
     if dofmask is not None:
         r = r * dofmask.repeat(C, 1)
     return (r, delt) if want_charvel else r
+
+
+def face_gp_rows(system, geom: DGGeom, Um, t):
+    """The face Gauss-point path's per-face rows (-cL, cR), each (R*K, F),
+    that the accumulation (K6) sums onto the left and right elements
+    (quinoa_tpu/pde/dg.py:396-444): the states of the system.ncomp rows of
+    Um at the face points through the gather (K5), the boundary ghosts at
+    the face coordinates and t, the system's flux (R rows, R = ncomp for
+    a conservative system, more for the multimat facade's riemannDeriv
+    rows), weighted by w_g * area and contracted with each side's basis
+    in point order."""
+    K = geom.ndof
+    sL, B_l, sR, B_r = _face_states(geom, Um, system.ncomp)
+    gpf, fnf = geom.face_gp, geom.fn[:, None, :]
+    sR = torch.where(geom.bctype == BC_INTERIOR, sR,
+                     system.bc_state(geom.bctype, sL, fnf, gpf, t))
+    fl = system.riemann(fnf, sL, sR, gpf, t)             # (R,G,F)
+    R = fl.shape[0]
+    wt = geom.farea * geom.fmask
+    wface = geom.tables["w_face"]
+    cL = cR = None
+    for g in range(len(wface)):
+        wfl = fl[:, g] * (float(wface[g]) * wt)          # (R,F)
+        tl = B_l[:, g][None] * wfl[:, None]              # (R,K,F)
+        tr = B_r[:, g][None] * wfl[:, None]
+        cL, cR = (tl, tr) if g == 0 else (cL + tl, cR + tr)
+    return -cL.reshape(R * K, -1), cR.reshape(R * K, -1)
 
 
 def dg_dt(system, geom: DGGeom, U, dofmask=None):
@@ -594,3 +610,8 @@ def propagate_ndof(geom: DGGeom, ndofel):
     nbr = ndofel[torch.clamp_min(geom.esuelT, 0).long()]   # (4,E)
     prom = ((nbr == 4) & (geom.esuelT >= 0)).any(dim=0)
     return torch.where(prom, 4, ndofel).to(torch.int32)
+
+
+def dg_cell_avg(U, C, K):
+    """Cell averages (C, E): the 0th Dubiner dof is the mean."""
+    return uview(U, C, K)[:, 0, :]

@@ -1,8 +1,11 @@
-"""Superbee slope limiter for DG(P1), the plain reference, and its
-consistent multi-material adjustment.
+"""Slope limiters of the P1 dofs: WENO, Superbee (the plain reference of
+the kernels) and its consistent multi-material adjustment.
 
-Port of quinoa_tpu/pde/limiter.py:43-108 (reference src/PDE/Limiter.cpp
-Superbee_P1:154-317): scale the P1 dofs of every (component, element) by
+Port of quinoa_tpu/pde/limiter.py.  WENO (reference src/PDE/Limiter.cpp
+WENO_P1:29-152) blends each element's P1 dofs with its face neighbours'
+by oscillation weights; the JAX package has no TPU kernel for it, so it
+stays torch here.  Superbee (Superbee_P1:154-317) scales the P1 dofs of
+every (component, element) by
 a coefficient phi from the min/max of the face neighbours' cell means,
 evaluated at all face quadrature points.  With a dofmask (p-adaptive DG)
 the face states see only the active dofs and P0 elements keep their
@@ -16,6 +19,38 @@ import torch
 
 from ..ops.nbr_bounds import neighbor_mean_bounds_plain
 from .dg import uview
+
+
+def weno_p1(geom, U, dofmask, C, cweight: float = 30.0):
+    """WENO-limited copy of U (C*K, E): every component's P1 dofs become the
+    weighted mean of its own (central weight cweight) and its face
+    neighbours' (weight 1, none across a boundary), each weight over
+    (1e-8 + osc)^2 with osc the stencil's P1 magnitude; with a dofmask,
+    elements whose P1 dofs are inactive keep U (quinoa_tpu/pde/limiter.py
+    :16-40)."""
+    K = geom.ndof
+    E = U.shape[-1]
+    Uv = uview(U, C, K)
+    valid = (geom.esuelT >= 0).to(U.dtype)                 # (4,E)
+    nbr = torch.where(geom.esuelT < 0, 0, geom.esuelT).long()
+    g0 = Uv[:, 1:4, :]                                     # (C,3,E)
+    stencils = [g0]
+    wts = [torch.full((E,), cweight, dtype=U.dtype, device=U.device)]
+    for i in range(4):
+        stencils.append(g0[:, :, nbr[i]] * valid[i])
+        wts.append(valid[i])
+    osc = [torch.sqrt((s ** 2).sum(dim=1)) for s in stencils]   # (C,E)
+    w = [wt * (1.0e-8 + o) ** -2 for wt, o in zip(wts, osc)]
+    wtot = w[0]
+    lim = w[0][:, None, :] * stencils[0]
+    for wi, s in zip(w[1:], stencils[1:]):
+        wtot = wtot + wi
+        lim = lim + wi[:, None, :] * s
+    lim = lim / wtot[:, None, :]
+    Unew = torch.cat([Uv[:, :1], lim, Uv[:, 4:]], dim=1).reshape(C * K, E)
+    if dofmask is None:
+        return Unew
+    return torch.where(dofmask[1] > 0, Unew, U)
 
 
 def superbee_phi(geom, U, dofmask, C, beta_lim: float = 2.0, bounds=None):

@@ -24,7 +24,14 @@ Routes, as the JAX package takes them on a TPU:
   charvel gives the stage-0 dt; at P1 the volume integral in torch first;
 - Dirichlet faces at P0: the face states through the gather (K5), the
   ghost, AUSM+up and the riemannDeriv rows in torch, the element sums
-  through the accumulation (K6), and the dt sweep dt_p0 in torch.
+  through the accumulation (K6), and the dt sweep dt_p0 in torch;
+- Dirichlet faces at P1: the face Gauss-point path of dg_rhs through the
+  facade (pde/dg.py face_gp_rows): the face states of the C rows (with
+  THINC, and of the 5*nmat carrier rows) through K5, the ghost (the
+  problem's solution at the face points and t, the carriers copied from
+  the left side), the sharpening and AUSM+up in torch, the R rows' sums
+  through K6 onto the volume term; the dt is dg_dt's face sweep through
+  the facade (K5 on the C rows).
 
 The JAX package pads the state with 3*nmat + 1 zero rows so its generic
 face kernels carry the riemannDeriv rows; here the state stays C rows and
@@ -33,9 +40,10 @@ only the face pass's output has R.
 THINC interface sharpening (intsharp, DG(P1)): each stage builds the
 carriers of its limited state in torch (thinc_carriers, as the JAX package
 builds them in XLA outside its kernels) and the face pass takes the THINC
-flavour of K14, which sharpens both face states before AUSM+up.  At P0
-intsharp is accepted and ignored, as in the JAX package.  DG(P1) on
-Dirichlet faces (THINC included) and the SPMD solver are not ported.
+flavour of K14, which sharpens both face states before AUSM+up (on
+Dirichlet faces the facade in torch, the ghost's copied carriers
+included).  At P0 intsharp is accepted and ignored, as in the JAX
+package.  The SPMD solver is not ported.
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ from ..ops.face_accum import accumulate_faces, face_gather
 from ..ops.face_fused import delt_plain, mm_face_pass
 from ..ops.nbr_bounds import neighbor_mean_bounds
 from .dg import (BC_DIRICHLET, BC_INTERIOR, BC_SYMMETRY, DGGeom, dg_dt,
-                 dg_dt_from_delt, dg_initialize, no_plan, volume_rhs)
+                 dg_dt_from_delt, dg_initialize, face_gp_rows, no_plan,
+                 volume_rhs)
 from .eos import StiffenedGas
 from .limiter import consistent_mm_phi, superbee_phi
 
@@ -380,31 +389,55 @@ class MultiMatSystem:
             face_gp=False):
         """Order-dispatching rhs (C*K, E) [, delt]: P0 keeps the finite-
         volume path (intsharp ignored); P1 (ndof 4) adds the XLA-formulation
-        volume integral to the multimat face pass (its THINC flavour, on
-        the carriers of U, with intsharp) and integrates the
-        non-conservative terms at the volume Gauss points.  The THINC
-        carriers accumulate nothing, so the pass's R rows are the same.
+        volume integral to the face sums (with intsharp, of the THINC-
+        sharpened faces, on the carriers of U) and integrates the
+        non-conservative terms at the volume Gauss points.  With fused_ok
+        the face sums are the multimat face pass's (K14 + K13), whose
+        charvel want_delt returns; otherwise the face Gauss-point path's
+        (dirichlet_face_gp_sums, K5 + K6), which has no charvel.  The
+        THINC carriers accumulate nothing, so both give R rows.
         accum_plan and face_gp sit at the JAX package's positions
         (quinoa_tpu/pde/multimat.py:407-408); accum_plan must be None, and
-        face_gp changes nothing: the multimat pass runs on faces whose
-        flux and ghosts read no coordinates (fused_ok), either way."""
+        fused_ok, not face_gp, picks the route, as the JAX solver sets
+        face_gp exactly where fused_ok is false."""
         no_plan(accum_plan)
         K = geom.ndof
         if K == 1:
             return self.rhs_p0(geom, U, t, want_delt=want_delt)
-        if not self.fused_ok:
-            raise NotImplementedError("multimat DG(P1) on Dirichlet faces "
-                                      "is not ported")
         C = self.ncomp
         E = U.shape[-1]
         Uv = U.reshape(C, K, E)
         carriers = self.thinc_carriers(geom, Uv) if self.intsharp else None
-        acc, delt = mm_face_pass(self, geom, U, carriers)
-        R, dap, divu = self._split_acc(acc, K)
-        Rv = volume_rhs(self, geom, U, t).reshape(C, K, E)
-        R = Rv + R + self._nonconservative_ho(geom, Uv, dap, divu)
+        Rv = volume_rhs(self, geom, U, t)
+        if self.fused_ok:
+            acc, delt = mm_face_pass(self, geom, U, carriers)
+            R, dap, divu = self._split_acc(acc, K)
+            R = Rv.reshape(C, K, E) + R
+        else:
+            if want_delt:
+                raise ValueError("want_delt needs the multimat face pass")
+            R, dap, divu = self._split_acc(
+                self.dirichlet_face_gp_sums(geom, U, carriers, Rv, t), K)
+        R = R + self._nonconservative_ho(geom, Uv, dap, divu)
         R = (R * geom.emask).reshape(C * K, E)
         return (R, delt) if want_delt else R
+
+    def dirichlet_face_gp_sums(self, geom: DGGeom, U, carriers, Rv, t):
+        """The P1 face Gauss-point route's element sums (R*K, E) of U (C*K,
+        E): the facade's R rows (the THINC facade's with carriers) summed
+        by K6 on top of the volume term Rv (C*K, E), whose riemannDeriv
+        and divergence rows start from zero, as the JAX package's padded
+        state gives them (quinoa_tpu/pde/multimat.py:407-450)."""
+        C, K = self.ncomp, geom.ndof
+        E = U.shape[-1]
+        facade, Ug = self.facade, U
+        if carriers is not None:
+            facade = self.thinc_facade
+            Ug = torch.cat([U.reshape(C, K, E),
+                            self.thinc_modes(carriers, K)]).reshape(-1, E)
+        base = torch.cat([Rv, Rv.new_zeros(((self.nrows - C) * K, E))])
+        return accumulate_faces(geom, *face_gp_rows(facade, geom, Ug, t),
+                                base)
 
     def _nonconservative_ho(self, geom: DGGeom, Uv, dap, divu):
         """High-order non-conservative volume integral: the face-summed
@@ -531,7 +564,16 @@ class _FusedMMFacade:
         self.ncomp = mm.ncomp + (5 * mm.nmat if self.thinc else 0)
 
     def bc_state(self, bctype, sL, fn, gp, t):
-        return self.mm.bc_state(bctype, sL, fn)
+        """The multimat ghost of the C rows, the carrier rows copied from
+        the left side; with the face coordinates gp (the face Gauss-point
+        path) the problem's solution at (gp, t) on Dirichlet faces."""
+        out = self.mm.bc_state(bctype, sL, fn)
+        if gp is None:
+            return out
+        C = self.mm.ncomp
+        dirich = torch.cat([self.mm.problem.solution(gp, t).to(sL.dtype),
+                            sL[C:]])
+        return torch.where(bctype == BC_DIRICHLET, dirich, out)
 
     def _thinc_faces(self, s):
         """The C rows of the face states s with the THINC tanh profile in
@@ -589,7 +631,8 @@ class MultiMatSolver:
     P0 is the reference fork's scheme (DGMultiMat.hpp:154 asserts
     ndof==1); P1 (ndof 4) runs the DG volume and face integrals with
     consistent material-fraction Superbee limiting and the alpha closure
-    after every stage."""
+    after every stage.  With a Dirichlet face the face sums take the face
+    Gauss-point route and the stage-0 dt the face sweep (system.dt)."""
 
     def __init__(self, system: MultiMatSystem, geom: DGGeom, cfl=0.5,
                  const_dt=None, limiter=None):
@@ -603,9 +646,6 @@ class MultiMatSolver:
             raise ValueError("limiters require ndof >= 4")
         # the face kernel has no Dirichlet ghost (it samples the solution)
         has_dirichlet = bool((geom.bctype == BC_DIRICHLET).any())
-        if has_dirichlet and geom.ndof > 1:
-            raise NotImplementedError("multimat DG(P1) on Dirichlet faces "
-                                      "is not ported")
         self.system = system
         self.geom = geom
         self.cfl = cfl
@@ -657,7 +697,7 @@ class MultiMatSolver:
                 # dt on the limited state as well
                 un = u
                 if dt is None and not system.fused_ok:
-                    dt = system.dt_p0(g, u) * self.cfl * self.cflscale
+                    dt = system.dt(g, u) * self.cfl * self.cflscale
             if system.fused_ok and s == 0 and self.const_dt is None:
                 # the face pass emits the dt charvel sums with the rhs
                 r, delt = system.rhs(g, u, state.t, want_delt=True)

@@ -1,9 +1,12 @@
 """Problem policies: initial and analytic solutions."""
 
-from .compflow import SedovBlastwave, SodShocktube, TaylorGreen, VorticalFlow
+from .compflow import (NLEnergyGrowth, RayleighTaylor, RotatedSodShocktube,
+                       SedovBlastwave, SodShocktube, TaylorGreen, UserDefined,
+                       VorticalFlow)
 from .multimat import MMInterfaceAdvection, MMSmoothWave, MMSodShocktube
-from .transport import GaussHump, SlotCyl
+from .transport import CylAdvect, GaussHump, ShearDiff, SlotCyl
 
-__all__ = ["GaussHump", "MMInterfaceAdvection", "MMSmoothWave",
-           "MMSodShocktube", "SedovBlastwave", "SlotCyl", "SodShocktube",
-           "TaylorGreen", "VorticalFlow"]
+__all__ = ["CylAdvect", "GaussHump", "MMInterfaceAdvection", "MMSmoothWave",
+           "MMSodShocktube", "NLEnergyGrowth", "RayleighTaylor",
+           "RotatedSodShocktube", "SedovBlastwave", "ShearDiff", "SlotCyl",
+           "SodShocktube", "TaylorGreen", "UserDefined", "VorticalFlow"]

@@ -1,9 +1,9 @@
 """Scalar-transport problems, component-major layout.
 
-Port of the part of quinoa_tpu/pde/problems/transport.py the port's paths
-need: the problem base class, SlotCyl (reference SlotCyl.cpp, the ALECG
-transport leg) and GaussHump (reference GaussHump.cpp, the DG transport
-path).  Coordinates arrive as (3, n) (or (3, G, n)); t is a float or a
+Port of quinoa_tpu/pde/problems/transport.py: the problem base class,
+SlotCyl (reference SlotCyl.cpp), GaussHump (GaussHump.cpp), CylAdvect
+(CylAdvect.cpp) and the advection-diffusion ShearDiff (ShearDiff.cpp:
+30-67).  Coordinates arrive as (3, n) (or (3, G, n)); t is a float or a
 0-d tensor;
 
   solution(xyz, t)   -> (C, n)      initial/analytic solution
@@ -14,6 +14,8 @@ path).  Coordinates arrive as (3, n) (or (3, G, n)); t is a float or a
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -23,12 +25,24 @@ class TransportProblem:
     """Base: analytic solution = solution, solinc its increment."""
 
     ncomp: int = 1
+    #: diffusivities per component, flattened (dx, dy, dz) * ncomp; empty
+    #: = pure advection
+    diffusivity: Tuple[float, ...] = ()
 
     def analytic(self, xyz, t):
         return self.solution(xyz, t)
 
     def solinc(self, xyz, t, dt):
         return self.solution(xyz, t + dt) - self.solution(xyz, t)
+
+
+def _constant_velocity(problem, xyz):
+    """(0.1, 0.1, 0) at every point, (C, 3, n)."""
+    sh = xyz.shape[1:]
+    opts = dict(dtype=xyz.dtype, device=xyz.device)
+    v = torch.stack([torch.full(sh, 0.1, **opts), torch.full(sh, 0.1, **opts),
+                     torch.zeros(sh, **opts)])
+    return v[None].expand((problem.ncomp,) + tuple(v.shape))
 
 
 @dataclasses.dataclass
@@ -107,12 +121,7 @@ class GaussHump(TransportProblem):
     ncomp: int = 1
 
     def velocity(self, xyz, t):
-        sh = xyz.shape[1:]
-        opts = dict(dtype=xyz.dtype, device=xyz.device)
-        v = torch.stack([torch.full(sh, 0.1, **opts),
-                         torch.full(sh, 0.1, **opts),
-                         torch.zeros(sh, **opts)])
-        return v[None].expand((self.ncomp,) + tuple(v.shape))
+        return _constant_velocity(self, xyz)
 
     def solution(self, xyz, t):
         x, y = xyz[0], xyz[1]
@@ -120,3 +129,60 @@ class GaussHump(TransportProblem):
         y0 = 0.25 + 0.1 * t
         s = torch.exp(-((x - x0) ** 2 + (y - y0) ** 2) / (2.0 * 0.005))
         return s[None].expand((self.ncomp,) + tuple(s.shape))
+
+
+@dataclasses.dataclass
+class CylAdvect(TransportProblem):
+    """Cylinder (square wave, r < 0.2) advected by (0.1, 0.1, 0)."""
+
+    ncomp: int = 1
+
+    def velocity(self, xyz, t):
+        return _constant_velocity(self, xyz)
+
+    def solution(self, xyz, t):
+        x, y = xyz[0], xyz[1]
+        x0 = 0.25 + 0.1 * t
+        y0 = 0.25 + 0.1 * t
+        r = torch.sqrt((x - x0) ** 2 + (y - y0) ** 2)
+        s = torch.where(r < 0.2, 1.0, 0.0).to(xyz.dtype)
+        return s[None].expand((self.ncomp,) + tuple(s.shape))
+
+
+@dataclasses.dataclass
+class ShearDiff(TransportProblem):
+    """Advection-diffusion of a point source in a 3-D shear flow (Carter &
+    Okubo; reference ShearDiff.cpp:30-67).  Needs positive diffusivities
+    and t0 > 0.  pi^1.5 is taken in float64, the rest in the tensor's
+    dtype, as the JAX package takes them."""
+
+    ncomp: int = 1
+    u0: Tuple[float, ...] = (0.5,)
+    lam: Tuple[float, ...] = (1.0, 0.0)
+    diffusivity: Tuple[float, ...] = (1e-3, 5e-4, 5e-4)
+
+    def velocity(self, xyz, t):
+        vels = []
+        for c in range(self.ncomp):
+            l0, l1 = self.lam[2 * c], self.lam[2 * c + 1]
+            vx = self.u0[c] + l0 * xyz[1] + l1 * xyz[2]
+            vels.append(torch.stack([vx, torch.zeros_like(vx),
+                                     torch.zeros_like(vx)]))
+        return torch.stack(vels)
+
+    def solution(self, xyz, t):
+        x, y, z = xyz[0], xyz[1], xyz[2]
+        outs = []
+        for c in range(self.ncomp):
+            l0, l1 = self.lam[2 * c], self.lam[2 * c + 1]
+            d0, d1, d2 = self.diffusivity[3 * c:3 * c + 3]
+            phi3s = (l0 * l0 * d1 / d0 + l1 * l1 * d2 / d0) / 12.0
+            tt = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+            pre = 1.0 / (8.0 * np.pi ** 1.5 * math.sqrt(d0 * d1 * d2)
+                         * tt ** 1.5 * torch.sqrt(1.0 + phi3s * tt * tt))
+            arg = (-((x - self.u0[c] * tt - 0.5 * (l0 * y + l1 * z) * tt)
+                     ** 2) / (4.0 * d0 * tt * (1.0 + phi3s * tt * tt))
+                   - y * y / (4.0 * d1 * tt)
+                   - z * z / (4.0 * d2 * tt))
+            outs.append(pre * torch.exp(arg))
+        return torch.stack(outs)

@@ -295,19 +295,32 @@ def test_convert_round_trips_p2(p2_runs):
         np.testing.assert_array_equal(v, sarr[k], err_msg=k)
 
 
-def test_p2_configurations_outside_the_port_raise(tg_mesh):
-    """A P2 limiter, p-adaptive P2, P2 on the face Gauss-point path
-    (transport, Dirichlet faces) and source terms at P1 raise."""
+def test_p2_configurations_outside_the_port_raise():
+    """The configurations that raised before they were ported run and match
+    the JAX package after one step (u atol 1e-11 of max(1, max|u|), dt
+    rtol 1e-12): a P2 limiter, p-adaptive P2, P2 on the face Gauss-point
+    path (TaylorGreen on Dirichlet faces, GaussHump transport) and the
+    manufactured source at P1, on a 3x3x2 box."""
+    from quinoa_tpu.pde.dg_compflow import DGTransport as JTransport
+    from quinoa_tpu.pde.problems import GaussHump as JGaussHump
+
     sym = {i: BC_SYMMETRY for i in range(1, 7)}
-    g = t_build(tg_mesh, 10, sym, device="cpu")
-    tgp = TCompFlow(TTaylorGreen())
-    for kw in ({"limiter": "superbeep1"}, {"pref": True}):
-        with pytest.raises(NotImplementedError):
-            DGSolver(tgp, g, **kw)
-    gd = t_build(tg_mesh, 10, {i: BC_DIRICHLET for i in range(1, 7)},
-                 device="cpu")
-    for system, geom in ((tgp, gd), (TTransport(TGaussHump()), g)):
-        with pytest.raises(NotImplementedError):
-            DGSolver(system, geom)
-    with pytest.raises(NotImplementedError):
-        DGSolver(tgp, t_build(tg_mesh, 4, sym, device="cpu"))
+    dirichlet = {i: BC_DIRICHLET for i in range(1, 7)}
+    tgp = (JCompFlow(JTaylorGreen()), TCompFlow(TTaylorGreen()))
+    hump = (JTransport(JGaussHump()), TTransport(TGaussHump()))
+    mesh = hilbert_element_reorder(box_tet_mesh(3, 3, 2,
+                                                hi=(1.0, 1.0, 0.67)))[0]
+    for (jsys, tsys), ndof, bc, kw in (
+            (tgp, 10, sym, {"limiter": "superbeep1"}),
+            (tgp, 10, sym, {"pref": True}),
+            (tgp, 10, dirichlet, {}),
+            (hump, 10, sym, {}),
+            (tgp, 4, sym, {})):
+        jg = build_dggeom(mesh, ndof=ndof, bc_sidesets=bc)
+        tg = convert.geom_from_arrays(_arrays(jg), device="cpu")
+        js, ts = JSolver(jsys, jg, **kw), DGSolver(tsys, tg, **kw)
+        a, b = js.step(js.initial_state()), ts.step(ts.initial_state())
+        scale = max(1.0, float(np.abs(np.asarray(a.u)).max()))
+        np.testing.assert_allclose(b.u.numpy(), np.asarray(a.u), rtol=0,
+                                   atol=RHS_ATOL * scale, err_msg=str(kw))
+        assert np.isclose(float(b.dt), float(a.dt), rtol=DT_RTOL)

@@ -9,7 +9,8 @@ plain versions at R rows) against quinoa_tpu/pde/multimat.py.
 - the whole rhs and delt against the JAX fused path, _FusedMMFacade
   through the near/far Pallas kernels B2-B5 in interpret mode with an
   explicit plan (P0 and P1): atol 1e-11 of max(1, max|r|);
-- rhs_p0 on Dirichlet faces (the gather + K6 route), the P1 rhs with and
+- rhs_p0 on Dirichlet faces (the gather + K6 route; P1 on Dirichlet
+  faces is tests/test_torch_mm_dirichlet.py's), the P1 rhs with and
   without the consistent Superbee limiter, dt_p0 and dt against the XLA
   path; consistent_mm_phi, clean_alpha_closure and the limit itself;
 - three MultiMatSolver steps at P0 (Sod; interface advection on
@@ -361,19 +362,25 @@ def test_mm_p1_k0_rows_match_p0_on_the_port():
 
 
 def test_unported_multimat_configurations_raise():
-    """P1 on Dirichlet faces (THINC included) and P2 raise; a limiter at
-    P0 or an unknown one is a ValueError, as in the JAX package."""
+    """P1 on Dirichlet faces (THINC included), which raised before it was
+    ported, matches the JAX package after one step (u atol 1e-9 of
+    max(1, max|u|), the P1 step rule above; dt rtol 1e-12); P2 raises
+    ValueError, and so do a limiter at P0 and an unknown one, as in the
+    JAX package."""
     mesh = box_tet_mesh(2, 2, 2)
-    gd4 = t_build(mesh, 4, {i: BC_DIRICHLET for i in range(1, 7)},
-                  device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.MultiMatSolver(tm.MultiMatSystem(tpm.MMSodShocktube(),
-                                            intsharp=True), gd4)
+    dirichlet = {i: BC_DIRICHLET for i in range(1, 7)}
+    for thinc in (True, False):
+        _, jg, _, tg = _pair("sod", 4, bc=dirichlet, mesh=mesh)
+        jsys = jm.MultiMatSystem(jpm.MMSodShocktube(), intsharp=thinc)
+        tsys = tm.MultiMatSystem(tpm.MMSodShocktube(), intsharp=thinc)
+        js = jm.MultiMatSolver(jsys, jg, cfl=0.5, limiter="superbeep1")
+        ts = tm.MultiMatSolver(tsys, tg, cfl=0.5, limiter="superbeep1")
+        a, b = js.step(js.initial_state()), ts.step(ts.initial_state())
+        scale = max(1.0, float(np.abs(np.asarray(a.u)).max()))
+        np.testing.assert_allclose(b.u.numpy(), np.asarray(a.u), rtol=0,
+                                   atol=P1_STEP_ATOL * scale)
+        assert np.isclose(float(b.dt), float(a.dt), rtol=DT_RTOL)
     system = tm.MultiMatSystem(tpm.MMSodShocktube())
-    gd = t_build(mesh, 4, {i: BC_DIRICHLET for i in range(1, 7)},
-                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.MultiMatSolver(system, gd)
     g1 = t_build(mesh, 1, SOD_BC, device="cpu")
     for kw in ({"limiter": "superbeep1"}, {"limiter": "wenop1"}):
         with pytest.raises(ValueError):

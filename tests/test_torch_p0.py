@@ -191,9 +191,23 @@ def test_p0_solver_matches_jax(case):
 
 def test_p0_configurations_outside_the_port_raise():
     """A limiter below P1 is a ValueError, as in the JAX package;
-    p-adaptive P0 is not ported."""
-    g = t_build(box_tet_mesh(2, 2, 2), 1, SOD_BC, device="cpu")
+    p-adaptive P0, which raised before it was ported, runs the face
+    Gauss-point route with an all-ones dofmask and matches the JAX
+    package after two steps (u atol 1e-11 of max(1, max|u|), dt rtol
+    1e-12)."""
+    mesh = box_tet_mesh(4, 2, 2, hi=(1.0, 0.5, 0.5))
+    jg = build_dggeom(mesh, ndof=1, bc_sidesets=SOD_BC)
+    g = convert.geom_from_arrays(_arrays(jg), device="cpu")
     with pytest.raises(ValueError):
         DGSolver(TCompFlow(TSod()), g, limiter="superbeep1")
-    with pytest.raises(NotImplementedError):
-        DGSolver(TCompFlow(TSod()), g, pref=True)
+    js = JSolver(JCompFlow(JSod()), jg, cfl=0.5, pref=True)
+    ts = DGSolver(TCompFlow(TSod()), g, cfl=0.5, pref=True)
+    assert ts.face_gp
+    a, b = js.initial_state(), ts.initial_state()
+    for _ in range(2):
+        a, b = js.step(a), ts.step(b)
+        scale = max(1.0, float(np.abs(np.asarray(a.u)).max()))
+        np.testing.assert_allclose(b.u.numpy(), np.asarray(a.u), rtol=0,
+                                   atol=RHS_ATOL * scale)
+        assert np.isclose(float(b.dt), float(a.dt), rtol=DT_RTOL)
+    assert bool((b.ndofel == 1).all())

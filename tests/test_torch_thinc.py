@@ -18,7 +18,8 @@ multimat face pass (kernel K14's plain version) and the solver.
   1e-9 of max(1, max|u|) (the multimat P1 rule of test_torch_multimat.py:
   Superbee turns 1e-17 rhs differences into 3e-11 a step);
 - intsharp at DG(P0) is accepted and ignored, as in the JAX package;
-  THINC at DG(P1) on Dirichlet faces raises.
+  THINC at DG(P1) on Dirichlet faces steps as the JAX package does
+  (tests/test_torch_mm_dirichlet.py holds that route in full).
 
 Float64 on the CPU, inputs made from a numpy seed.
 """
@@ -248,7 +249,9 @@ def test_thinc_solver_matches_jax(planar):
 
 def test_intsharp_at_p0_is_ignored():
     """intsharp at DG(P0) steps exactly as without it (the JAX rhs_p0
-    ignores it); THINC at DG(P1) on Dirichlet faces raises."""
+    ignores it); THINC at DG(P1) on Dirichlet faces, which raised before
+    it was ported, matches the JAX package after one step (u atol 1e-9 of
+    max(1, max|u|), the multimat P1 step rule; dt rtol 1e-12)."""
     mesh = box_tet_mesh(5, 5, 2, hi=(1.0, 1.0, 0.4))
     g0 = t_build(mesh, 1, EXTRAPOLATE, device="cpu")
     out = []
@@ -259,8 +262,18 @@ def test_intsharp_at_p0_is_ignored():
         out.append(s.nsteps(s.initial_state(), 2))
     assert torch.equal(out[0].u, out[1].u) and torch.equal(out[0].dt,
                                                            out[1].dt)
-    gd = t_build(box_tet_mesh(2, 2, 2), 4,
-                 {i: BC_DIRICHLET for i in range(1, 7)}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.MultiMatSolver(tm.MultiMatSystem(tpm.MMInterfaceAdvection(),
-                                            intsharp=True), gd)
+    mesh = box_tet_mesh(3, 3, 2, hi=(0.3, 0.3, 0.2))
+    jg = build_dggeom(mesh, ndof=4,
+                      bc_sidesets={i: BC_DIRICHLET for i in range(1, 7)})
+    tg = convert.geom_from_arrays(_arrays(jg), device="cpu")
+    js = jm.MultiMatSolver(jm.MultiMatSystem(jpm.MMInterfaceAdvection(),
+                                             intsharp=True), jg, cfl=0.4,
+                           limiter="superbeep1")
+    ts = tm.MultiMatSolver(tm.MultiMatSystem(tpm.MMInterfaceAdvection(),
+                                             intsharp=True), tg, cfl=0.4,
+                           limiter="superbeep1")
+    a, b = js.step(js.initial_state()), ts.step(ts.initial_state())
+    scale = max(1.0, float(np.abs(np.asarray(a.u)).max()))
+    np.testing.assert_allclose(b.u.numpy(), np.asarray(a.u), rtol=0,
+                               atol=P1_STEP_ATOL * scale)
+    assert np.isclose(float(b.dt), float(a.dt), rtol=DT_RTOL)
