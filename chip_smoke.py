@@ -8,7 +8,8 @@ paths (SlotCyl at 64^3: 1,572,864 tets and 274,625 nodes; VorticalFlow at
 faces), its DG(P0) Sod path, its three multi-material paths, its
 Lax-Friedrichs Sod DG(P1) path and its two THINC interface-advection paths
 (extrapolate and Dirichlet faces, 48^3) in float32 through their
-hand-written CUDA kernels:
+hand-written CUDA kernels, and the Sedov DG(P1) deck through the port's
+inciter command:
 
 1. card    the name and power limit from nvidia-smi;
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -127,6 +128,19 @@ hand-written CUDA kernels:
            ghost, THINC and AUSM+up in torch; gated like paths 12-17, with
            the host time of a stage's parts (the face Gauss-point pass and
            the dt sweep in place of K14 + K13).
+19. cli     the Sedov DG(P1) deck of path 4 through the port's inciter
+           command (quinoa_tpu_torch.cli.main, float32, on the card) on a
+           48^3 ExodusII box it writes: run A (-r 6, field output at the
+           end, --profile) launches K1, K12 and K13 33 times each and
+           nothing else, and its row 11 prints the L2(sol) of an
+           in-process DGSolver on path 4's geometry digit for digit; run B
+           restarts from A's checkpoint and prints A's rows 7-11; run C
+           (-b, one diag row, --profile) is timed against the in-process
+           solver; A's field output reads back with the JAX package's
+           names, finite; then one small float64 deck per build_inciter
+           branch (CLI_SMALL) runs on the card and on the CPU, the diag
+           rows agreeing at card_vs_cpu's tolerances, and one of them runs
+           as `python3 -m quinoa_tpu_torch inciter`, which must exit 0.
 
 Every path sets the launch counts to 0 just before it and reads them just
 after; a kernel of the path that did not launch as stated, or one that
@@ -313,6 +327,66 @@ L2_FLUSH_BYTES = 256 << 20      # filled before each timed call: > 50 MB L2
 SPIN_CYCLES_PER_S = 2.0e9       # device_ms spin: the card's top SM clock
 SPIN_MARGIN_S = 1e-4            # device_ms spin beyond 2x the host's time
 NSTEPS = 10                     # timed steps of each path, after 1 warm-up
+
+#: path 19, cli: the Sedov DG(P1) deck of the main path (p1) through the
+#: port's inciter command at 48^3 in float32; run A checkpoints at step
+#: CLI_RSFREQ and run B restarts from it
+CLI_NSTEP = 11
+CLI_RSFREQ = 6
+CLI_DECK = """title "Sedov DG(P1), the main path"
+inciter
+  nstep {nstep}
+  cfl 0.5
+  scheme dgp1
+  flux hllc
+  limiter superbeep1
+  compflow
+    physics euler
+    problem sedov_blastwave
+    material gamma 1.4 end end
+    bc_sym sideset 1 2 3 4 5 6 end end
+  end
+  diagnostics interval {interval} end
+end
+"""
+#: the kernels a step of the cli path launches, 3 times each (p1's)
+CLI_KERNELS = ("limit_vol", "face_wflux", "basis_accum")
+#: one small deck per build_inciter branch, float64, CLI_SMALL_NSTEP
+#: steps on a 6x6x4 box, card against CPU: (scheme, scheme line's
+#: extra keywords, pde block, box lo, box hi, cfl)
+CLI_SMALL_BOX = (6, 6, 4)
+CLI_SMALL_NSTEP = 2
+_SYM6 = "bc_sym sideset 1 2 3 4 5 6 end end"
+_DIR6 = "bc_dirichlet sideset 1 2 3 4 5 6 end end"
+_SOD = "bc_extrapolate sideset 1 2 end end bc_sym sideset 3 4 5 6 end end"
+CLI_SMALL = {
+    "diagcg_slotcyl": ("diagcg", "", "transport physics advection problem "
+                       f"slot_cyl {_DIR6} end", (0.0, 0.0, 0.0),
+                       (1.0, 1.0, 0.5), 0.8),
+    "alecg_vorticalflow": ("alecg", "", "compflow physics euler problem "
+                           "vortical_flow material gamma 1.66666666666667 end"
+                           f" end {_DIR6} end", (-0.5, -0.5, -0.5),
+                           (0.5, 0.5, 0.5), 0.5),
+    "dg_sod": ("dg", "", f"compflow problem sod_shocktube {_SOD} end",
+               (0.0, 0.0, 0.0), (1.0, 0.5, 0.5), 0.5),
+    "pdg_sedov": ("pdg", "limiter superbeep1", "compflow problem "
+                  f"sedov_blastwave {_SYM6} end", (0.0, 0.0, 0.0),
+                  (0.6, 0.6, 0.4), 0.5),
+    "p0p1_sedov": ("p0p1", "limiter superbeep1", "compflow problem "
+                   f"sedov_blastwave {_SYM6} end", (0.0, 0.0, 0.0),
+                   (0.6, 0.6, 0.4), 0.5),
+    "dgp2_taylorgreen": ("dgp2", "", "compflow problem taylor_green material"
+                         f" gamma 1.66666666666667 end end {_SYM6} end",
+                         (0.0, 0.0, 0.0), (1.0, 1.0, 0.75), 0.5),
+    "mm_dg_interface": ("dg", "", "multimat problem interface_advection "
+                        f"nmat 3 {_DIR6} end", (0.0, 0.0, 0.0),
+                        (1.0, 1.0, 0.5), 0.4),
+    "mm_dgp1_sod_thinc": ("dgp1", "", "multimat problem sod_shocktube nmat 2"
+                          f" intsharp 1 {_SOD} end", (0.0, 0.0, 0.0),
+                          (1.0, 0.5, 0.5), 0.5),
+}
+#: the small deck also run as `python3 -m quinoa_tpu_torch inciter`
+CLI_SUBPROCESS = "pdg_sedov"
 
 KERNELS = {
     "limit_vol": ("quinoa_tpu_torch/csrc/limit_vol.cu",
@@ -1593,6 +1667,242 @@ def mm_breakdown(torch, solver, name, state, reps=5):
               for name, fn in parts.items()))
 
 
+def cli_run(argv, device):
+    """quinoa_tpu_torch.cli.main(argv) in process on device; returns its
+    standard output, which is also printed line by line."""
+    import contextlib
+    import io
+
+    from quinoa_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv, device=device)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        phase("cli", "  | " + line)
+    if rc != 0:
+        raise AssertionError(f"cli: {argv} exited {rc}")
+    return out
+
+
+def diag_lines(path):
+    """The data rows of a diagnostics file, as text."""
+    with open(path) as fh:
+        return [line.rstrip("\n") for line in fh if not line.startswith("#")]
+
+
+def profile_table(out):
+    """{phase: (seconds, entries)} from a --profile table in out."""
+    rows = {}
+    for line in out.splitlines():
+        parts = line.rsplit(None, 3)
+        if len(parts) == 4 and parts[3].isdigit():
+            rows[parts[0].strip()] = (float(parts[1]), int(parts[3]))
+    return rows
+
+
+def small_cli_deck(name):
+    scheme, extra, block, _, _, cfl = CLI_SMALL[name]
+    return (f"inciter\n  nstep {CLI_SMALL_NSTEP}\n  cfl {cfl}\n"
+            f"  scheme {scheme} {extra}\n  {block}\n"
+            "  diagnostics interval 1 end\nend\n")
+
+
+def cli_small_decks(torch, d, card_dev):
+    """Each CLI_SMALL deck through the command on the card and on the CPU
+    in float64: the diag rows agree under card_vs_cpu's tolerances (it
+    equal; t and dt rtol 1e-12; norms atol SOLVER_ATOL of max(1, the
+    row's largest L2(sol)))."""
+    from quinoa_tpu_torch.io import write_exodus
+    from quinoa_tpu_torch.mesh import box_tet_mesh
+
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        for name, (_, _, _, lo, hi, _) in CLI_SMALL.items():
+            deck, mesh = (os.path.join(d, f"{name}.q"),
+                          os.path.join(d, f"{name}.exo"))
+            with open(deck, "w") as fh:
+                fh.write(small_cli_deck(name))
+            write_exodus(mesh, box_tet_mesh(*CLI_SMALL_BOX, lo=lo, hi=hi))
+            rows = {}
+            for where, device in (("card", card_dev), ("cpu", "cpu")):
+                diag = os.path.join(d, f"{name}.{where}.diag")
+                cli_run(["inciter", "-c", deck, "-i", mesh, "--diag", diag,
+                         "-o", os.path.join(d, f"{name}.{where}"), "-b"],
+                        device)
+                rows[where] = np.array([[float(x) for x in line.split()]
+                                        for line in diag_lines(diag)])
+            a, b = rows["card"], rows["cpu"]
+            ncomp = (b.shape[1] - 3) // 3
+            atol = SOLVER_ATOL * np.maximum(
+                1.0, np.abs(b[:, 3:3 + ncomp]).max(axis=1, keepdims=True))
+            ok = (a.shape == b.shape == (CLI_SMALL_NSTEP, b.shape[1])
+                  and np.array_equal(a[:, 0], b[:, 0])
+                  and np.allclose(a[:, 1:3], b[:, 1:3], rtol=1e-12, atol=0)
+                  and bool((np.abs(a[:, 3:] - b[:, 3:]) <= atol).all()))
+            err = float(np.abs(a[:, 3:] - b[:, 3:]).max()) if ok else None
+            phase("cli", f"small deck {name} (f64, {CLI_SMALL_NSTEP} steps) "
+                  f"card vs CPU: {'ok' if ok else 'FAIL'}, max |d norm| "
+                  f"{err}")
+            if not ok:
+                raise AssertionError(f"cli: {name} card vs CPU rows differ:"
+                                     f"\n{a}\n{b}")
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def cli_phase(torch, dev, card, big):
+    """Path 19: the Sedov DG(P1) main path through the port's inciter
+    command at 48^3, float32, on the card: run A (checkpoint at
+    CLI_RSFREQ, field output at the end, --profile), run B (--restart
+    from A's checkpoint), run C (-b, one diag row, --profile: the timing
+    run), an in-process DGSolver on box_geom's 48^3 geometry (big) for
+    reference; then the CLI_SMALL decks card against CPU and one run of
+    `python3 -m quinoa_tpu_torch inciter`."""
+    import tempfile
+
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.control import load_inciter
+    from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
+    from quinoa_tpu_torch.io import read_exodus_elem_fields, write_exodus
+    from quinoa_tpu_torch.mesh import box_tet_mesh
+    from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow
+    from quinoa_tpu_torch.pde.problems import SedovBlastwave
+
+    phase("cli", card)
+    if torch.get_default_dtype() != torch.float32:
+        raise AssertionError("cli: the main run is float32, torch's default")
+    with tempfile.TemporaryDirectory(prefix="quinoa_cli_") as d:
+        t0 = time.perf_counter()
+        mesh = os.path.join(d, "box48.exo")
+        write_exodus(mesh, box_tet_mesh(N_BIG, N_BIG, N_BIG))
+        phase("cli", f"48^3 box written ({os.path.getsize(mesh)} bytes, "
+              f"{time.perf_counter() - t0:.1f} s)")
+        decks = {}
+        for tag, interval in (("A", 1), ("C", CLI_NSTEP)):
+            decks[tag] = os.path.join(d, f"sedov_{tag}.q")
+            text = CLI_DECK.format(nstep=CLI_NSTEP, interval=interval)
+            with open(decks[tag], "w") as fh:
+                fh.write(text)
+            cfg = load_inciter(text)
+            want = dict(scheme="dgp1", flux="hllc", limiter="superbeep1",
+                        cfl=0.5, pde="compflow", problem="sedov_blastwave",
+                        gamma=1.4, bc_sym=[1, 2, 3, 4, 5, 6],
+                        nstep=CLI_NSTEP, diag_interval=interval, pref=False)
+            got = {k: getattr(cfg, k) for k in want}
+            if got != want:
+                raise AssertionError(f"cli: deck {tag} loads {got}")
+        ck = os.path.join(d, "ck")
+        base = {t: ["inciter", "-c", decks["C" if t == "C" else "A"], "-i",
+                    mesh, "--diag", os.path.join(d, f"{t}.diag"), "-o",
+                    os.path.join(d, t)] for t in "ABC"}
+
+        # run A: launches counted from 0 just before, read just after
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out_a = cli_run(base["A"] + ["-r", str(CLI_RSFREQ),
+                                     "--checkpoint-dir", ck, "--profile"],
+                        dev)
+        counts = dict(kernels.launches)
+        want = {k: (3 * CLI_NSTEP if k in CLI_KERNELS else 0)
+                for k in counts}
+        phase("cli", f"run A launches {counts}")
+        if counts != want:
+            raise AssertionError(f"cli: run A launched {counts}, expected "
+                                 f"{want}")
+        rows_a = diag_lines(os.path.join(d, "A.diag"))
+        if [int(r.split()[0]) for r in rows_a] != list(
+                range(1, CLI_NSTEP + 1)):
+            raise AssertionError(f"cli: run A rows {rows_a}")
+
+        # run B: restart from A's checkpoint at CLI_RSFREQ
+        cli_run(base["B"] + ["-b", "--restart", ck], dev)
+        rows_b = diag_lines(os.path.join(d, "B.diag"))
+        ok = rows_b == rows_a[CLI_RSFREQ:]
+        phase("cli", f"run B restarted at it={CLI_RSFREQ}: rows "
+              f"{[int(r.split()[0]) for r in rows_b]} "
+              f"{'equal' if ok else 'DIFFER from'} run A's as printed")
+        if not ok:
+            raise AssertionError(f"cli: restart rows {rows_b} vs "
+                                 f"{rows_a[CLI_RSFREQ:]}")
+
+        # run C: the timing run
+        out_c = cli_run(base["C"] + ["-b", "--profile"], dev)
+        rows_c = diag_lines(os.path.join(d, "C.diag"))
+        if len(rows_c) != 1 or rows_c[0] != rows_a[-1]:
+            raise AssertionError(f"cli: run C rows {rows_c}")
+
+        # the in-process reference on box_geom's geometry
+        system = DGCompFlow(SedovBlastwave(), riemann_flux="hllc")
+        solver = DGSolver(system, big, cfl=0.5, limiter="superbeep1")
+        state = solver.initial_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CLI_NSTEP):
+            state = solver.step(state)
+        torch.cuda.synchronize()
+        drive_ms = 1e3 * (time.perf_counter() - t0) / CLI_NSTEP
+        l2sol = DGDiagnostics(system, big).compute(state)[0]
+        printed = [f"{v:.12e}" for v in l2sol]
+        cli_l2 = rows_a[-1].split("\t")[3:3 + len(l2sol)]
+        ok = cli_l2 == printed
+        phase("cli", f"row {CLI_NSTEP} L2(sol) {cli_l2} vs the in-process "
+              f"DGSolver's {printed}: {'equal' if ok else 'DIFFER'}")
+        if not ok:
+            raise AssertionError("cli: L2(sol) differs from the in-process "
+                                 "run")
+
+        # A's field output reads back with the JAX package's names
+        names, times, vals = read_exodus_elem_fields(
+            os.path.join(d, f"A.e-s.{CLI_NSTEP}.exo"))
+        want = [f"{v}_{kind}" for kind in ("numerical", "analytical")
+                for v in ("density", "x-velocity", "y-velocity",
+                          "z-velocity", "specific_total_energy",
+                          "pressure")]
+        finite = bool(np.isfinite(vals).all())
+        phase("cli", f"field output A.e-s.{CLI_NSTEP}.exo: {len(names)} "
+              f"element fields of {vals.shape[-1]} cells at t="
+              f"{float(times[-1])!r}, finite {finite}")
+        if names != want or vals.shape[-1] != big.nelem or not finite:
+            raise AssertionError(f"cli: field output {names} "
+                                 f"{vals.shape}")
+
+        prof_a, prof_c = profile_table(out_a), profile_table(out_c)
+        for tag, prof in (("A", prof_a), ("C", prof_c)):
+            phase("cli", f"run {tag} phases (s, entries): " + ", ".join(
+                f"{k} {v[0]:.3f} {v[1]}" for k, v in prof.items()))
+        sec, n = prof_c["timestep"]
+        phase("cli", f"run C timestep {1e3 * sec / n:.4f} ms/step over {n} "
+              f"steps (a host read of it each step) vs the in-process "
+              f"DGSolver {drive_ms:.4f} ms/step over {CLI_NSTEP} steps "
+              f"(one synchronize at the end), on {card}")
+
+        cli_small_decks(torch, d, dev)
+
+        # one small deck as a command of its own, on the card
+        deck = os.path.join(d, f"{CLI_SUBPROCESS}.q")
+        mesh = os.path.join(d, f"{CLI_SUBPROCESS}.exo")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "quinoa_tpu_torch", "inciter", "-c",
+             deck, "-i", mesh, "--diag", os.path.join(d, "sub.diag"), "-o",
+             os.path.join(d, "sub")], cwd=REPO, env=env, capture_output=True,
+            text=True, timeout=600)
+        rows = diag_lines(os.path.join(d, "sub.diag")) if os.path.exists(
+            os.path.join(d, "sub.diag")) else []
+        phase("cli", f"python3 -m quinoa_tpu_torch inciter ({CLI_SUBPROCESS}"
+              f", float32): exit {res.returncode}, {len(rows)} rows, "
+              f"{time.perf_counter() - t0:.1f} s")
+        if res.returncode != 0 or len(rows) != CLI_SMALL_NSTEP:
+            raise AssertionError(f"cli: the command failed:\n{res.stdout}"
+                                 f"\n{res.stderr[-4000:]}")
+    return counts
+
+
 def main():
     import torch
 
@@ -1920,6 +2230,9 @@ def main():
         state = profile_path(torch, solver, name, state, wall / NSTEPS)
         if name in ("mm_p1", "mm_thinc", "mm_iface_p1"):
             mm_breakdown(torch, solver, name, state)
+
+    # 19. the main path through the port's inciter command
+    cli_phase(torch, dev, card, big)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms")

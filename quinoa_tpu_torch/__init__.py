@@ -17,6 +17,12 @@ TPU kernels of these paths are hand-written CUDA kernels under
 ``csrc/``, built with nvcc at first use (``kernels``); on CPU tensors
 every kernel wrapper runs its plain torch version instead.  The builders
 put their tensors on the card unless given another device (``device``).
+
+``python -m quinoa_tpu_torch inciter -c deck.q -i mesh`` (``cli``) runs a
+control deck as quinoa_tpu's inciter command does, through the port's
+own deck parser and config (``control``), mesh and diagnostics I/O
+(``io``), field output and checkpoints (``inciter.fieldout``,
+``inciter.checkpoint``).
 """
 
 __version__ = "0.1.0"

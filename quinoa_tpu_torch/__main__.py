@@ -1,0 +1,6 @@
+"""python -m quinoa_tpu_torch inciter -c deck.q -i mesh [options]"""
+
+from .cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())
