@@ -8,8 +8,9 @@ paths (SlotCyl at 64^3: 1,572,864 tets and 274,625 nodes; VorticalFlow at
 faces), its DG(P0) Sod path, its three multi-material paths, its
 Lax-Friedrichs Sod DG(P1) path and its two THINC interface-advection paths
 (extrapolate and Dirichlet faces, 48^3) in float32 through their
-hand-written CUDA kernels, and the Sedov DG(P1) deck through the port's
-inciter command:
+hand-written CUDA kernels, the Sedov DG(P1) deck through the port's
+inciter command, and mesh refinement (t0ref, dtref) and tracer particles
+through the command and its helpers:
 
 1. card    the name and power limit from nvidia-smi;
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -141,15 +142,52 @@ inciter command:
            branch (CLI_SMALL) runs on the card and on the CPU, the diag
            rows agreeing at card_vs_cpu's tolerances, and one of them runs
            as `python3 -m quinoa_tpu_torch inciter`, which must exit 0.
+20. amr_small the AMR_SMALL decks (DiagCG SlotCyl with dtref in each of
+           its three branches, Sedov DG(P1) with dtref, a t0ref deck of
+           uniform, coords and uniform_derefine passes) through the command
+           with -v on 6x6x2 boxes, float64, on the card and on the CPU: the
+           same t0ref and dtref lines (element counts) and diag rows at
+           card_vs_cpu's tolerances;
+21. amr_dg  the Sedov DG(P1) deck at 48^3, float32, with dtref every 3
+           steps (the incremental multi-level cycle; AMR_DG_DECK) through
+           the command (-b -v --profile): K1, K12 and K13 33 launches each
+           over the 11 steps of the solver and its rebuilds, the element
+           count after each event, per-phase host seconds and ms/step
+           between events (each step timed between synchronizes); gates:
+           finite rows, an event that changes the mesh;
+22. amr_cg  bench_cg.py's DiagCG SlotCyl at 64^3 with dtref every 4 steps
+           one level above the base mesh (AMR_CG_DECK): the same report
+           with K10 and K11; gates: finite rows, an event that changes the
+           mesh, the final state within BOUNDS_ULPS of the initial bounds;
+23. amr_remesh bench_amr.py's remesh leg at 32^3 (spherical front): the
+           seconds of tagging, refinement, CG transfer, and the DiagCG
+           solver's tables on the card (make_cggeom, DiagCGSolver);
+24. t0ref   the Sedov DG(P1) deck on a 24^3 box refined 1:8 by t0ref
+           (663,552 tets, as the 48^3 box): 11 finite steps, K1, K12, K13
+           33 launches each, exactly 8 x 24^3 x 6 elements;
+25. particles tracers: three velocity sources card against CPU in float64
+           (5 steps, and the CLI's re-homing after a remesh: element ids
+           equal, positions within 1e-12), then 10^5 tracers on the DiagCG
+           SlotCyl 64^3 run (one dtref event, the incremental cycle) and
+           on the Sedov DG(P1) 48^3 run, 11 float32 steps in process
+           through the command's helpers (so no h5py is needed; the
+           command's H5Part file is checked on the CPU): tracer ms/step,
+           re-homing seconds;
+           gates: positions finite, inside the box to 1e-6, every tracer
+           that moved in the last step inside its element (barycentric
+           minimum >= -1e-6).
 
-Every path sets the launch counts to 0 just before it and reads them just
-after; a kernel of the path that did not launch as stated, or one that
-does not belong to it and launched, fails the run.  Any failure raises,
-so the script exits non-zero.  Its last two lines are a JSON object of
-the kernels and the result line {"ok": true, "device": {...}}.  Needs one
-CUDA card, nvcc and no network.
+Every path that reports launches sets the counts to 0 just before it and
+reads them just after; a kernel of the path that did not launch as
+stated, or one that does not belong to it and launched, fails the run.
+Any failure raises, so the script exits non-zero.  Paths 20-25 add no
+kernel: their launches are those of the solvers rebuilt on each refined
+mesh.  Its last two lines are a JSON object of the kernels and the
+result line {"ok": true, "device": {...}}.  Needs one CUDA card, nvcc and
+no network.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -387,6 +425,98 @@ CLI_SMALL = {
 }
 #: the small deck also run as `python3 -m quinoa_tpu_torch inciter`
 CLI_SUBPROCESS = "pdg_sedov"
+
+#: paths 20-25: mesh refinement and tracers through the inciter command.
+#: The DiagCG SlotCyl dtref deck of tests/test_amr.py:265-316 (jump error
+#: on c, tol_refine 0.2), with the Dirichlet side sets {sides}: all six
+#: in that test
+AMR_SLOTCYL = """inciter
+  nstep {nstep}
+  cfl 0.8
+  scheme diagcg
+  transport
+    physics advection problem slot_cyl ncomp 1 depvar c
+    bc_dirichlet sideset {sides} end end
+  end
+  amr
+    dtref true
+    dtfreq {dtfreq}
+    refvar c end
+    error jump
+    tol_refine 0.2
+    {extra}
+  end
+  diagnostics interval 1 error l2 end
+end
+"""
+#: CLI_DECK with an amr block (the Sedov DG(P1) main path)
+AMR_SEDOV = CLI_DECK.replace("  diagnostics", "  amr {amr} end\n"
+                             "  diagnostics")
+#: path 20, amr_small: float64 decks on 6x6x2 boxes, card against CPU:
+#: (deck, box lo, box hi).  Sedov's density jumps reach 0.0047 a step
+#: whatever the cell size, so its dtref deck refines at tol_refine 0.005
+#: (it=2) and coarsens back at tol_derefine 0.05 (it=4)
+AMR_SMALL_BOX = (6, 6, 2)
+_SLOTCYL_BOX = ((0.0, 0.0, 0.0), (1.0, 1.0, 0.25))
+_SIX = "1 2 3 4 5 6"
+_SEDOV_BOX = ((0.0, 0.0, 0.0), (0.6, 0.6, 0.2))
+AMR_SMALL = {
+    "diagcg_dtref": (AMR_SLOTCYL.format(nstep=12, dtfreq=4, extra="",
+                                        sides=_SIX), *_SLOTCYL_BOX),
+    "diagcg_dtref_maxlevels1": (AMR_SLOTCYL.format(
+        nstep=12, dtfreq=4, extra="maxlevels 1", sides=_SIX),
+        *_SLOTCYL_BOX),
+    "diagcg_dtref_uniform": (AMR_SLOTCYL.format(
+        nstep=9, dtfreq=4, extra="dtref_uniform true", sides=_SIX),
+        *_SLOTCYL_BOX),
+    "dgp1_dtref": (AMR_SEDOV.format(
+        nstep=5, interval=1,
+        amr="dtref true dtfreq 2 error jump tol_refine 0.005"),
+        *_SEDOV_BOX),
+    "dgp1_t0ref": (AMR_SEDOV.format(
+        nstep=3, interval=1,
+        amr="t0ref true initial uniform initial coords coordref x- 0.3 end "
+            "initial uniform_derefine"), *_SEDOV_BOX),
+}
+#: path 21, amr_dg: the main path's deck at 48^3 with dtref every 3 steps
+#: (the default maxlevels 4: the incremental cycle).  The default
+#: tol_refine 0.2 never fires on Sedov in 11 steps (its density jumps
+#: grow 0.0047 a step); 0.01 refines at it=3, coarsens back at it=6
+#: (tol_derefine 0.05) and refines again at it=9 on 12^3 and 16^3 boxes
+AMR_DG_DECK = AMR_SEDOV.format(
+    nstep=CLI_NSTEP, interval=1,
+    amr="dtref true dtfreq 3 error jump tol_refine 0.01")
+#: path 22, amr_cg: bench_cg.py's DiagCG SlotCyl at 64^3, dtref every 4
+#: steps, one level above the base mesh (maxlevels 1), Dirichlet on the
+#: four sides where the solution is 0.  With the z faces pinned too, a
+#: remesh interpolates the discontinuous pinned values at new z-face
+#: midpoints and the pin then adds the analytic increment: both packages
+#: reach -0.3 and 1.2 there (8^3 to 32^3 on the CPU), so the FCT bounds
+#: gate runs with those faces free.  The incremental cycle's second event
+#: refines the first one's level again (x7 a event at 24^3 on the CPU,
+#: ~35M tets at 64^3): maxlevels 1 keeps two events to one level
+_FOUR = "1 2 3 4"
+AMR_CG_DECK = AMR_SLOTCYL.format(nstep=CLI_NSTEP, dtfreq=4,
+                                 extra="maxlevels 1", sides=_FOUR)
+#: launches of a DiagCGSolver build: its lumped mass (K11 once) and the
+#: gathers of its Dirichlet mask and nodal volumes (K10 twice); a DGSolver
+#: build launches nothing
+DIAGCG_BUILD = {"node_gather": 2, "node_assemble": 1}
+#: path 23, amr_remesh: bench_amr.py's remesh leg at 32^3
+AMR_REMESH_N = 32
+#: path 24, t0ref: the main path's deck on a 24^3 box refined 1:8 once,
+#: as many tets as the 48^3 box
+T0REF_N = 24
+T0REF_DECK = AMR_SEDOV.format(nstep=CLI_NSTEP, interval=1,
+                              amr="t0ref true initial uniform")
+#: path 25, particles: tracers on the DiagCG SlotCyl 64^3 run (one event
+#: of the incremental cycle, at it=6; amr_cg's faces) and on the Sedov P1
+#: 48^3 run
+NPAR = 100000
+PARTICLE_DTFREQ = 6
+#: float64 card-vs-CPU tracer steps and the position tolerance
+PARTICLE_SMALL_STEPS = 5
+PARTICLE_XP_ATOL = 1e-12
 
 KERNELS = {
     "limit_vol": ("quinoa_tpu_torch/csrc/limit_vol.cu",
@@ -1531,18 +1661,18 @@ def alpha_gate(name, solver, state):
         raise AssertionError(f"{name}: fraction gate failed")
 
 
-def bounds_gate(solver, state, u0):
+def bounds_gate(solver, state, u0, name="diagcg"):
     """min and max of u within BOUNDS_ULPS float32 ulps of the initial
     state's bounds (FCT monotonicity up to round-off)."""
     lo, hi = float(u0.min()), float(u0.max())
     slack = BOUNDS_ULPS * float(np.spacing(np.float32(max(abs(lo), abs(hi)))))
     umin, umax = float(state.u.min()), float(state.u.max())
     ok = lo - slack <= umin and umax <= hi + slack
-    phase("diagcg", f"after {int(state.it)} steps min {umin:.9e} max "
+    phase(name, f"after {int(state.it)} steps min {umin:.9e} max "
           f"{umax:.9e}, initial [{lo:.9e}, {hi:.9e}] +- {slack:.3e} "
           f"({BOUNDS_ULPS} f32 ulps): {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("diagcg: FCT bounds gate failed")
+        raise AssertionError(f"{name}: FCT bounds gate failed")
 
 
 def profile_path(torch, solver, name, state, step_s, steps=5):
@@ -1667,9 +1797,9 @@ def mm_breakdown(torch, solver, name, state, reps=5):
               for name, fn in parts.items()))
 
 
-def cli_run(argv, device):
+def cli_run(argv, device, path="cli"):
     """quinoa_tpu_torch.cli.main(argv) in process on device; returns its
-    standard output, which is also printed line by line."""
+    standard output, which is also printed line by line under path."""
     import contextlib
     import io
 
@@ -1680,9 +1810,9 @@ def cli_run(argv, device):
         rc = cli_main(argv, device=device)
     out = buf.getvalue()
     for line in out.splitlines():
-        phase("cli", "  | " + line)
+        phase(path, "  | " + line)
     if rc != 0:
-        raise AssertionError(f"cli: {argv} exited {rc}")
+        raise AssertionError(f"{path}: {argv} exited {rc}")
     return out
 
 
@@ -1734,23 +1864,29 @@ def cli_small_decks(torch, d, card_dev):
                         device)
                 rows[where] = np.array([[float(x) for x in line.split()]
                                         for line in diag_lines(diag)])
-            a, b = rows["card"], rows["cpu"]
-            ncomp = (b.shape[1] - 3) // 3
-            atol = SOLVER_ATOL * np.maximum(
-                1.0, np.abs(b[:, 3:3 + ncomp]).max(axis=1, keepdims=True))
-            ok = (a.shape == b.shape == (CLI_SMALL_NSTEP, b.shape[1])
-                  and np.array_equal(a[:, 0], b[:, 0])
-                  and np.allclose(a[:, 1:3], b[:, 1:3], rtol=1e-12, atol=0)
-                  and bool((np.abs(a[:, 3:] - b[:, 3:]) <= atol).all()))
-            err = float(np.abs(a[:, 3:] - b[:, 3:]).max()) if ok else None
-            phase("cli", f"small deck {name} (f64, {CLI_SMALL_NSTEP} steps) "
-                  f"card vs CPU: {'ok' if ok else 'FAIL'}, max |d norm| "
-                  f"{err}")
-            if not ok:
-                raise AssertionError(f"cli: {name} card vs CPU rows differ:"
-                                     f"\n{a}\n{b}")
+            rows_card_vs_cpu("cli", name, rows["card"], rows["cpu"],
+                             CLI_SMALL_NSTEP)
     finally:
         torch.set_default_dtype(prev)
+
+
+def rows_card_vs_cpu(path, name, a, b, nrows):
+    """Diag rows of a float64 run on the card (a) and on the CPU (b) agree
+    under card_vs_cpu's tolerances: nrows each, it equal, t and dt rtol
+    1e-12, norms atol SOLVER_ATOL of max(1, the row's largest L2(sol))."""
+    ncomp = (b.shape[1] - 3) // 3
+    atol = SOLVER_ATOL * np.maximum(
+        1.0, np.abs(b[:, 3:3 + ncomp]).max(axis=1, keepdims=True))
+    ok = (a.shape == b.shape == (nrows, b.shape[1])
+          and np.array_equal(a[:, 0], b[:, 0])
+          and np.allclose(a[:, 1:3], b[:, 1:3], rtol=1e-12, atol=0)
+          and bool((np.abs(a[:, 3:] - b[:, 3:]) <= atol).all()))
+    err = float(np.abs(a[:, 3:] - b[:, 3:]).max()) if ok else None
+    phase(path, f"small deck {name} (f64, {nrows} steps) card vs CPU: "
+          f"{'ok' if ok else 'FAIL'}, max |d norm| {err}")
+    if not ok:
+        raise AssertionError(f"{path}: {name} card vs CPU rows differ:"
+                             f"\n{a}\n{b}")
 
 
 def cli_phase(torch, dev, card, big):
@@ -1901,6 +2037,435 @@ def cli_phase(torch, dev, card, big):
             raise AssertionError(f"cli: the command failed:\n{res.stdout}"
                                  f"\n{res.stderr[-4000:]}")
     return counts
+
+
+def read_rows(path):
+    """The data rows of a diagnostics file as a float array."""
+    return np.array([[float(x) for x in line.split()]
+                     for line in diag_lines(path)])
+
+
+def remesh_lines(out):
+    """The t0ref and dtref lines of a -v run's standard output."""
+    return [line.strip() for line in out.splitlines()
+            if "t0ref:" in line or "dtref @it=" in line]
+
+
+@contextlib.contextmanager
+def step_log(torch, classes):
+    """Wraps the step method of each of classes while the block runs: a
+    call is timed between two synchronizes and logged as (elements,
+    seconds) in rec["steps"]; rec["first"] keeps the first call's input
+    state, rec["last"] the last call's output."""
+    rec = {"steps": [], "first": None, "last": None}
+    saved = [(cls, cls.step) for cls in classes]
+
+    def wrap(orig):
+        def step(self, state):
+            if rec["first"] is None:
+                rec["first"] = state
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig(self, state)
+            torch.cuda.synchronize()
+            rec["steps"].append((self.geom.nelem, time.perf_counter() - t))
+            rec["last"] = out
+            return out
+        return step
+
+    for cls, orig in saved:
+        cls.step = wrap(orig)
+    try:
+        yield rec
+    finally:
+        for cls, orig in saved:
+            cls.step = orig
+
+
+def step_segments(steps):
+    """'steps a-b on E=n: median x ms/step (mean y)' for each run of steps
+    on one mesh (the steps between two dtref events)."""
+    out, i = [], 0
+    while i < len(steps):
+        j = i
+        while j < len(steps) and steps[j][0] == steps[i][0]:
+            j += 1
+        ms = [1e3 * s for _, s in steps[i:j]]
+        out.append(f"steps {i + 1}-{j} on E={steps[i][0]}: median "
+                   f"{statistics.median(ms):.4f} ms/step (mean "
+                   f"{statistics.mean(ms):.4f})")
+        i = j
+    return out
+
+
+def amr_small(torch, d, card_dev):
+    """Path 20: each AMR_SMALL deck through the command with -v on the card
+    and on the CPU in float64: the same t0ref and dtref lines (element
+    counts included, at least one), and diag rows that agree under
+    card_vs_cpu's tolerances."""
+    from quinoa_tpu_torch.io import write_exodus
+    from quinoa_tpu_torch.mesh import box_tet_mesh
+
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        for name, (deck, lo, hi) in AMR_SMALL.items():
+            dp, mp = (os.path.join(d, f"{name}.q"),
+                      os.path.join(d, f"{name}.exo"))
+            with open(dp, "w") as fh:
+                fh.write(deck)
+            write_exodus(mp, box_tet_mesh(*AMR_SMALL_BOX, lo=lo, hi=hi))
+            rows, lines = {}, {}
+            for where, device in (("card", card_dev), ("cpu", "cpu")):
+                diag = os.path.join(d, f"{name}.{where}.diag")
+                out = cli_run(["inciter", "-c", dp, "-i", mp, "--diag", diag,
+                               "-o", os.path.join(d, f"{name}.{where}"),
+                               "-b", "-v"], device, path="amr_small")
+                rows[where], lines[where] = read_rows(diag), remesh_lines(out)
+            ok = lines["card"] == lines["cpu"] and len(lines["cpu"]) > 0
+            phase("amr_small", f"{name}: card {lines['card']}, CPU "
+                  f"{lines['cpu']}: {'equal' if ok else 'DIFFER'}")
+            if not ok:
+                raise AssertionError(f"amr_small: {name} remesh lines "
+                                     "differ or are missing")
+            nstep = int(deck.split("nstep")[1].split()[0])
+            rows_card_vs_cpu("amr_small", name, rows["card"], rows["cpu"],
+                             nstep)
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def amr_run(torch, dev, card, path, deck, mesh, d, per_step, per_build,
+            classes):
+    """One float32 run of deck on the ExodusII mesh through the command on
+    the card (-b -v --profile), launch counts zeroed just before and read
+    just after: per_step launches of each kernel of the path a step, and
+    per_build at each solver build (the first and one a changing dtref
+    event), none of the others; every step of classes timed (step_log).
+    Prints the remesh lines, the per-phase host seconds and the ms/step
+    between events; gates: every diag row finite, CLI_NSTEP of them.
+    Returns (stdout, step record, remesh lines)."""
+    from quinoa_tpu_torch import kernels
+
+    dp = os.path.join(d, f"{path}.q")
+    with open(dp, "w") as fh:
+        fh.write(deck)
+    diag = os.path.join(d, f"{path}.diag")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with step_log(torch, classes) as rec:
+        out = cli_run(["inciter", "-c", dp, "-i", mesh, "--diag", diag, "-o",
+                       os.path.join(d, path), "-b", "-v", "--profile"], dev,
+                      path=path)
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    lines = remesh_lines(out)
+    builds = 1 + sum("dtref @it=" in line for line in lines)
+    want = {k: CLI_NSTEP * per_step.get(k, 0) + builds * per_build.get(k, 0)
+            for k in counts}
+    phase(path, f"launches {counts}: {CLI_NSTEP} steps x {per_step} and "
+          f"{builds} solver builds x {per_build}, the rebuilt solvers' "
+          f"included; {wall:.1f} s in the command, on {card}")
+    if counts != want:
+        raise AssertionError(f"{path}: launches {counts}, expected {want}")
+    rows = read_rows(diag)
+    finite = bool(np.isfinite(rows).all())
+    phase(path, f"{len(rows)} diag rows, finite {finite}; remesh: {lines}")
+    if rows.shape[0] != CLI_NSTEP or not finite:
+        raise AssertionError(f"{path}: diag rows {rows.shape}, finite "
+                             f"{finite}")
+    phase(path, "phases (s, entries): " + ", ".join(
+        f"{k} {v[0]:.3f} {v[1]}" for k, v in profile_table(out).items()))
+    for seg in step_segments(rec["steps"]):
+        phase(path, seg + f", on {card}")
+    return out, rec, lines
+
+
+def amr_remesh(torch, dev, card):
+    """Path 23: bench_amr.py's remesh leg in the port at AMR_REMESH_N^3:
+    jump tags of a sharp spherical front (bench_amr.py:35-38), the
+    refinement, the CG transfer, then the DiagCG solver's tables on the
+    card (make_cggeom with its node plans, then DiagCGSolver's lumped
+    mass and gathers), each timed to a synchronize."""
+    from quinoa_tpu_torch.amr import refine_mesh, tag_edges_by_error
+    from quinoa_tpu_torch.amr.refine import transfer_cg
+    from quinoa_tpu_torch.inciter import DiagCGSolver
+    from quinoa_tpu_torch.mesh import box_tet_mesh
+    from quinoa_tpu_torch.pde.cg import CGTransport, make_cggeom
+    from quinoa_tpu_torch.pde.problems import SlotCyl
+
+    n = AMR_REMESH_N
+    mesh = box_tet_mesh(n, n, n)
+    x = mesh.coords
+    r = np.sqrt(((x - 0.5) ** 2).sum(axis=1))
+    u = np.exp(-((r - 0.3) / 0.05) ** 2)[None, :]
+    sec = {}
+    t = time.perf_counter()
+    tags = tag_edges_by_error(mesh, u, method="jump", tol=0.2)
+    sec["tag"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mesh2, rmap = refine_mesh(mesh, tags)
+    sec["refine"] = time.perf_counter() - t
+    t = time.perf_counter()
+    u2 = transfer_cg(rmap, u)
+    sec["transfer"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    geom = make_cggeom(mesh2, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    sec["make_cggeom"] = time.perf_counter() - t
+    t = time.perf_counter()
+    solver = DiagCGSolver(CGTransport(SlotCyl()), geom, cfl=0.8,
+                          bcnodes=mesh2.all_bnodes())
+    torch.cuda.synchronize()
+    sec["DiagCGSolver"] = time.perf_counter() - t
+    ok = u2.shape == (1, mesh2.nnode) and solver.geom.nelem == mesh2.nelem
+    phase("amr_remesh", f"{n}^3: {mesh.nelem} -> {mesh2.nelem} tets, "
+          f"{len(tags)} tagged edges; s: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sec.items())
+          + f", total {sum(sec.values()):.4f}, on {card}")
+    if not ok:
+        raise AssertionError("amr_remesh: transfer or rebuild sizes")
+
+
+def amr_phases(torch, dev, card):
+    """Paths 20-24: the small AMR decks card against CPU, then amr_dg,
+    amr_cg, amr_remesh and t0ref at full width, float32."""
+    import tempfile
+
+    from quinoa_tpu_torch.inciter import DiagCGSolver
+    from quinoa_tpu_torch.inciter.dg import DGSolver
+    from quinoa_tpu_torch.io import write_exodus
+    from quinoa_tpu_torch.mesh import box_tet_mesh
+
+    dg_kernels = {k: 3 for k in CLI_KERNELS}
+    cg_kernels = PATHS["diagcg"]
+    with tempfile.TemporaryDirectory(prefix="quinoa_amr_") as d:
+        amr_small(torch, d, dev)
+        boxes = {}
+        for n in (N_BIG, DIAGCG["diagcg"][1], T0REF_N):
+            t0 = time.perf_counter()
+            boxes[n] = os.path.join(d, f"box{n}.exo")
+            write_exodus(boxes[n], box_tet_mesh(n, n, n))
+            phase("amr", f"{n}^3 box written, "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+        # 21. Sedov DG(P1) at 48^3 with the incremental dtref cycle
+        _, rec, lines = amr_run(torch, dev, card, "amr_dg", AMR_DG_DECK,
+                                boxes[N_BIG], d, dg_kernels, {}, [DGSolver])
+        sizes = {e for e, _ in rec["steps"]}
+        if not lines or len(sizes) < 2:
+            raise AssertionError(f"amr_dg: no event changed the mesh "
+                                 f"({lines})")
+
+        # 22. DiagCG + FCT SlotCyl at 64^3, dtref every 4 steps
+        _, rec, lines = amr_run(torch, dev, card, "amr_cg", AMR_CG_DECK,
+                                boxes[DIAGCG["diagcg"][1]], d, cg_kernels,
+                                DIAGCG_BUILD, [DiagCGSolver])
+        if not lines or len({e for e, _ in rec["steps"]}) < 2:
+            raise AssertionError(f"amr_cg: no event changed the mesh "
+                                 f"({lines})")
+        bounds_gate(None, rec["last"], rec["first"].u, name="amr_cg")
+
+        # 23. bench_amr.py's remesh leg
+        amr_remesh(torch, dev, card)
+
+        # 24. t0ref: 24^3 refined 1:8 once, 11 Sedov P1 steps
+        _, rec, lines = amr_run(torch, dev, card, "t0ref", T0REF_DECK,
+                                boxes[T0REF_N], d, dg_kernels, {},
+                                [DGSolver])
+        want = 8 * 6 * T0REF_N ** 3
+        sizes = {e for e, _ in rec["steps"]}
+        ok = sizes == {want} and lines == [
+            f"t0ref: {6 * T0REF_N ** 3} -> {want} tets"]
+        phase("t0ref", f"elements {sorted(sizes)} (want {want}): "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"t0ref: {lines}, elements {sizes}")
+
+
+def particles_card_vs_cpu(torch, dev):
+    """Path 25, first part: PARTICLE_SMALL_STEPS float64 tracer steps of
+    each velocity source (SlotCyl's rotation; random nodal and cell-mean
+    momentum) on a refined 5x5x2 box on the card and on the CPU, then the
+    CLI's re-homing on a further refined mesh and one more step: element
+    ids equal, positions within PARTICLE_XP_ATOL."""
+    from quinoa_tpu_torch.amr import refine_mesh
+    from quinoa_tpu_torch.cli import _particles_remesh
+    from quinoa_tpu_torch.mesh import box_tet_mesh
+    from quinoa_tpu_torch.mesh.derived import gen_inpoed
+    from quinoa_tpu_torch.particles import ParticleTracker, seed_particles
+    from quinoa_tpu_torch.particles.tracker import (analytic_velocity,
+                                                    cell_velocity,
+                                                    nodal_velocity)
+    from quinoa_tpu_torch.pde.problems import SlotCyl
+
+    rng = np.random.default_rng(4)
+
+    def refined(mesh, frac):
+        edges = gen_inpoed(mesh.inpoel).astype(np.int64)
+        tags = edges[rng.choice(len(edges), size=int(frac * len(edges)),
+                                replace=False)]
+        return refine_mesh(mesh, tags)[0]
+
+    mesh = refined(box_tet_mesh(5, 5, 2, hi=(1.0, 1.0, 0.4)), 0.1)
+    mesh2 = refined(mesh, 0.2)
+    nod = np.empty((5, mesh.nnode))
+    nod[0] = 1.0 + 0.5 * rng.random(mesh.nnode)
+    nod[1:4] = nod[0] * rng.uniform(-1.0, 1.0, (3, mesh.nnode))
+    nod[4] = 2.5
+    cel = 0.1 * rng.standard_normal((5, 4, mesh.nelem))
+    cel[0, 0] = 1.0 + 0.5 * rng.random(mesh.nelem)
+    cel[1:4, 0] = cel[0, 0] * rng.uniform(-1.0, 1.0, (3, mesh.nelem))
+    sources = {"analytic": (analytic_velocity(SlotCyl()), None, 0.09),
+               "nodal": (nodal_velocity(), nod, 0.03),
+               "cell": (cell_velocity(5, 4), cel.reshape(20, -1), 0.03)}
+    xp0, ep0 = seed_particles(mesh, 2000, 5)
+    for name, (vel, varg, dt) in sources.items():
+        res = {}
+        for where in (dev, "cpu"):
+            tr = ParticleTracker(mesh, vel, dtype=torch.float64,
+                                 device=where)
+            vargs = () if varg is None else (torch.as_tensor(varg).to(where),)
+            xp, ep = torch.as_tensor(xp0), torch.as_tensor(ep0)
+            for k in range(PARTICLE_SMALL_STEPS):
+                xp, ep = tr.advance(xp, ep, k * dt, dt, *vargs)
+            moved = int((ep.cpu().numpy() != ep0).sum())
+            if name == "analytic":
+                pt = dict(tracker=tr, xp=xp, ep=ep)
+                _particles_remesh(pt, mesh2)
+                xp, ep = tr.advance(pt["xp"], pt["ep"], 0.45, dt)
+            res[where] = (xp.cpu(), ep.cpu(), moved)
+        (xa, ea, ma), (xb, eb, mb) = res[dev], res["cpu"]
+        err = float((xa - xb).abs().max())
+        ok = bool(torch.equal(ea, eb)) and err <= PARTICLE_XP_ATOL \
+            and ma == mb > 0
+        phase("particles", f"small f64 {name} velocity ({len(ep0)} tracers, "
+              f"{PARTICLE_SMALL_STEPS} steps"
+              + (", then re-homed on a refined mesh and one more step"
+                 if name == "analytic" else "")
+              + f") card vs CPU: ep equal {bool(torch.equal(ea, eb))}, "
+              f"max|dxp| {err:.3e} (atol {PARTICLE_XP_ATOL:g}), {ma} changed "
+              f"element: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"particles: {name} card vs CPU")
+
+
+def tracer_run(torch, dev, card, name, cfg, mesh, solver):
+    """Path 25: NPAR tracers seeded on mesh, advected with solver's flow
+    for cfg.nstep float32 steps in process through the inciter command's
+    own helpers (seeding, velocity source, step, dtref remesh and
+    re-homing, solver rebuild), each tracer step timed between
+    synchronizes.  Gates: positions finite and inside the box to 1e-6,
+    every particle that moved in the last step inside its element
+    (barycentric minimum >= -STUCK_TOL)."""
+    from quinoa_tpu_torch import cli
+    from quinoa_tpu_torch.control import build_inciter
+    from quinoa_tpu_torch.particles.tracker import STUCK_TOL, barycentric
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pt = cli._seed_tracking(cfg, mesh, solver.system, NPAR, dev)
+    torch.cuda.synchronize()
+    phase(name, f"{NPAR} tracers seeded on E={mesh.nelem}, "
+          f"{time.perf_counter() - t:.3f} s")
+    cg = cfg.scheme in cli._CG_SCHEMES
+    state = solver.initial_state(t0=cfg.t0)
+    base = rmap = None
+    tracer_s = []
+    for it in range(1, cfg.nstep + 1):
+        tprev = float(state.t)
+        state = solver.step(state)
+        torch.cuda.synchronize()
+        xprev = pt["xp"]
+        t = time.perf_counter()
+        cli._particles_step(pt, state, tprev)
+        torch.cuda.synchronize()
+        tracer_s.append(time.perf_counter() - t)
+        if cfg.dtref and it % cfg.dtfreq == 0 and it < cfg.nstep:
+            t = time.perf_counter()
+            changed, mesh2, base, rmap, u2 = cli._dtref_remesh(
+                cfg, mesh, base, rmap, state.u.detach().cpu().numpy(), cg,
+                solver.system.ncomp, None if cg else solver.geom.ndof)
+            t_amr = time.perf_counter() - t
+            if not changed:
+                raise AssertionError(f"{name}: the dtref event at it={it} "
+                                     "left the mesh as it was")
+            mesh = mesh2
+            t = time.perf_counter()
+            cli._particles_remesh(pt, mesh)
+            torch.cuda.synchronize()
+            t_home = time.perf_counter() - t
+            t = time.perf_counter()
+            solver, _ = build_inciter(cfg, mesh, device=dev)
+            st = solver.initial_state(t0=float(state.t))
+            state = dataclasses.replace(
+                st, u=torch.as_tensor(u2).to(device=st.u.device,
+                                             dtype=st.u.dtype),
+                it=state.it, dt=state.dt)
+            torch.cuda.synchronize()
+            phase(name, f"dtref @it={it}: -> {mesh.nelem} tets; tag, refine "
+                  f"and transfer {t_amr:.3f} s, tracer re-homing (chunked "
+                  f"nearest centroid + 4 x 4 hops) {t_home:.3f} s, solver "
+                  f"rebuild {time.perf_counter() - t:.3f} s")
+    xp, ep = pt["xp"], pt["ep"]
+    lo, hi = (torch.as_tensor(mesh.coords.min(axis=0)[:, None]).to(xp),
+              torch.as_tensor(mesh.coords.max(axis=0)[:, None]).to(xp))
+    finite = bool(torch.isfinite(xp).all())
+    inside = bool(((xp >= lo - 1e-6) & (xp <= hi + 1e-6)).all())
+    lmin = torch.amin(barycentric(pt["tracker"].geom, xp, ep), dim=0)
+    moved = (xp != xprev).any(dim=0)
+    bad = int(((lmin < -STUCK_TOL) & moved).sum())
+    ms = [1e3 * s for s in tracer_s]
+    phase(name, f"tracer step median {statistics.median(ms):.4f} ms "
+          f"(min {min(ms):.4f}, max {max(ms):.4f}) over {len(ms)} steps; "
+          f"finite {finite}, inside the box {inside}, {int(moved.sum())} "
+          f"moved in the last step, {bad} of them outside their element; "
+          f"state finite {bool(torch.isfinite(state.u).all())}, on {card}")
+    if not (finite and inside and bad == 0
+            and bool(torch.isfinite(state.u).all())):
+        raise AssertionError(f"{name}: tracer gates failed")
+
+
+def particle_phase(torch, dev, card, big):
+    """Path 25: the small card-vs-CPU tracer check, then NPAR tracers on
+    the DiagCG SlotCyl 64^3 run (analytic velocity, one dtref event) and
+    on the Sedov P1 48^3 run (cell means, big's geometry).  The tracers
+    run in process through the command's helpers, so the phase needs no
+    h5py (the command's --particles writes its H5Part file with h5py;
+    tests/test_torch_cli.py checks that file on the CPU)."""
+    import importlib.util
+
+    from quinoa_tpu_torch.control import build_inciter, load_inciter
+    from quinoa_tpu_torch.inciter.dg import DGSolver
+    from quinoa_tpu_torch.mesh import box_tet_mesh, hilbert_element_reorder
+    from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow
+    from quinoa_tpu_torch.pde.problems import SedovBlastwave
+
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    phase("particles", f"h5py {'present' if has_h5py else 'absent'}: "
+          "tracers driven in process through the command's helpers")
+    particles_card_vs_cpu(torch, dev)
+
+    n = DIAGCG["diagcg"][1]
+    cfg = load_inciter(AMR_SLOTCYL.format(nstep=CLI_NSTEP,
+                                          dtfreq=PARTICLE_DTFREQ, extra="",
+                                          sides=_FOUR))
+    t = time.perf_counter()
+    mesh, _ = hilbert_element_reorder(box_tet_mesh(n, n, n))
+    solver, _ = build_inciter(cfg, mesh, device=dev)
+    torch.cuda.synchronize()
+    phase("particles", f"DiagCG SlotCyl {n}^3 built, "
+          f"{time.perf_counter() - t:.1f} s")
+    tracer_run(torch, dev, card, "particles_cg", cfg, mesh, solver)
+    del solver
+
+    cfg = load_inciter(CLI_DECK.format(nstep=CLI_NSTEP, interval=1))
+    mesh, _ = hilbert_element_reorder(box_tet_mesh(N_BIG, N_BIG, N_BIG))
+    solver = DGSolver(DGCompFlow(SedovBlastwave(), riemann_flux="hllc"),
+                      big, cfl=0.5, limiter="superbeep1")
+    tracer_run(torch, dev, card, "particles_dg", cfg, mesh, solver)
 
 
 def main():
@@ -2233,6 +2798,10 @@ def main():
 
     # 19. the main path through the port's inciter command
     cli_phase(torch, dev, card, big)
+
+    # 20-24. mesh refinement through the inciter command; 25. tracers
+    amr_phases(torch, dev, card)
+    particle_phase(torch, dev, card, big)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms")

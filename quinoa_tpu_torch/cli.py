@@ -3,17 +3,21 @@
 The port's own copy of quinoa_tpu/cli.py's single-device inciter command
 (the reference's InciterDriver, src/Main/): the same flags, deck schema,
 file formats and output names.  It reads the control deck and the mesh,
-Hilbert-reorders the elements, builds the solver the deck names
+applies the deck's initial refinement passes (amr t0ref), Hilbert-reorders
+the elements, builds the solver the deck names
 (control.config.build_inciter), steps it, and writes the diagnostics
 file, field output and checkpoints; it can restart from a checkpoint of
-either package.  It runs on the card; ``main(argv, device="cpu")`` runs it
-on the CPU, as the tests do.
+either package.  During the run it adapts the mesh every dtfreq steps
+(amr dtref: uniform, the incremental multi-level cycle, or one level from
+the base mesh with maxlevels 1), transfers the solution on the host and
+rebuilds the solver on the new mesh; --particles advects tracers with the
+flow and writes their H5Part trajectories.  It runs on the card;
+``main(argv, device="cpu")`` runs it on the CPU, as the tests do.
 
 What the port does not have yet is refused before any step, with exit
 code 2 and one line naming the missing piece: the parallel options
-(--npes > 1, -u > 0, --slices, --pieces > 1), particles, --trace-dir,
--H, the other subcommands, and decks that ask for mesh refinement
-(t0ref, dtref).
+(--npes > 1, -u > 0, --slices, --pieces > 1), --trace-dir, -H and the
+other subcommands.
 """
 
 from __future__ import annotations
@@ -84,8 +88,6 @@ def _unported_option(args) -> str | None:
     if args.pieces > 1:
         return "--pieces > 1 (partitioned field output, part of the " \
                "parallel solvers)"
-    if args.particles > 0:
-        return "--particles (the particle tracker)"
     if args.trace_dir:
         return "--trace-dir (on-device tracing)"
     return None
@@ -126,8 +128,11 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
                     help="overdecomposition parameter in [0,1) (not "
                          "ported: > 0 is refused)")
     ap.add_argument("--particles", type=int, default=0,
-                    help="seed N passive tracer particles (not ported: "
-                         "N > 0 is refused)")
+                    help="seed N passive tracer particles, advect them "
+                         "with the flow each step, and write "
+                         "<output>.h5part trajectories (the Tracker/"
+                         "H5PartWriter analog, src/Particles/"
+                         "Tracker.hpp)")
     ap.add_argument("-v", "--verbose", action="store_true")
     ap.add_argument("--profile", action="store_true",
                     help="print the per-phase wall-clock table at the "
@@ -141,8 +146,12 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
     if args.checkpoint_dir is None:
         args.checkpoint_dir = args.output + ".restart"
 
+    import dataclasses
+
+    import torch
+
     from .base.profiler import PhaseProfiler
-    from .control.config import build_inciter, load_inciter
+    from .control.config import apply_t0ref, build_inciter, load_inciter
     from .inciter.checkpoint import load_checkpoint, save_checkpoint
     from .io import DiagWriter, read_mesh
     from .io.iothread import AsyncWriter
@@ -152,14 +161,20 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
     prof = PhaseProfiler()
     with open(args.control) as fh:
         cfg = load_inciter(fh.read())
-    if cfg.t0ref or cfg.dtref:
-        return _refuse("mesh refinement (the deck's amr t0ref/dtref)")
     with prof.phase("mesh read"):
         mesh = read_mesh(args.input)
     if args.verbose:
         print(f"quinoa_tpu_torch inciter: {cfg.title!r}")
         print(f"  mesh: {mesh.nnode} nodes, {mesh.nelem} tets")
         print(f"  scheme={cfg.scheme} pde={cfg.pde} problem={cfg.problem}")
+
+    if cfg.t0ref and cfg.amr_initial:
+        n0 = mesh.nelem
+        with prof.phase("t0ref"):
+            # no problem: an `initial ic` pass raises, as in the JAX CLI
+            mesh = apply_t0ref(cfg, mesh)
+        if args.verbose:
+            print(f"  t0ref: {n0} -> {mesh.nelem} tets")
 
     # Hilbert element reorder (the reference's Sorter/Reorder analog,
     # src/Inciter/Sorter.cpp): semantically invisible; field output is
@@ -183,24 +198,38 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
         print("  note: --lbfreq has no effect on single-device runs "
               "(load balancing needs --npes > 1)", file=sys.stderr)
 
+    cg_scheme = cfg.scheme in _CG_SCHEMES
+    pt = _make_particle_tracking(args, cfg, mesh, solver.system, device)
+    _particles_write(pt, float(state.t))
+    amr_base = None  # the dtref base mesh (or multi-level chain)
+    amr_rmap = None  # and its current refinement (maxlevels 1)
     aw = AsyncWriter(enabled=not args.sync_io)
 
     def write_fields(it, state):
-        # the host copy is taken here, on the stepping thread; the worker
-        # only derives plot variables on the host and writes the file
+        # the host copy is taken here, on the stepping thread, with the
+        # solver, mesh and element order of this step (a dtref event
+        # replaces them); the worker only derives plot variables on the
+        # host and writes the file
         snap = _host_snapshot(cfg, solver, state)
-        aw.submit(lambda: _write_fields(args.output, it, cfg, solver, snap,
-                                        mesh, eorder=eorder))
+        aw.submit(lambda sv=solver, m=mesh, eo=eorder: _write_fields(
+            args.output, it, cfg, sv, snap, m, eorder=eo))
 
     t0 = time.perf_counter()
     it = int(state.it)  # nonzero when restarted from a checkpoint
     with _Preempt() as pre:
         while it < cfg.nstep and float(state.t) < cfg.term:
+            tprev = float(state.t) if pt is not None else None
             with prof.phase("timestep"):
                 state = solver.step(state)
                 # reading it back waits for the step: the phase times the
                 # device's work, not only its enqueueing
                 it = int(state.it)
+            if pt is not None:
+                with prof.phase("particles"):
+                    _particles_step(pt, state, tprev)
+            # diagnostics before any same-step dtref remesh: the reference
+            # writes the row of step `it`, then refines going into the
+            # next step
             if it % cfg.diag_interval == 0:
                 with prof.phase("diagnostics"):
                     row = diag.compute(state)
@@ -211,12 +240,39 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
                     else:
                         dw.write(it, row.t, row.dt, row.l2sol, row.l2err,
                                  row.linferr)
+            if cfg.dtref and cfg.dtfreq and it % cfg.dtfreq == 0 \
+                    and it < cfg.nstep:
+                with prof.phase("dtref"):
+                    # one host copy of the solution per event
+                    changed, mesh2, amr_base, amr_rmap, u2 = _dtref_remesh(
+                        cfg, mesh, amr_base, amr_rmap,
+                        state.u.detach().cpu().numpy(), cg_scheme,
+                        solver.system.ncomp,
+                        None if cg_scheme else solver.geom.ndof)
+                if changed:
+                    # the refined mesh is not Hilbert-reordered again, and
+                    # its field output keeps the refined element order
+                    mesh, eorder = mesh2, None
+                    if pt is not None:
+                        with prof.phase("particles"):
+                            _particles_remesh(pt, mesh)
+                    with prof.phase("solver build"):
+                        solver, diag = build_inciter(cfg, mesh,
+                                                     device=device)
+                        st = solver.initial_state(t0=float(state.t))
+                        state = dataclasses.replace(
+                            st, u=torch.as_tensor(u2).to(
+                                device=st.u.device, dtype=st.u.dtype),
+                            it=state.it, dt=state.dt)
+                    if args.verbose:
+                        print(f"  dtref @it={it}: -> {mesh.nelem} tets")
             if args.verbose and it % cfg.ttyi == 0:
                 print(f"  it={it} t={float(state.t):.6e} "
                       f"dt={float(state.dt):.6e}")
             if it % cfg.field_interval == 0 and not args.benchmark:
                 with prof.phase("field output"):
                     write_fields(it, state)
+                _particles_write(pt, float(state.t))
             if (args.rsfreq and it % args.rsfreq == 0) or pre.flag:
                 with prof.phase("checkpoint"):
                     save_checkpoint(args.checkpoint_dir, state,
@@ -226,6 +282,8 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
                       f"{args.checkpoint_dir}; resume with --restart")
                 break
     dw.close()
+    if pt is not None:
+        pt["writer"].close()
     if args.verbose:
         wall = time.perf_counter() - t0
         print(f"  done: {it} steps, t={float(state.t):.6e}, {wall:.2f}s")
@@ -238,6 +296,176 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
     if args.profile:
         print(prof.table())
     return 0
+
+
+def _dtref_remesh(cfg, mesh, amr_base, amr_rmap, u_host, cg_scheme, ncomp,
+                  ndof):
+    """One during-timestep AMR decision on the host, as the JAX CLI's.
+
+    u_host is the solution as numpy ((C, nnode) nodal for the CG schemes,
+    (C*ndof, nelem) modal for DG).  Returns (changed, mesh, amr_base,
+    amr_rmap, u transferred or None): dtref_uniform refines every element
+    1:8; maxlevels > 1 runs the incremental multi-level cycle
+    (amr/adapt.py), whose chain rides the amr_base slot; maxlevels 1
+    retags the base mesh and rebuilds one level of refinement above it.
+    DG's error field is the nodal average of the cell means."""
+    import numpy as np
+
+    from .amr import refine_mesh, tag_edges_by_error, uniform_refine
+    from .amr.refine import (RefineMap, transfer_cg, transfer_cg_derefine,
+                             transfer_dg, transfer_dg_derefine)
+
+    if cfg.dtref_uniform:
+        # compounding uniform refinement (dtref_uniform)
+        mesh2, rmap = uniform_refine(mesh)
+        if mesh2.nelem > mesh.nelem:
+            if cg_scheme:
+                u2 = transfer_cg(rmap, u_host)
+            else:
+                u2 = transfer_dg(rmap, u_host, ncomp, ndof)
+            return True, mesh2, amr_base, amr_rmap, u2
+        return False, mesh, amr_base, amr_rmap, None
+
+    if cfg.amr_maxlevels > 1:
+        # incremental multi-level cycle: refine from the current mesh,
+        # coarsen sibling groups below tol_derefine
+        from .amr.adapt import dtref_adapt
+
+        uerr = u_host if cg_scheme else _nodal_cell_means(mesh, u_host,
+                                                          ncomp, ndof)
+        changed, mesh2, chain, u2 = dtref_adapt(
+            mesh, amr_base, uerr, u_host, cg_scheme, ncomp, ndof,
+            method=cfg.amr_error, tol_refine=cfg.amr_tol,
+            tol_derefine=cfg.amr_tolderef, maxlevels=cfg.amr_maxlevels,
+        )
+        return changed, mesh2, chain, None, (u2 if changed else None)
+
+    # one level above the base mesh: retag every dtfreq steps and rebuild
+    # refine_mesh(base, tags); regions no longer tagged coarsen (the
+    # transfer between two refinements of the base is the derefine one)
+    if amr_base is None:
+        amr_base = mesh
+        amr_rmap = RefineMap(
+            mid_edges=np.zeros((0, 2), np.int64),
+            parent=np.arange(mesh.nelem),
+            nnode_old=mesh.nnode,
+        )
+    nb = amr_base.nnode  # base nodes prefix every refinement
+    if cg_scheme:
+        uerr = u_host[:, :nb]
+        vol_cur = None
+    else:
+        from .mesh.geometry import tet_geometry
+
+        uerr = _nodal_cell_means(mesh, u_host, ncomp, ndof)[:, :nb]
+        J, _ = tet_geometry(mesh.coords, mesh.inpoel)
+        vol_cur = J / 6.0
+    tags = tag_edges_by_error(
+        amr_base, uerr, method=cfg.amr_error, tol=cfg.amr_tol,
+    )
+    mesh2, rmap2 = refine_mesh(amr_base, tags)
+    cur_keys = {tuple(e) for e in np.sort(amr_rmap.mid_edges, 1).tolist()}
+    new_keys = {tuple(e) for e in np.sort(rmap2.mid_edges, 1).tolist()}
+    if new_keys != cur_keys:
+        if cg_scheme:
+            u2 = transfer_cg_derefine(amr_rmap, rmap2, u_host)
+        else:
+            u2 = transfer_dg_derefine(
+                amr_base, amr_rmap, rmap2, u_host, vol_cur, ncomp, ndof)
+        return True, mesh2, amr_base, rmap2, u2
+    return False, mesh, amr_base, amr_rmap, None
+
+
+def _nodal_cell_means(mesh, u_host, ncomp, ndof):
+    """(C, nnode) float64: the mean over the elements around each node of
+    their cell means, summed corner by corner as the JAX CLI's np.add.at
+    loops."""
+    import numpy as np
+
+    avg = u_host.reshape(ncomp, ndof, -1)[:, 0, :]   # dg_cell_avg
+    unod = np.zeros((avg.shape[0], mesh.nnode))
+    cnt = np.zeros(mesh.nnode)
+    for a in range(4):
+        np.add.at(cnt, mesh.inpoel[:, a], 1.0)
+        for c in range(avg.shape[0]):
+            np.add.at(unod[c], mesh.inpoel[:, a], avg[c])
+    unod /= np.maximum(cnt, 1.0)
+    return unod
+
+
+def _particle_source(cfg, system):
+    """(velocity_of, vargs of a state) by configuration: the analytic
+    velocity field for transport problems, the interpolated nodal
+    momentum over density for CG compflow, the containing cell's mean
+    for DG compflow; SystemExit for any other pde."""
+    from .particles.tracker import (analytic_velocity, cell_velocity,
+                                    nodal_velocity)
+
+    if cfg.pde == "transport":
+        return analytic_velocity(system.problem), lambda state: ()
+    if cfg.pde == "compflow" and cfg.scheme in _CG_SCHEMES:
+        return nodal_velocity(), lambda state: (state.u,)
+    if cfg.pde == "compflow":
+        from .control.config import _SCHEME_NDOF
+
+        return (cell_velocity(5, _SCHEME_NDOF.get(cfg.scheme, 4)),
+                lambda state: (state.u,))
+    raise SystemExit("--particles supports transport and compflow runs")
+
+
+def _seed_tracking(cfg, mesh, system, npar, device):
+    """{tracker, xp, ep, vargs}: npar tracers seeded as the JAX package
+    seeds them, on a tracker on device in torch's default dtype (the
+    solver's)."""
+    import torch
+
+    from .particles import ParticleTracker, seed_particles
+
+    vel, vargs = _particle_source(cfg, system)
+    tracker = ParticleTracker(mesh, vel, device=device)
+    xp, ep = seed_particles(mesh, npar)
+    g = tracker.geom
+    return dict(tracker=tracker,
+                xp=torch.as_tensor(xp).to(dtype=g.dtype, device=g.device),
+                ep=torch.as_tensor(ep).to(dtype=torch.int64,
+                                          device=g.device),
+                vargs=vargs)
+
+
+def _make_particle_tracking(args, cfg, mesh, system, device):
+    """{tracker, xp, ep, vargs, writer} or None without --particles; the
+    writer is <output>.h5part's."""
+    if not args.particles:
+        return None
+    from .io.h5part import H5PartWriter
+
+    pt = _seed_tracking(cfg, mesh, system, args.particles, device)
+    pt["writer"] = H5PartWriter(args.output + ".h5part")
+    return pt
+
+
+def _particles_remesh(pt, mesh):
+    """Rebuild the tracker tables on a remeshed mesh: keep the positions,
+    re-home each particle at its nearest centroid (a chunk of particles
+    at a time) and walk 4 x 4 hops from there, as the JAX CLI does."""
+    from .particles.tracker import locate, nearest_centroid
+
+    tr = pt["tracker"]
+    tr.rebuild(mesh)
+    ep = nearest_centroid(tr.geom, pt["xp"])
+    for _ in range(4):
+        ep = locate(tr.geom, pt["xp"], ep, hops=4)
+    pt["ep"] = ep
+
+
+def _particles_step(pt, state, tprev):
+    pt["xp"], pt["ep"] = pt["tracker"].advance(
+        pt["xp"], pt["ep"], tprev, _hs(state.dt), *pt["vargs"](state))
+
+
+def _particles_write(pt, t):
+    if pt is not None:
+        pt["writer"].write(pt["xp"].cpu().numpy().T, time=t)
 
 
 def _hs(x) -> float:

@@ -6,8 +6,9 @@ src/Control/): the deck schema is the contract, so the same
 block-structured keyword files drive both packages.
 """
 
-from .config import InciterConfig, build_inciter, load_inciter
+from .config import (InciterConfig, apply_t0ref, build_inciter,
+                     load_inciter)
 from .qparser import first, occurrences, parse_deck
 
-__all__ = ["InciterConfig", "build_inciter", "first", "load_inciter",
-           "occurrences", "parse_deck"]
+__all__ = ["InciterConfig", "apply_t0ref", "build_inciter", "first",
+           "load_inciter", "occurrences", "parse_deck"]

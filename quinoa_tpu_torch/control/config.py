@@ -369,3 +369,69 @@ def build_inciter(cfg: InciterConfig, mesh, dtype: Optional[torch.dtype] = None,
         return solver, DGDiagnostics(system, geom)
 
     raise ValueError(f"unknown scheme {cfg.scheme!r}")
+
+
+def apply_t0ref(cfg: InciterConfig, mesh, problem=None):
+    """Initial (t < 0) adaptive refinement passes (the Refiner's t0ref),
+    as the JAX package's apply_t0ref: each `initial ...` mode in deck
+    order, one multi-pass refinement pass each over the intermediates
+    state carried between them; uniform_derefine undoes the most recent
+    refinement pass.  Returns the refined host mesh.  The `ic` mode tags
+    by the error of problem's initial solution and raises without a
+    problem, as the JAX package's does."""
+    from ..amr import derefine_mesh, tag_edges_by_coords, tag_edges_by_error
+    from ..amr.multipass import AMRState, refine_pass
+    from ..mesh.derived import gen_inpoed
+
+    state = AMRState()  # persistent intermediates across the passes
+    hist = []  # (coarse mesh, refmap) per applied refinement pass
+    for mode in cfg.amr_initial:
+        if mode == "uniform":
+            # mark_uniform_refinement: tag every (unlocked) edge
+            tags = gen_inpoed(mesh.inpoel).astype(np.int64)
+        elif mode == "coords":
+            kw = {}
+            names = {"x-": "xminus", "x+": "xplus", "y-": "yminus",
+                     "y+": "yplus", "z-": "zminus", "z+": "zplus"}
+            for k, v in cfg.coordref.items():
+                kw[names[k]] = v
+            tags = tag_edges_by_coords(mesh, **kw)
+        elif mode == "ic":
+            if problem is None:
+                raise ValueError("initial-conditions t0ref needs a problem")
+            xyz = torch.as_tensor(mesh.coords.T,
+                                  dtype=torch.get_default_dtype())
+            u = problem.solution(xyz, 0.0).cpu().numpy()
+            tags = tag_edges_by_error(mesh, u, method=cfg.amr_error,
+                                      tol=cfg.amr_tol)
+        elif mode == "edgelist":
+            # exactly the user-listed edges that exist in the mesh
+            # (Refiner::edgelistRefine)
+            want = {tuple(sorted(cfg.amr_edgelist[i:i + 2]))
+                    for i in range(0, len(cfg.amr_edgelist), 2)}
+            edges = gen_inpoed(mesh.inpoel)
+            hit = np.array([tuple(e) in want for e in edges.tolist()])
+            tags = edges[hit] if hit.any() else np.zeros((0, 2), np.int64)
+            if not len(tags):
+                continue
+        elif mode == "uniform_derefine":
+            if hist:
+                coarse, rmap = hist.pop()
+                new, _, _ = derefine_mesh(
+                    coarse, rmap, np.ones(coarse.nelem, dtype=bool))
+                mesh = coarse if new is None else new
+                # the popped pass was all-1:8 (its rmap would have been
+                # refused below otherwise): no partial template is live
+                state = AMRState()
+            continue
+        else:
+            raise ValueError(f"unknown amr initial mode {mode!r}")
+        coarse = mesh
+        mesh, rmap, state = refine_pass(mesh, tags, state)
+        # uniform_derefine can only undo a pass whose parent map is
+        # complete (no 2:8/4:8 rebuilds folded in)
+        if (rmap.parent >= 0).all():
+            hist.append((coarse, rmap))
+        else:
+            hist.clear()
+    return mesh

@@ -22,9 +22,18 @@ and multimat DG(P0) interface advection.  Checked:
 - --sync-io and the asynchronous writer give byte-equal files; -b
   writes no field output; format/precision shape the diag file;
 - every option or deck setting the port has not ported exits 2 before
-  any step; a SIGTERM drains: checkpoint, final output, exit 0.
+  any step; a SIGTERM drains: checkpoint, final output, exit 0;
+- mesh refinement and tracers (AMR_DECKS): a t0ref deck, the three dtref
+  branches (the multi-level cycle on DiagCG and on DG(P1), maxlevels 1,
+  dtref_uniform) and --particles with and without dtref (each velocity
+  source) give the JAX run's diagnostics rows (as above), the same
+  t0ref and dtref lines on standard output, the same field output files
+  (meshes equal, values as above) and the same .h5part steps (times rtol
+  1e-12, positions atol 1e-12).
 """
 
+import contextlib
+import io
 import os
 import signal
 
@@ -289,10 +298,7 @@ REFUSED = {
     "virtualization": (["-u", "0.5"], None, "-u"),
     "slices": (["--slices", "2"], None, "--slices"),
     "pieces": (["--pieces", "2"], None, "--pieces"),
-    "particles": (["--particles", "8"], None, "--particles"),
     "trace_dir": (["--trace-dir", "tr"], None, "--trace-dir"),
-    "t0ref": ([], "amr t0ref true initial uniform end", "refinement"),
-    "dtref": ([], "amr dtref true end", "refinement"),
 }
 
 
@@ -395,3 +401,171 @@ def test_sigterm_drains_to_a_checkpoint(tmp_path, monkeypatch, f64):
                   device="cpu") == 0
     np.testing.assert_array_equal(_rows(rest + ".diag"),
                                   _rows(full + ".diag")[1:])
+
+
+_SLOTCYL = """
+inciter
+  nstep {nstep}
+  cfl 0.8
+  scheme diagcg
+  transport
+    physics advection problem slot_cyl ncomp 1 depvar c
+    bc_dirichlet sideset 1 2 3 4 5 6 end end
+  end
+  amr
+    dtref true
+    dtfreq 4
+    refvar c end
+    error jump
+    tol_refine 0.2
+    {extra}
+  end
+  field_output interval 4 end
+  diagnostics interval 1 error l2 end
+end
+"""
+_SEDOV = """
+inciter
+  nstep 5
+  cfl 0.5
+  scheme dgp1 flux hllc limiter superbeep1
+  compflow
+    physics euler problem sedov_blastwave
+    material gamma 1.4 end end
+    bc_sym sideset 1 2 3 4 5 6 end end
+  end
+  amr {amr} end
+  field_output interval 2 end
+  diagnostics interval 1 end
+end
+"""
+_UNIT, _SLAB = ((0.0, 0.0, 0.0), (1.0, 1.0, 0.25)), \
+    ((0.0, 0.0, 0.0), (0.6, 0.6, 0.4))
+#: name -> (deck, box cells, lo, hi, extra argv); the names' prefixes
+#: give _kinds the component kinds.  The DG(P1) Sedov dtref deck's
+#: tol_refine fires on this box's density jumps within two steps.
+AMR_DECKS = {
+    "dgp1_t0ref": (_SEDOV.format(
+        amr="t0ref true initial uniform initial coords coordref x- 0.3 end "
+            "initial uniform_derefine"), (6, 6, 4), *_SLAB,
+        ["--particles", "40"]),
+    "dgp1_dtref": (_SEDOV.format(
+        amr="dtref true dtfreq 2 error jump tol_refine 0.005"), (6, 6, 4),
+        *_SLAB, ["--particles", "40"]),
+    "diagcg_dtref": (_SLOTCYL.format(nstep=12, extra=""), (6, 6, 2),
+                     *_UNIT, ["--particles", "50"]),
+    "diagcg_dtref_maxlevels1": (_SLOTCYL.format(nstep=12,
+                                                extra="maxlevels 1"),
+                                (6, 6, 2), *_UNIT, []),
+    "diagcg_dtref_uniform": (_SLOTCYL.format(nstep=9,
+                                             extra="dtref_uniform true"),
+                             (6, 6, 2), *_UNIT, []),
+    "alecg_particles": (DECKS["alecg_vortical"][0], (6, 6, 4),
+                        *DECKS["alecg_vortical"][1:], ["--particles", "30"]),
+}
+
+
+def _lines(out, words=("t0ref:", "dtref @it=")):
+    return [line for line in out.splitlines()
+            if any(w in line for w in words)]
+
+
+@pytest.fixture(scope="module")
+def amr_runs(tmp_path_factory):
+    """Per AMR deck: the JAX run and the port's, with -v; their standard
+    output's t0ref and dtref lines.  The runs start in the deck's
+    directory: the JAX command's -v writes mesh PDFs to the working
+    directory."""
+    out = {}
+    cwd = os.getcwd()
+    try:
+        for name, (deck, n, lo, hi, extra) in AMR_DECKS.items():
+            d = str(tmp_path_factory.mktemp(name))
+            os.chdir(d)
+            dp, mp = os.path.join(d, "run.q"), os.path.join(d, "box.exo")
+            with open(dp, "w") as fh:
+                fh.write(deck)
+            tio.write_exodus(mp, box_tet_mesh(*n, lo=lo, hi=hi))
+            lines = {}
+            for tag, fn in (("jax", j_main), ("port", _port)):
+                base = os.path.join(d, tag)
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = fn(["inciter", "-c", dp, "-i", mp, "--diag",
+                             base + ".diag", "-o", base, "-v", *extra])
+                assert rc == 0, (name, tag)
+                lines[tag] = _lines(buf.getvalue())
+            out[name] = (d, lines)
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(AMR_DECKS))
+def test_amr_diag_rows_and_remesh_lines_match_jax(amr_runs, name):
+    d, lines = amr_runs[name]
+    assert lines["port"] == lines["jax"]
+    if "dtref" in name:
+        assert len(lines["jax"]) >= 2, lines["jax"]
+    if "t0ref" in name:
+        assert lines["jax"] and "t0ref:" in lines["jax"][0]
+    want = _rows(os.path.join(d, "jax.diag"))
+    nstep = int(AMR_DECKS[name][0].split("nstep")[1].split()[0])
+    assert want.shape[0] == nstep
+    _check_rows(name, _rows(os.path.join(d, "port.diag")), want)
+
+
+@pytest.mark.parametrize("name", sorted(AMR_DECKS))
+def test_amr_field_output_matches_jax(amr_runs, name):
+    d, _ = amr_runs[name]
+    files = sorted(f[len("jax"):] for f in os.listdir(d)
+                   if f.startswith("jax.e-s."))
+    assert files and files == sorted(f[len("port"):] for f in os.listdir(d)
+                                     if f.startswith("port.e-s."))
+    for suffix in files:
+        want = _fields(os.path.join(d, "jax" + suffix))
+        got = _fields(os.path.join(d, "port" + suffix))
+        assert list(got) == list(want) and want
+        for k, w in want.items():
+            np.testing.assert_allclose(
+                got[k], w, rtol=ROW_RTOL,
+                atol=FLOOR * max(1.0, np.abs(w).max()), err_msg=k)
+        jm = tio.read_exodus(os.path.join(d, "jax" + suffix))
+        tm = tio.read_exodus(os.path.join(d, "port" + suffix))
+        np.testing.assert_array_equal(tm.inpoel, jm.inpoel)
+        np.testing.assert_array_equal(tm.coords, jm.coords)
+
+
+@pytest.mark.parametrize("name", sorted(k for k in AMR_DECKS
+                                        if "--particles" in AMR_DECKS[k][4]))
+def test_particles_h5part_matches_jax(amr_runs, name):
+    """The same H5Part steps: one at the start and one at each field
+    output, their times, and the tracers' positions, some of which
+    moved."""
+    import h5py
+
+    d, _ = amr_runs[name]
+    with h5py.File(os.path.join(d, "jax.h5part"), "r") as fj, \
+            h5py.File(os.path.join(d, "port.h5part"), "r") as ft:
+        assert list(ft) == list(fj) and len(fj) >= 3
+        moved = 0.0
+        for step in fj:
+            np.testing.assert_allclose(ft[step].attrs["TimeValue"],
+                                       fj[step].attrs["TimeValue"],
+                                       rtol=ROW_RTOL, atol=0)
+            for c in "xyz":
+                assert ft[step][c].dtype == np.float64
+                np.testing.assert_allclose(ft[step][c][:], fj[step][c][:],
+                                           rtol=0, atol=1e-12)
+                moved = max(moved, float(np.abs(
+                    fj[step][c][:] - fj["Step#0"][c][:]).max()))
+        assert moved > 1e-6, moved
+
+
+def test_particles_refuse_other_pdes(tmp_path):
+    """--particles on a multimat deck ends with the JAX CLI's message."""
+    dp, mp = _inputs(str(tmp_path), "mm_p0")
+    with pytest.raises(SystemExit, match="transport and compflow"):
+        _port(["inciter", "-c", dp, "-i", mp, "--diag",
+               str(tmp_path / "x.diag"), "-o", str(tmp_path / "x"),
+               "--particles", "5"])
