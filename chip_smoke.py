@@ -9,8 +9,10 @@ faces), its DG(P0) Sod path, its three multi-material paths, its
 Lax-Friedrichs Sod DG(P1) path and its two THINC interface-advection paths
 (extrapolate and Dirichlet faces, 48^3) in float32 through their
 hand-written CUDA kernels, the Sedov DG(P1) deck through the port's
-inciter command, and mesh refinement (t0ref, dtref) and tracer particles
-through the command and its helpers:
+inciter command, mesh refinement (t0ref, dtref) and tracer particles
+through the command and its helpers, and the walker (its Threefry draws,
+every SDE class, the coupled Langevin family at 10^6 particles and the
+walker command):
 
 1. card    the name and power limit from nvidia-smi;
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -175,14 +177,29 @@ through the command and its helpers:
            re-homing seconds;
            gates: positions finite, inside the box to 1e-6, every tracer
            that moved in the last step inside its element (barycentric
-           minimum >= -1e-6).
+           minimum >= -1e-6);
+26. walker  the raw-draw gate (WALKER_DRAW bits 32 and 64 wide and
+           uniforms in float32 and float64 bit-identical on the card and
+           the CPU, normals within WALKER_NORMAL_ULPS, 10^5 log-gamma
+           draws at alpha 0.3 and 2.5 bit-identical); one walker per SDE
+           class (14 walkers, the coupled family holding three classes)
+           card against CPU in float64 (npar 4096, 5 steps, rtol 1e-12);
+           the coupled Position + Velocity + Dissipation ensemble at 10^6
+           particles in float32 timed as bench_walker.py times it (one
+           warm-up chunk, 5 chunks of 10 steps each followed by its
+           moments): particle-updates/s and ms/step, no hand kernel
+           launched (PATHS["walker"] is empty), a torch.profiler window;
+           gates: finite, mean dissipation > 0, each mean position within
+           5 sigma/sqrt(npar) of 0; then `walker` through cli.main on the
+           card and the CPU in float64, stat rows equal at the printed
+           precision and the PDF's bins equal.
 
 Every path that reports launches sets the counts to 0 just before it and
 reads them just after; a kernel of the path that did not launch as
 stated, or one that does not belong to it and launched, fails the run.
 Any failure raises, so the script exits non-zero.  Paths 20-25 add no
 kernel: their launches are those of the solvers rebuilt on each refined
-mesh.  Its last two lines are a JSON object of the kernels and the
+mesh; path 26 launches none.  Its last two lines are a JSON object of the kernels and the
 result line {"ok": true, "device": {...}}.  Needs one CUDA card, nvcc and
 no network.
 """
@@ -518,6 +535,50 @@ PARTICLE_DTFREQ = 6
 PARTICLE_SMALL_STEPS = 5
 PARTICLE_XP_ATOL = 1e-12
 
+#: path 26, the walker: the coupled Position + Velocity + Dissipation
+#: ensemble (tests/test_walker.py:178-199) at WALKER_NPAR in float32,
+#: timed as bench_walker.py times it (one warm-up chunk, then
+#: WALKER_CHUNKS chunks of WALKER_CHUNK steps, each followed by the
+#: moments)
+WALKER_NPAR = 1_000_000
+WALKER_DT = 0.005
+WALKER_CHUNK = 10
+WALKER_CHUNKS = 5
+WALKER_SEED = 11
+#: the raw-draw gate's shape, and the card-vs-CPU runs of every system
+WALKER_DRAW = (1_000_000, 7)
+WALKER_NORMAL_ULPS = 2
+#: log-gamma draws held bit for bit card against CPU, at these alphas
+WALKER_GAMMA_N = 100_000
+WALKER_GAMMA_ALPHAS = (0.3, 2.5)
+WALKER_SMALL_NPAR = 4096
+WALKER_SMALL_STEPS = 5
+WALKER_RTOL = 1e-12
+WALKER_ATOL = 1e-14
+#: the walker command's inline deck (float64, card against CPU)
+WALKER_DECK = """title "walker smoke"
+walker
+  term 0.05  dt 0.005  npar 20000
+  rngs r123_threefry seed 4 end end
+  position
+    depvar x  velocity u  init jointgaussian
+    icgaussian gaussian 0.0 1.0 end gaussian 0.0 1.0 end
+               gaussian 0.0 1.0 end end
+  end
+  velocity
+    depvar u  dissipation o  init jointgaussian
+    icgaussian gaussian 0.0 0.5 end gaussian 0.0 0.5 end
+               gaussian 0.0 0.5 end end
+  end
+  dissipation
+    depvar o  velocity u  init jointgaussian
+    icgaussian gaussian 1.0 0.01 end end
+  end
+  statistics interval 2 <U1> <O> <u1u1> <u1u2> <x1u1> <o1o1> end
+  pdfs interval 10 filetype txt f2( u1 u2 : 0.1 0.1 ) end
+end
+"""
+
 KERNELS = {
     "limit_vol": ("quinoa_tpu_torch/csrc/limit_vol.cu",
                   "quinoa_tpu/ops/nbr_bounds.py:541"),
@@ -617,6 +678,8 @@ PATHS = {
     # K5: el and er of each stage's rhs (108 rows) and of the stage-0 dt
     # sweep (48 rows)
     "mm_iface_p1": {"nbr_bounds": 3, "face_gather": 8, "face_accum": 3},
+    # the walker's draws and steps are torch ops: no hand kernel
+    "walker": {},
 }
 #: the path whose launches the kernels line reports for each kernel
 MAIN_PATH = {"limit_vol": "p1", "nbr_bounds": "pdg",
@@ -2468,6 +2531,284 @@ def particle_phase(torch, dev, card, big):
     tracer_run(torch, dev, card, "particles_dg", cfg, mesh, solver)
 
 
+def walker_systems(dq, ip):
+    """One walker per SDE class of quinoa_tpu_torch.diffeq, in a list of
+    (name, [systems], coupled): 13 single systems and the coupled
+    Position + Velocity + Dissipation family, each with an init policy.
+    WrightFisher starts off the simplex (its components sum to 0.75),
+    where its diffusion matrix is positive definite: on the simplex the
+    matrix is singular and its square root amplifies eigh's round-off."""
+    def with_init(s, policy, *args):
+        s.init = lambda k, n, **kw: policy(k, n, *args, **kw)
+        return s
+
+    g2 = (ip.init_jointgaussian, [(0.3, 0.1), (0.1, 0.2)])
+    beta = (ip.init_jointbeta, [(2.0, 2.0, 0.0, 1.0)])
+    out = [
+        ("diag_ou", [with_init(dq.DiagOrnsteinUhlenbeck(
+            depvar="y", sigmasq=(0.25, 0.5), theta=(1.0, 2.0),
+            mu=(0.5, -0.2)), *g2)]),
+        ("ou", [with_init(dq.OrnsteinUhlenbeck(
+            depvar="y", sigmasq=((0.25, 0.15), (0.15, 0.25)),
+            theta=(1.0, 1.5), mu=(0.0, 0.3)), ip.init_jointcorrgaussian,
+            [0.1, -0.1], [[0.2, 0.05], [0.05, 0.1]])]),
+        ("beta", [with_init(dq.Beta(depvar="y", b=(1.0,), S=(0.6,),
+                                    kappa=(0.1,)), *beta)]),
+        ("numfracbeta", [with_init(dq.NumberFractionBeta(
+            depvar="x", b=(0.4,), S=(0.5,), kappa=(0.1,), rho2=(2.0,),
+            rcomma=(0.3,)), *beta)]),
+        ("massfracbeta", [with_init(dq.MassFractionBeta(
+            depvar="x", b=(0.4,), S=(0.5,), kappa=(0.1,), rho2=(2.0,),
+            r=(0.3,)), *beta)]),
+        ("mixnumfracbeta", [with_init(dq.MixNumberFractionBeta(
+            depvar="x", bprime=(2.0,), S=(0.5,), kprime=(0.5,), rho2=(1.0,),
+            rcomma=(0.5,)), ip.init_jointdelta,
+            [[(0.05, 0.5), (0.95, 0.5)]])]),
+        ("mixmassfracbeta", [with_init(dq.MixMassFractionBeta(
+            depvar="x", bprime=(2.0,), S=(0.5,), kprime=(0.5,), rho2=(1.0,),
+            r=(0.5,), coeff="homdecay"), *beta)]),
+        ("dirichlet", [with_init(dq.Dirichlet(
+            depvar="y", b=(1.0, 1.5), S=(0.4, 0.4), kappa=(0.5, 0.7)),
+            ip.init_jointdelta, [[(0.3, 1.0)], [(0.3, 1.0)]])]),
+        ("gendir", [with_init(dq.GeneralizedDirichlet(
+            depvar="y", b=(0.1, 1.5), S=(0.3, 0.45), kappa=(0.1, 0.3),
+            cij=(0.1,)), ip.init_jointdelta, [[(0.4, 1.0)], [(0.4, 1.0)]])]),
+        ("mixdirichlet", [with_init(dq.MixDirichlet(
+            depvar="y", b=(1.0, 1.5), S=(0.4, 0.3), kprime=(0.5, 0.7),
+            rho=(3.0, 2.0, 1.0), coeff="homogeneous"),
+            ip.init_jointdirichlet, [2.0, 3.0, 4.0])]),
+        ("gamma", [with_init(dq.Gamma(depvar="y", b=(1.5,), S=(0.6,),
+                                      kappa=(0.5,)),
+                             ip.init_jointgamma, [(2.0, 0.5)])]),
+        ("skew_normal", [with_init(dq.SkewNormal(
+            depvar="y", T=(1.0,), sigmasq=(0.04,), lam=(2.0,)),
+            ip.init_jointgaussian, [(0.0, 0.04)])]),
+        ("wright_fisher", [with_init(dq.WrightFisher(
+            depvar="y", omega=(0.25, 0.5, 0.25)), ip.init_jointdelta,
+            [[(0.2, 0.5), (0.3, 0.5)], [(0.25, 1.0)],
+             [(0.3, 0.5), (0.2, 0.5)]])]),
+    ]
+    return out + [("langevin", langevin_systems(dq, ip))]
+
+
+def langevin_systems(dq, ip):
+    """Position + Velocity + Dissipation, laid out and coupled by offset,
+    with tests/test_walker.py:178-199's init policies."""
+    from quinoa_tpu_torch.walker import Walker
+
+    pos = dq.Position(depvar="x")
+    vel = dq.Velocity(depvar="u", c0=2.1)
+    dis = dq.Dissipation(depvar="o", c3=1.0, c4=0.25)
+    systems = Walker.layout([pos, vel, dis])
+    pos.velocity_offset = vel.offset
+    vel.dissipation_offset = dis.offset
+    dis.velocity_offset = vel.offset
+    for s, gs in ((pos, [(0.0, 1.0)] * 3), (vel, [(0.0, 0.5)] * 3),
+                  (dis, [(1.0, 0.01)])):
+        s.init = lambda k, n, gs=gs, **kw: ip.init_jointgaussian(k, n, gs,
+                                                                 **kw)
+    return systems
+
+
+def walker_draws(torch, dev):
+    """The raw-draw gate: WALKER_DRAW bits (32 and 64 wide) and uniforms
+    bit-identical on the card and the CPU, normals within
+    WALKER_NORMAL_ULPS, and WALKER_GAMMA_N log-gamma draws at each of
+    WALKER_GAMMA_ALPHAS bit-identical (the sampler's acceptance decisions
+    the same), in both precisions."""
+    from quinoa_tpu_torch.rng import threefry as tf
+
+    k = tf.fold_in(tf.key(WALKER_SEED), 3)
+    for width in (32, 64):
+        a = tf.random_bits(k, WALKER_DRAW, width, dev).cpu()
+        ok = torch.equal(a, tf.random_bits(k, WALKER_DRAW, width, "cpu"))
+        phase("walker", f"bits{width} {WALKER_DRAW}: card "
+              f"{'bit-identical to' if ok else 'DIFFERS from'} the CPU")
+        if not ok:
+            raise AssertionError(f"walker: {width}-bit draws differ")
+    for dtype, itype in ((torch.float32, torch.int32),
+                         (torch.float64, torch.int64)):
+        u = tf.uniform(k, WALKER_DRAW, dtype, dev).cpu()
+        uc = tf.uniform(k, WALKER_DRAW, dtype, "cpu")
+        ok_u = torch.equal(u.view(itype), uc.view(itype))
+        z = tf.normal(k, WALKER_DRAW, dtype, dev).cpu().view(itype)
+        zc = tf.normal(k, WALKER_DRAW, dtype, "cpu").view(itype)
+        ulps = int((z.to(torch.int64) - zc.to(torch.int64)).abs().max())
+        exact = float((z == zc).double().mean())
+        ok = ok_u and ulps <= WALKER_NORMAL_ULPS
+        same = "bit-identical" if ok_u else "DIFFERS"
+        phase("walker", f"{dtype}: uniform {same}, normal max {ulps} ulps "
+              f"(<= {WALKER_NORMAL_ULPS}), {exact:.6f} identical: "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"walker: {dtype} draws card vs CPU")
+        for a in WALKER_GAMMA_ALPHAS:
+            g = tf.loggamma(k, a, (WALKER_GAMMA_N,), dtype, dev).cpu()
+            gc = tf.loggamma(k, a, (WALKER_GAMMA_N,), dtype, "cpu")
+            ok = torch.equal(g.view(itype), gc.view(itype))
+            phase("walker", f"{dtype}: loggamma alpha {a} x {WALKER_GAMMA_N}"
+                  f" {'bit-identical' if ok else 'DIFFERS'}")
+            if not ok:
+                raise AssertionError(f"walker: {dtype} loggamma({a}) card "
+                                     "vs CPU")
+
+
+def walker_card_vs_cpu(torch, dev):
+    """Every SDE class on the card and on the CPU, float64, npar
+    WALKER_SMALL_NPAR, WALKER_SMALL_STEPS steps: rtol WALKER_RTOL (atol
+    WALKER_ATOL)."""
+    import quinoa_tpu_torch.diffeq as dq
+    from quinoa_tpu_torch.diffeq import initpolicy as ip
+    from quinoa_tpu_torch.walker import Walker
+
+    names = [n for n, _ in walker_systems(dq, ip)]
+    worst = {}
+    for name in names:
+        P = {}
+        for where, device in (("card", dev), ("cpu", "cpu")):
+            systems = dict(walker_systems(dq, ip))[name]
+            if name != "langevin":
+                systems = Walker.layout(systems)
+            w = Walker(systems, npar=WALKER_SMALL_NPAR, dt=0.01, seed=3,
+                       dtype=torch.float64, device=device)
+            P[where] = w.run(WALKER_SMALL_STEPS)[0].cpu().numpy()
+        a, b = P["card"], P["cpu"]
+        ok = bool(np.isfinite(a).all()) and np.allclose(
+            a, b, rtol=WALKER_RTOL, atol=WALKER_ATOL)
+        worst[name] = float(np.max(np.abs(a - b)
+                                   / np.maximum(np.abs(b), WALKER_ATOL)))
+        if not ok:
+            raise AssertionError(f"walker: {name} card vs CPU differ, max "
+                                 f"rel {worst[name]:.3e}")
+    phase("walker", f"{len(names)} walkers (the 16 SDE classes), f64, "
+          f"npar {WALKER_SMALL_NPAR}, {WALKER_SMALL_STEPS} steps, card vs "
+          f"CPU within rtol {WALKER_RTOL:g}: ok; max rel " + ", ".join(
+              f"{n} {v:.2e}" for n, v in worst.items()))
+
+
+class _WalkerSteps:
+    """A walker as profile_path's solver: step(P) is one walker step."""
+
+    def __init__(self, walker):
+        self.walker = walker
+
+    def step(self, P):
+        return self.walker.run(1, P=P)[0]
+
+
+def walker_cli(torch, dev, d):
+    """python -m quinoa_tpu_torch walker on WALKER_DECK through cli.main
+    on the card and on the CPU in float64, each in its own directory:
+    the stat rows agree at their printed precision (12 digits) and the
+    txt PDF has the same bins."""
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    rows, pdfs = {}, {}
+    try:
+        for where, device in (("card", dev), ("cpu", "cpu")):
+            wd = os.path.join(d, f"walker_{where}")
+            os.makedirs(wd)
+            with open(os.path.join(wd, "w.q"), "w") as fh:
+                fh.write(WALKER_DECK)
+            cwd = os.getcwd()
+            os.chdir(wd)
+            try:
+                cli_run(["walker", "-c", "w.q", "--stat", "stat.txt", "-v"],
+                        device, path="walker")
+            finally:
+                os.chdir(cwd)
+            with open(os.path.join(wd, "stat.txt")) as fh:
+                rows[where] = [ln.split() for ln in fh
+                               if not ln.startswith("#")]
+            with open(os.path.join(wd, "f2.txt")) as fh:
+                pdfs[where] = [ln.split()[:2] for ln in fh
+                               if not ln.startswith("#")]
+    finally:
+        torch.set_default_dtype(prev)
+    a = np.array(rows["card"], dtype=float)
+    b = np.array(rows["cpu"], dtype=float)
+    # one unit in the 12th significant digit of each printed value
+    unit = 10.0 ** (np.floor(np.log10(np.maximum(np.abs(b), 1e-300))) - 12)
+    ok = (a.shape == b.shape and a.shape[0] == 5
+          and bool((np.abs(a - b) <= 1.0001 * unit).all())
+          and pdfs["card"] == pdfs["cpu"])
+    same = sum(x == y for r, q in zip(rows["card"], rows["cpu"])
+               for x, y in zip(r, q))
+    bins = "equal" if pdfs["card"] == pdfs["cpu"] else "DIFFER"
+    phase("walker", f"command: {a.shape[0]} stat rows, {same} of {a.size} "
+          "printed values identical, the rest within one unit of the last "
+          f"digit; PDF bins {bins}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"walker: command card vs CPU\n{a}\n{b}")
+
+
+def walker_phase(torch, dev, card):
+    """Path 26: the walker.  The raw-draw gate, every SDE class card
+    against CPU, then the coupled Langevin family at WALKER_NPAR in
+    float32: one warm-up chunk, WALKER_CHUNKS timed chunks of
+    WALKER_CHUNK steps each followed by its moments (host clock around
+    work ending in a synchronize), launch counts (no hand kernel), a
+    torch.profiler window of 5 steps, and the gates: finite, mean
+    dissipation > 0, each mean position within 5 sigma/sqrt(npar) of 0.
+    Last, the walker command on the card and the CPU."""
+    import tempfile
+
+    import quinoa_tpu_torch.diffeq as dq
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.diffeq import initpolicy as ip
+    from quinoa_tpu_torch.statistics import estimate_moments, moments_to_host
+    from quinoa_tpu_torch.walker import Walker
+
+    t_phase = time.perf_counter()
+    walker_draws(torch, dev)
+    walker_card_vs_cpu(torch, dev)
+
+    systems = langevin_systems(dq, ip)
+    ordinary = [(("x", c),) for c in range(3)] + [(("o", 0),)]
+    central = [(("u", i), ("u", j)) for i in range(3) for j in range(i, 3)]
+    w = Walker(systems, npar=WALKER_NPAR, dt=WALKER_DT, seed=WALKER_SEED,
+               ordinary=ordinary, central=central, dtype=torch.float32,
+               device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    P = w.initialize()
+    P, _ = w.run(WALKER_CHUNK, P=P)                  # warm-up chunk
+    moments_to_host(estimate_moments(P, w.offsets, ordinary, central))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(WALKER_CHUNKS):
+        P, _ = w.run(WALKER_CHUNK, P=P)
+        mom = estimate_moments(P, w.offsets, ordinary, central)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    if any(counts.values()):
+        raise AssertionError(f"walker: hand kernels launched {counts}")
+    mom = moments_to_host(mom)
+    nsteps = WALKER_CHUNK * WALKER_CHUNKS
+    phase("walker", f"{WALKER_NPAR * nsteps / wall:.1f} particle-updates/s, "
+          f"{1e3 * wall / nsteps:.3f} ms/step (float32, npar {WALKER_NPAR}, "
+          f"{WALKER_CHUNKS} chunks of {WALKER_CHUNK} steps with moments, "
+          f"host clock to a synchronize), launches {counts}, on {card}")
+    X = P[:, :3].double()
+    sigma = X.std(dim=0)
+    xm = X.mean(dim=0)
+    om = float(P[:, systems[2].offset].double().mean())
+    ok = (bool(torch.isfinite(P).all()) and om > 0.0
+          and bool((xm.abs() <= 5.0 * sigma / WALKER_NPAR ** 0.5).all()))
+    phase("walker", f"finite {bool(torch.isfinite(P).all())}, <O> {om:.6e},"
+          f" <X> {xm.tolist()} (5 sigma/sqrt(npar) "
+          f"{(5.0 * sigma / WALKER_NPAR ** 0.5).tolist()}), moments "
+          + ", ".join(f"{k}: {v:.6e}" for k, v in mom.items())
+          + f": {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("walker: the 1e6 run's gates failed")
+    profile_path(torch, _WalkerSteps(w), "walker", P, wall / nsteps)
+    with tempfile.TemporaryDirectory() as d:
+        walker_cli(torch, dev, d)
+    phase("walker", f"path took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -2802,6 +3143,9 @@ def main():
     # 20-24. mesh refinement through the inciter command; 25. tracers
     amr_phases(torch, dev, card)
     particle_phase(torch, dev, card, big)
+
+    # 26. the walker: no hand kernel (PATHS["walker"])
+    walker_phase(torch, dev, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms")

@@ -23,6 +23,11 @@ control deck as quinoa_tpu's inciter command does, through the port's
 own deck parser and config (``control``), mesh and diagnostics I/O
 (``io``), field output and checkpoints (``inciter.fieldout``,
 ``inciter.checkpoint``).
+
+The walker (``walker``, ``python -m quinoa_tpu_torch walker -c deck.q``)
+integrates SDE ensembles (``diffeq``) with moments and PDFs
+(``statistics``) in eager torch, drawing jax.random's Threefry streams
+bit for bit (``rng``).
 """
 
 __version__ = "0.1.0"

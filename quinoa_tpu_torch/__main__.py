@@ -1,4 +1,5 @@
-"""python -m quinoa_tpu_torch inciter -c deck.q -i mesh [options]"""
+"""python -m quinoa_tpu_torch {inciter -c deck.q -i mesh, walker -c deck.q}
+[options]"""
 
 from .cli import main
 

@@ -1,6 +1,8 @@
-"""Base toolkit: the per-phase wall-clock profiler (the port's own copy
-of quinoa_tpu/base's PhaseProfiler)."""
+"""Base toolkit: the per-phase wall-clock profiler and the tabulated
+function (the port's own copies of quinoa_tpu/base's PhaseProfiler and
+Table)."""
 
 from .profiler import PhaseProfiler
+from .table import Table
 
-__all__ = ["PhaseProfiler"]
+__all__ = ["PhaseProfiler", "Table"]

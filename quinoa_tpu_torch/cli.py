@@ -1,8 +1,10 @@
 """Command-line driver: python -m quinoa_tpu_torch inciter -c deck.q -i mesh
+and python -m quinoa_tpu_torch walker -c deck.q
 
-The port's own copy of quinoa_tpu/cli.py's single-device inciter command
-(the reference's InciterDriver, src/Main/): the same flags, deck schema,
-file formats and output names.  It reads the control deck and the mesh,
+The port's own copy of quinoa_tpu/cli.py's single-device inciter and
+walker commands (the reference's InciterDriver and WalkerDriver,
+src/Main/): the same flags, deck schema, file formats and output names.
+The inciter command reads the control deck and the mesh,
 applies the deck's initial refinement passes (amr t0ref), Hilbert-reorders
 the elements, builds the solver the deck names
 (control.config.build_inciter), steps it, and writes the diagnostics
@@ -11,13 +13,18 @@ either package.  During the run it adapts the mesh every dtfreq steps
 (amr dtref: uniform, the incremental multi-level cycle, or one level from
 the base mesh with maxlevels 1), transfers the solution on the host and
 rebuilds the solver on the new mesh; --particles advects tracers with the
-flow and writes their H5Part trajectories.  It runs on the card;
-``main(argv, device="cpu")`` runs it on the CPU, as the tests do.
+flow and writes their H5Part trajectories.
 
-What the port does not have yet is refused before any step, with exit
-code 2 and one line naming the missing piece: the parallel options
-(--npes > 1, -u > 0, --slices, --pieces > 1), --trace-dir, -H and the
-other subcommands.
+The walker command reads a walker deck, integrates its SDE systems over
+the particle ensemble and writes the moments' time series (--stat) and
+the deck's PDFs, as quinoa_tpu's walker command does, drawing the same
+random numbers from the same seed.
+
+Both run on the card; ``main(argv, device="cpu")`` runs them on the CPU,
+as the tests do, in torch's default float.  What the port does not have
+yet is refused before any step, with exit code 2 and one line naming the
+missing piece: the parallel options (--npes > 1, -u > 0, --slices,
+--pieces > 1), --trace-dir, -H and the other subcommands.
 """
 
 from __future__ import annotations
@@ -152,7 +159,8 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
 
     from .base.profiler import PhaseProfiler
     from .control.config import apply_t0ref, build_inciter, load_inciter
-    from .inciter.checkpoint import load_checkpoint, save_checkpoint
+    from .inciter.checkpoint import (CheckpointMismatch, load_checkpoint,
+                                     save_checkpoint)
     from .io import DiagWriter, read_mesh
     from .io.iothread import AsyncWriter
     from .mesh.reorder import hilbert_element_reorder
@@ -186,9 +194,13 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
         solver, diag = build_inciter(cfg, mesh, device=device)
         state = solver.initial_state(t0=cfg.t0)
     if args.restart:
-        state, _ = load_checkpoint(args.restart, type(state),
-                                   device=state.u.device,
-                                   dtype=state.u.dtype)
+        try:
+            state, _ = load_checkpoint(args.restart, type(state),
+                                       device=state.u.device,
+                                       dtype=state.u.dtype, like=state)
+        except CheckpointMismatch as e:
+            print(f"quinoa_tpu_torch: {e}", file=sys.stderr)
+            return 2
         if args.verbose:
             print(f"  restarted from {args.restart} at it={int(state.it)} "
                   f"t={float(state.t):.6e}")
@@ -534,8 +546,77 @@ def _write_fields(base, it, cfg, solver, snap, mesh, eorder=None):
                  elem_fields=elem_fields, time=t)
 
 
+def _cmd_walker(argv, device=DEFAULT_DEVICE):
+    ap = argparse.ArgumentParser(prog="quinoa_tpu_torch walker")
+    ap.add_argument("-c", "--control", required=True)
+    ap.add_argument("--stat", default="stat.txt")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="RNG seed (default: the deck's rngs seed, or 0)")
+    ap.add_argument("--npes", type=int, default=1,
+                    help="shard the particle ensemble over N devices (not "
+                         "ported: N > 1 is refused)")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    if args.npes > 1:
+        return _refuse("--npes > 1 (the sharded walker)")
+
+    from functools import partial
+
+    from .control.config import build_walker, load_walker
+    from .io import (TxtStatWriter, write_pdf_exodus, write_pdf_gmsh,
+                     write_pdf_txt)
+    from .statistics.stats import estimate_moments, moments_to_host
+
+    with open(args.control) as fh:
+        cfg = load_walker(fh.read())
+    seed = args.seed if args.seed is not None else (cfg.rng_seed or 0)
+    w = build_walker(cfg, seed=seed, device=resolve_device(device))
+    if args.verbose:
+        print(f"quinoa_tpu_torch walker: {cfg.title!r}")
+        print(f"  npar={cfg.npar} dt={cfg.dt} systems="
+              f"{[type(s).__name__ for s in w.systems]}")
+
+    sw = TxtStatWriter(args.stat, cfg.ordinary, cfg.central,
+                       fmt=cfg.stat_format,
+                       precision=cfg.stat_precision)
+    txt = (partial(write_pdf_txt, fmt=cfg.pdf_format,
+                   precision=cfg.pdf_precision), "txt")
+    fn, ext = {"txt": txt,
+               "gmshtxt": (partial(write_pdf_gmsh,
+                                   centering=cfg.pdf_centering), "msh"),
+               "exodusii": (write_pdf_exodus, "exo")}.get(cfg.pdf_filetype,
+                                                          txt)
+
+    def dump_pdfs(P, t):
+        for name, term, bins, extents, central in cfg.pdfs:
+            pdf = w.pdf(P, term, bins, extents, central=central)
+            # PDFPolicy `multiple`: time-stamped filename per output
+            # (Distributor.cpp:405-411); `overwrite` (default) rewrites
+            base = (f"{name}_{t:g}" if cfg.pdf_policy == "multiple"
+                    else name)
+            fn(f"{base}.{ext}", pdf)
+
+    P = w.initialize()
+    nsteps = min(cfg.nstep, int(cfg.term / cfg.dt + 1e-9))
+    done = 0
+    while done < nsteps:
+        chunk = min(cfg.stat_interval, nsteps - done)
+        P, _ = w.run(chunk, P=P)
+        done += chunk
+        mom = estimate_moments(P, w.offsets, cfg.ordinary, cfg.central)
+        sw.write(done, done * cfg.dt, moments_to_host(mom))
+        if cfg.pdf_interval and done % cfg.pdf_interval < cfg.stat_interval:
+            dump_pdfs(P, done * cfg.dt)
+        if args.verbose and done % cfg.ttyi == 0:
+            print(f"  it={done} t={done * cfg.dt:.6e}")
+    if cfg.pdfs:
+        dump_pdfs(P, done * cfg.dt)
+    sw.close()
+    return 0
+
+
 #: subcommands of the JAX package's CLI the port has not ported yet
-_UNPORTED_COMMANDS = ("walker", "meshconv", "rngtest", "fileconv")
+_UNPORTED_COMMANDS = ("meshconv", "rngtest", "fileconv")
 
 
 def main(argv=None, device=DEFAULT_DEVICE):
@@ -558,8 +639,10 @@ def main(argv=None, device=DEFAULT_DEVICE):
         return 0
     if argv and argv[0] in _UNPORTED_COMMANDS:
         return _refuse(f"the {argv[0]} command")
+    if argv and argv[0] == "walker":
+        return _cmd_walker(argv[1:], device=device)
     if not argv or argv[0] != "inciter":
-        print("usage: python -m quinoa_tpu_torch inciter [options]",
+        print("usage: python -m quinoa_tpu_torch {inciter,walker} [options]",
               file=sys.stderr)
         return 2
     return _cmd_inciter(argv[1:], device=device)

@@ -1,16 +1,19 @@
-"""Typed inciter configuration from parsed decks, and the solver builder.
+"""Typed inciter and walker configuration from parsed decks, and their
+builders.
 
-The port's own copy of the inciter part of quinoa_tpu/control/config.py
-(the reference's Inciter InputDeck, src/Control/Inciter/InputDeck/
-InputDeck.hpp, and the InciterDriver setup): ``load_inciter`` turns the
-parsed tree into an ``InciterConfig`` exactly as the JAX package does, and
-``build_inciter`` constructs the port's solver the deck names, in ``dtype``
-on ``device``.
+The port's own copy of the single-device parts of
+quinoa_tpu/control/config.py (the reference's Inciter and Walker
+InputDecks, src/Control/*/InputDeck/InputDeck.hpp, and the drivers'
+setup): ``load_inciter`` and ``load_walker`` turn the parsed tree into an
+``InciterConfig`` or a ``WalkerConfig`` exactly as the JAX package does,
+and ``build_inciter`` and ``build_walker`` construct the port's solver or
+walker the deck names, in ``dtype`` on ``device``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -435,3 +438,342 @@ def apply_t0ref(cfg: InciterConfig, mesh, problem=None):
         else:
             hist.clear()
     return mesh
+
+
+# ---------------------------------------------------------------------------
+# walker
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class WalkerConfig:
+    title: str = ""
+    nstep: int = 10**9
+    term: float = float("inf")
+    dt: float = 0.01
+    npar: int = 1000
+    ttyi: int = 1
+    stat_interval: int = 1
+    #: TxtFloatFormat for stat.txt (statistics block format/precision)
+    stat_format: str = "scientific"
+    stat_precision: int = 12
+    ordinary: List[Tuple] = dataclasses.field(default_factory=list)
+    central: List[Tuple] = dataclasses.field(default_factory=list)
+    sdes: List[Any] = dataclasses.field(default_factory=list)
+    pdf_interval: int = 0
+    pdf_filetype: str = "txt"
+    #: TxtFloatFormat for txt PDFs (default/fixed/scientific) + digits
+    #: (PDFWriter.cpp:25-48); ours defaults to scientific/12 (a strict
+    #: superset of the reference's 6-digit default — ndiff-compatible)
+    pdf_format: str = "scientific"
+    pdf_precision: int = 12
+    #: PDFPolicy: overwrite (one file, rewritten) or multiple (filename
+    #: gains a time suffix per output, Distributor.cpp:405-411);
+    #: `evolution` parses but is dead code in the reference fork too
+    pdf_policy: str = "overwrite"
+    #: PDFCentering for mesh-based (gmsh/exodus) PDF output: elem
+    #: (density on cells) or node (averaged to lattice nodes)
+    pdf_centering: str = "elem"
+    #: list of (name, term, binsizes, extents-or-None)
+    pdfs: List[Tuple] = dataclasses.field(default_factory=list)
+    #: seed from the deck's rngs block (`<rng> seed N end`), or None
+    rng_seed: Optional[int] = None
+
+
+_MOM_RE = re.compile(r"([A-Za-z])(\d*)")
+
+
+def _parse_pdf_spec(spec: str):
+    """'f2( o1 o2 : 0.2 0.2 ; -2 2 -4 4 )' ->
+    (name, term, binsizes, extents or None, central flags).
+
+    Case carries the same meaning as in moment requests (StatCtr):
+    UPPERCASE variables sample the raw value (ordinary PDF), lowercase
+    the FLUCTUATION value - <value> (central PDF,
+    Statistics::accumulateCenPDF)."""
+    name = spec.split("(", 1)[0].strip()
+    body = spec.split("(", 1)[1].rsplit(")", 1)[0]
+    if ";" in body:
+        main, ext = body.split(";", 1)
+        nums = [float(x) for x in ext.split()]
+        extents = [(nums[2 * i], nums[2 * i + 1]) for i in range(len(nums) // 2)]
+    else:
+        main, extents = body, None
+    vars_, bins = main.split(":")
+    mm = _MOM_RE.findall(vars_)
+    term = tuple((m[0].lower(), int(m[1]) - 1) for m in mm)
+    central = tuple(m[0].islower() for m in mm)
+    binsizes = [float(x) for x in bins.split()]
+    return (name, term, binsizes, extents, central)
+
+
+def _parse_moment(m: str) -> Tuple[bool, Tuple]:
+    """'<x1x2>' -> (central?, ((depvar, comp0), ...)); uppercase=ordinary.
+    An index-less variable means component 1 ('<R>' == '<R1>')."""
+    body = m.strip("<>")
+    vars_ = _MOM_RE.findall(body)
+    central = any(ch.islower() for ch, _ in vars_)
+    term = tuple((ch.lower(), (int(ix) if ix else 1) - 1) for ch, ix in vars_)
+    return central, term
+
+
+def _build_sde(kind: str, blk) -> Any:
+    from .. import diffeq as dq
+    from ..diffeq import initpolicy as ip
+
+    depvar = first(blk, "depvar", "x")
+    ncomp = _i(blk, "ncomp", None)
+
+    def fl(key, default=()):
+        return _floats(blk, key, default)
+
+    if kind == "diag_ou":
+        sde = dq.DiagOrnsteinUhlenbeck(
+            depvar=depvar, sigmasq=fl("sigmasq"), theta=fl("theta"),
+            mu=fl("mu"),
+        )
+    elif kind == "ornstein-uhlenbeck":
+        n = len(fl("theta"))
+        s2 = np.asarray(fl("sigmasq"))
+        if s2.size == n * (n + 1) // 2:
+            # upper-triangular rows, as the reference decks write the
+            # symmetric covariance (OrnsteinUhlenbeck.hpp sigmasq)
+            cov = np.zeros((n, n))
+            cov[np.triu_indices(n)] = s2
+            cov = cov + np.triu(cov, 1).T
+        else:
+            cov = s2.reshape(n, n)
+        sde = dq.OrnsteinUhlenbeck(
+            depvar=depvar, sigmasq=tuple(map(tuple, cov)),
+            theta=fl("theta"), mu=fl("mu"),
+        )
+    elif kind == "beta":
+        sde = dq.Beta(depvar=depvar, b=fl("b"), S=fl("S"), kappa=fl("kappa"))
+    elif kind == "numfracbeta":
+        sde = dq.NumberFractionBeta(
+            depvar=depvar, b=fl("b"), S=fl("S"), kappa=fl("kappa"),
+            rho2=fl("rho2"), rcomma=fl("rcomma"),
+        )
+    elif kind == "massfracbeta":
+        sde = dq.MassFractionBeta(
+            depvar=depvar, b=fl("b"), S=fl("S"), kappa=fl("kappa"),
+            rho2=fl("rho2"), r=fl("r"),
+        )
+    elif kind == "mixnumfracbeta":
+        sde = dq.MixNumberFractionBeta(
+            depvar=depvar, bprime=fl("bprime"), S=fl("S"),
+            kprime=fl("kappaprime"), rho2=fl("rho2"), rcomma=fl("rcomma"),
+        )
+    elif kind == "mixmassfracbeta":
+        coeff = first(blk, "coeff", "decay")
+        hts = hp = None
+        if coeff == "hydrotimescale":
+            from ..diffeq.hydro import hydro_table
+
+            hts = tuple(hydro_table(n) for n in
+                        (first(blk, "hydrotimescales") or ()))
+            hp = tuple(hydro_table(n) for n in
+                       (first(blk, "hydroproductions") or ()))
+        sde = dq.MixMassFractionBeta(
+            depvar=depvar, bprime=fl("bprime"), S=fl("S"),
+            kprime=fl("kappaprime"), rho2=fl("rho2"), r=fl("r"),
+            coeff=coeff, hts=hts, hp=hp,
+        )
+    elif kind == "dirichlet":
+        sde = dq.Dirichlet(depvar=depvar, b=fl("b"), S=fl("S"),
+                           kappa=fl("kappa"))
+    elif kind == "gendir":
+        # the deck keyword for the c_ij vector is `c` (kw::sde_c)
+        sde = dq.GeneralizedDirichlet(
+            depvar=depvar, b=fl("b"), S=fl("S"), kappa=fl("kappa"),
+            cij=(fl("c") or fl("cij")),
+        )
+    elif kind == "mixdirichlet":
+        norm = first(blk, "normalization", "light")
+        # rho pre-sorted by normalization (Grammar.hpp:495-506); r_i =
+        # rho_N/rho_i -+ 1 (MixDir_r)
+        rho_s = tuple(sorted(fl("rho"), reverse=(norm == "light")))
+        if norm == "light":
+            r_v = tuple(rho_s[-1] / x + 1.0 for x in rho_s[:-1])
+        else:
+            r_v = tuple(rho_s[-1] / x - 1.0 for x in rho_s[:-1])
+        sde = dq.MixDirichlet(
+            depvar=depvar, b=fl("b"), S=fl("S"), kprime=fl("kappaprime"),
+            rho=rho_s, r=r_v, coeff=first(blk, "coeff", "const_coeff"),
+            normalization=norm,
+        )
+    elif kind == "gamma":
+        sde = dq.Gamma(depvar=depvar, b=fl("b"), S=fl("S"),
+                       kappa=fl("kappa"))
+    elif kind == "skew-normal":
+        sde = dq.SkewNormal(depvar=depvar, T=fl("T" if "T" in blk else "timescale"),
+                            sigmasq=fl("sigmasq"), lam=fl("lambda"))
+    elif kind == "wright-fisher":
+        sde = dq.WrightFisher(depvar=depvar, omega=fl("omega"))
+    elif kind == "position":
+        # const_shear prescribes the hard-coded unit shear du1/dx2 = 1
+        # (PositionCoeffPolicy / VelocityCoeffPolicy.cpp:22)
+        pdU = (_SHEAR_DU if first(blk, "coeff", "const_shear")
+               == "const_shear" else (0.0,) * 9)
+        sde = dq.Position(depvar=depvar, dU=pdU)
+        sde._couple_velocity = first(blk, "velocity")
+    elif kind == "dissipation":
+        sde = dq.Dissipation(
+            depvar=depvar, c3=_f(blk, "C3", 1.0), c4=_f(blk, "C4", 0.25),
+            com1=_f(blk, "COM1", 0.44), com2=_f(blk, "COM2", 0.9),
+        )
+        sde._couple_velocity = first(blk, "velocity")
+    elif kind == "velocity":
+        vcoeff = first(blk, "coeff", "const_shear")
+        vhts = None
+        if vcoeff == "hydrotimescale":
+            from ..diffeq.hydro import hydro_table
+
+            names = first(blk, "hydrotimescales") or ()
+            vhts = hydro_table(names[0]) if names else None
+        solve = first(blk, "solve", "fullvar")
+        # the shear enters the fluctuation solve only (Velocity.hpp:84
+        # zeroes m_dU for FULLVAR)
+        vdU = (_SHEAR_DU if vcoeff == "const_shear"
+               and solve == "fluctuation" else (0.0,) * 9)
+        sde = dq.Velocity(depvar=depvar, c0=_f(blk, "c0", 2.1),
+                          coeff=vcoeff, hts=vhts, dU=vdU,
+                          variant=first(blk, "variant", "slm"))
+        sde._couple_dissipation = first(blk, "dissipation")
+    else:
+        raise ValueError(f"unknown SDE block {kind!r}")
+
+    # init policy
+    init = first(blk, "init", "zero")
+    n = sde.ncomp
+    if init in ("zero", "raw"):
+        sde.init = lambda k, np_, **kw: ip.init_zero(k, np_, n, **kw)
+    elif init == "jointdelta":
+        ic = first(blk, "icdelta") or {}
+        spikes = [
+            [(float(sp[i]), float(sp[i + 1])) for i in range(0, len(sp), 2)]
+            for sp in occurrences(ic, "spike")
+        ]
+        sde.init = lambda k, np_, **kw: ip.init_jointdelta(k, np_, spikes,
+                                                           **kw)
+    elif init == "jointbeta":
+        ic = first(blk, "icbeta") or {}
+        pdfs = [
+            tuple(float(x) for x in bp)
+            for bp in occurrences(ic, "betapdf")
+        ]
+        sde.init = lambda k, np_, **kw: ip.init_jointbeta(k, np_, pdfs, **kw)
+    elif init == "jointgaussian":
+        ic = first(blk, "icgaussian") or {}
+        gs = [
+            (float(g[0]), float(g[1]))
+            for g in occurrences(ic, "gaussian")
+        ]
+        sde.init = lambda k, np_, **kw: ip.init_jointgaussian(k, np_, gs,
+                                                              **kw)
+    elif init == "jointdirichlet":
+        ic = first(blk, "icdirichlet") or {}
+        als = first(ic, "dirichletpdf") or ()
+        alphas = [float(x) for x in als]
+        sde.init = lambda k, np_, **kw: ip.init_jointdirichlet(
+            k, np_, alphas, **kw)
+    elif init == "jointgamma":
+        ic = first(blk, "icgamma") or {}
+        gps = [
+            (float(g[0]), float(g[1]))
+            for g in occurrences(ic, "gammapdf")
+        ]
+        sde.init = lambda k, np_, **kw: ip.init_jointgamma(k, np_, gps, **kw)
+    else:
+        sde.init = lambda k, np_, **kw: ip.init_zero(k, np_, n, **kw)
+    return sde
+
+
+def load_walker(deck_text: str) -> WalkerConfig:
+    tree = parse_deck(deck_text)
+    cfg = WalkerConfig()
+    cfg.title = first(tree, "title", "")
+    w = first(tree, "walker")
+    if w is None:
+        raise ValueError("deck has no walker block")
+    cfg.nstep = _i(w, "nstep", cfg.nstep)
+    cfg.term = _f(w, "term", cfg.term)
+    cfg.dt = _f(w, "dt", 0.01)
+    cfg.npar = _i(w, "npar", 1000)
+    cfg.ttyi = _i(w, "ttyi", 1)
+
+    rngs = first(w, "rngs")
+    if rngs:
+        # entries are `<rng-name> [seed N | *_method m ...] end`; the
+        # stream is jax threefry either way, but the deck seed is honored
+        for opts in rngs.values():
+            for toks in opts:
+                if "seed" in toks:
+                    cfg.rng_seed = int(toks[toks.index("seed") + 1])
+
+    stats = first(w, "statistics")
+    if stats is not None:
+        cfg.stat_interval = _i(stats, "interval", 1)
+        cfg.stat_format = first(stats, "format", cfg.stat_format)
+        cfg.stat_precision = _i(stats, "precision", cfg.stat_precision)
+        for m in occurrences(stats, "_moments"):
+            central, term = _parse_moment(m)
+            (cfg.central if central else cfg.ordinary).append(term)
+
+    pdfs = first(w, "pdfs")
+    if pdfs is not None:
+        cfg.pdf_interval = _i(pdfs, "interval", 1)
+        cfg.pdf_filetype = first(pdfs, "filetype", "txt")
+        cfg.pdf_format = first(pdfs, "format", cfg.pdf_format)
+        cfg.pdf_precision = _i(pdfs, "precision", cfg.pdf_precision)
+        cfg.pdf_policy = first(pdfs, "policy", cfg.pdf_policy)
+        cfg.pdf_centering = first(pdfs, "centering", cfg.pdf_centering)
+        for spec in occurrences(pdfs, "_pdfs"):
+            cfg.pdfs.append(_parse_pdf_spec(spec))
+
+    from .qparser import _SDE_BLOCKS
+
+    # deck order: the kinds as they first appear in the walker block, a
+    # kind's blocks as they appear.  The order fixes each system's offset
+    # and its key (fold_in(key, i)), so it must not depend on the hash
+    # seed, as iterating the set _SDE_BLOCKS would.
+    for kind in w:
+        if kind in _SDE_BLOCKS:
+            for blk in occurrences(w, kind):
+                cfg.sdes.append(_build_sde(kind, blk))
+    return cfg
+
+
+#: hard-coded homogeneous-shear mean velocity gradient (du1/dx2 = 1),
+#: VelocityCoeffPolicy.cpp:22
+_SHEAR_DU = (0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+
+
+def build_walker(cfg: WalkerConfig, seed: int = 0,
+                 dtype: Optional[torch.dtype] = None, device=DEFAULT_DEVICE):
+    """The Walker of a deck's systems, couplings resolved to offsets, in
+    dtype (None: torch's default) on ``device`` (the card unless the
+    caller asks for another)."""
+    from ..walker import Walker
+
+    systems = Walker.layout(cfg.sdes)
+    # resolve cross-system couplings (deck `velocity u` / `dissipation o`
+    # inside position/velocity/dissipation blocks) to particle offsets
+    by_dv = {s.depvar: s for s in systems}
+    for s in systems:
+        cv = getattr(s, "_couple_velocity", None)
+        if cv and cv in by_dv:
+            s.velocity_offset = by_dv[cv].offset
+        cd = getattr(s, "_couple_dissipation", None)
+        if cd and cd in by_dv:
+            s.dissipation_offset = by_dv[cd].offset
+    return Walker(
+        systems,
+        npar=cfg.npar,
+        dt=cfg.dt,
+        seed=seed,
+        ordinary=cfg.ordinary,
+        central=cfg.central,
+        dtype=dtype,
+        device=device,
+    )

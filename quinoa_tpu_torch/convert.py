@@ -11,6 +11,10 @@ for a CG one), so this module never imports jax:
     arrays["tables"] = dict(g.tables)
     geom = geom_from_arrays(arrays, device="cuda", dtype=torch.float32)
 
+A walker's state crosses as the JAX walker's particle array, the data of
+its key (``jax.random.key_data``) and its step counter
+(``walker_state_from_arrays``).
+
 Geometries of any order (ndof 1, 4 or 10) and states of any component
 count (Euler's 5, multimat's 3*nmat + 3) cross as they are: the arrays
 carry their shapes, and ``ndof`` and the tables come with the geometry.
@@ -131,3 +135,24 @@ def cg_state_from_arrays(arrays: dict, device=DEFAULT_DEVICE,
 def cg_state_to_arrays(state) -> dict:
     """The inverse of cg_state_from_arrays."""
     return {k: getattr(state, k).cpu().numpy() for k in CG_STATE_FIELDS}
+
+
+def walker_state_from_arrays(walker, P, key, it0: int) -> torch.Tensor:
+    """Continue a run of the JAX package's walker in the port's
+    ``walker`` (a quinoa_tpu_torch.walker.Walker of the same systems):
+    P is the JAX walker's particle array (numpy, (npar, nprop)), key its
+    key's data (the two uint32 words of jax.random.key_data) and it0 its
+    step counter (its ``_it0``).  Sets the walker's key and counter and
+    returns P as a tensor in the walker's dtype on its device; the next
+    ``walker.run(n, P=...)`` draws what the JAX walker's would."""
+    P = np.asarray(P, dtype=np.float64)
+    if P.shape != (walker.npar, walker.nprop):
+        raise ValueError(f"particle array {P.shape} does not fit the "
+                         f"walker's ({walker.npar}, {walker.nprop})")
+    k = np.asarray(key).reshape(-1)
+    if k.shape != (2,):
+        raise ValueError(f"key data of shape {np.asarray(key).shape}: "
+                         "expected two 32-bit words")
+    walker.key = (int(k[0]) & 0xFFFFFFFF, int(k[1]) & 0xFFFFFFFF)
+    walker._it0 = int(it0)
+    return torch.from_numpy(P).to(walker.dtype).to(walker.device)

@@ -53,8 +53,14 @@ def save_checkpoint(dirpath: str, state,
     return slot
 
 
+class CheckpointMismatch(ValueError):
+    """A checkpoint whose fields do not fit the solver built from the
+    input mesh: it was written after a remesh (amr dtref), and the slot
+    holds the state's fields only, not the refined mesh."""
+
+
 def load_checkpoint(dirpath: str, state_cls, device=DEFAULT_DEVICE,
-                    dtype: Optional[torch.dtype] = None):
+                    dtype: Optional[torch.dtype] = None, like=None):
     """Load the newest complete snapshot; returns (state, meta).
 
     The state is a ``state_cls`` (DGState or CGState) on ``device``,
@@ -62,7 +68,9 @@ def load_checkpoint(dirpath: str, state_cls, device=DEFAULT_DEVICE,
     floating fields take ``dtype`` (None: torch's default float), so a
     float64 checkpoint restarts a float32 run rounded, as the JAX package
     truncates under its default float; integer fields keep their stored
-    values.
+    values.  Given ``like`` (the freshly built solver's state), a
+    snapshot whose fields' shapes differ from like's raises
+    CheckpointMismatch before any tensor is made.
     """
     from .. import convert
     from .dg import DGState
@@ -87,8 +95,26 @@ def load_checkpoint(dirpath: str, state_cls, device=DEFAULT_DEVICE,
                 continue
             with np.load(os.path.join(slot, "state.npz")) as data:
                 arrays = {k: data[k] for k in meta["fields"]}
-            state = build(arrays, device=device, dtype=dtype)
-            return state, meta
         except (OSError, ValueError, KeyError, zipfile.BadZipFile):
             continue
+        if like is not None:
+            _check_fits(dirpath, arrays, like)
+        try:
+            return build(arrays, device=device, dtype=dtype), meta
+        except (ValueError, KeyError):
+            continue
     raise IOError(f"no readable checkpoint slot in {dirpath}")
+
+
+def _check_fits(dirpath, arrays, like):
+    for f in dataclasses.fields(like):
+        if f.name not in arrays:
+            continue
+        want = tuple(getattr(like, f.name).shape)
+        got = tuple(np.shape(arrays[f.name]))
+        if got != want:
+            raise CheckpointMismatch(
+                f"checkpoint {dirpath} holds {f.name} of shape {got}, but "
+                f"the solver built from the input mesh has {want}: the "
+                "checkpoint was written after a remesh (amr dtref), and a "
+                "restart from a refined mesh is not ported yet")

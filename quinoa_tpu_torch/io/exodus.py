@@ -447,3 +447,31 @@ def write_exodus(
             v[:] = (np.asarray(elem_num_map) + 1).astype(np.int32)
     finally:
         f.close()
+
+
+def write_exodus_points(path: str, X, Y, Z, name: str, values) -> None:
+    """An ExodusII file of points alone (no element block) with one nodal
+    field at one time step, 0: the layout the walker's PDF output uses
+    for its bin-centre lattices (quinoa_tpu/io/pdfwriter.py
+    write_pdf_exodus writes the same file)."""
+    f = netcdf_file(path, "w")
+    try:
+        f.createDimension("time_step", None)
+        f.createDimension("num_dim", 3)
+        f.createDimension("num_nodes", np.size(X))
+        f.createDimension("len_name", 33)
+        for nm, vals in (("coordx", X), ("coordy", Y), ("coordz", Z)):
+            v = f.createVariable(nm, "d", ("num_nodes",))
+            v[:] = np.ravel(vals)
+        f.createDimension("num_nod_var", 1)
+        nmv = f.createVariable("name_nod_var", "c", ("num_nod_var", "len_name"))
+        arr = np.zeros((1, 33), dtype="S1")
+        for j, ch in enumerate(name.encode()[:32]):
+            arr[0, j] = bytes([ch])
+        nmv[:] = arr
+        tv = f.createVariable("time_whole", "d", ("time_step",))
+        tv[0] = 0.0
+        vv = f.createVariable("vals_nod_var1", "d", ("time_step", "num_nodes"))
+        vv[0, :] = np.ravel(values)
+    finally:
+        f.close()

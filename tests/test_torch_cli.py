@@ -322,8 +322,8 @@ def test_unported_options_exit_2_before_any_step(tmp_path, capsys, case):
 
 
 @pytest.mark.parametrize("argv", [["-H"], ["inciter", "--helpkw"],
-                                  ["walker", "-c", "x.q"], ["meshconv"],
-                                  ["rngtest"], ["fileconv"]])
+                                  ["walker", "-c", "x.q", "--npes", "2"],
+                                  ["meshconv"], ["rngtest"], ["fileconv"]])
 def test_unported_commands_exit_2(capsys, argv):
     assert t_main(argv, device="cpu") == 2
     err = capsys.readouterr().err.strip().splitlines()
@@ -463,6 +463,43 @@ AMR_DECKS = {
     "alecg_particles": (DECKS["alecg_vortical"][0], (6, 6, 4),
                         *DECKS["alecg_vortical"][1:], ["--particles", "30"]),
 }
+
+
+#: AMR deck -> (checkpoint interval, a step after its first dtref event)
+REMESH_RESTART = {"diagcg_dtref_maxlevels1": 9, "dgp1_dtref": 3}
+
+
+@pytest.mark.parametrize("name", sorted(REMESH_RESTART))
+def test_restart_after_a_remesh_exits_2_before_any_step(tmp_path, capsys,
+                                                        name):
+    """A checkpoint written after a dtref event holds the refined mesh's
+    fields; --restart rebuilds the solver from the input mesh, so the
+    command refuses it with exit 2 and one line naming both shapes,
+    before any step (DiagCG SlotCyl with maxlevels 1, dtref every 4,
+    -r 9; DG(P1) Sedov with dtref every 2, -r 3)."""
+    import re
+
+    deck, n, lo, hi, _ = AMR_DECKS[name]
+    dp, mp = str(tmp_path / "run.q"), str(tmp_path / "box.exo")
+    with open(dp, "w") as fh:
+        fh.write(deck)
+    tio.write_exodus(mp, box_tet_mesh(*n, lo=lo, hi=hi))
+    rs, ck = REMESH_RESTART[name], str(tmp_path / "ck")
+    assert _port(["inciter", "-c", dp, "-i", mp, "--diag",
+                  str(tmp_path / "a.diag"), "-o", str(tmp_path / "a"), "-b",
+                  "-r", str(rs), "--checkpoint-dir", ck]) == 0
+    capsys.readouterr()
+    with np.load(os.path.join(ck, "slot0", "state.npz")) as data:
+        written = tuple(data["u"].shape)
+    rest = str(tmp_path / "rest")
+    rc = _port(["inciter", "-c", dp, "-i", mp, "--diag", rest + ".diag",
+                "-o", rest, "-b", "--restart", ck])
+    err = capsys.readouterr().err.strip().splitlines()
+    assert rc == 2
+    assert len(err) == 1 and "after a remesh" in err[0], err
+    got, want = re.findall(r"\((\d+), (\d+)\)", err[0])
+    assert tuple(map(int, got)) == written != tuple(map(int, want))
+    assert not os.path.exists(rest + ".diag")   # no step, no diagnostics
 
 
 def _lines(out, words=("t0ref:", "dtref @it=")):
