@@ -10,9 +10,9 @@ Lax-Friedrichs Sod DG(P1) path and its two THINC interface-advection paths
 (extrapolate and Dirichlet faces, 48^3) in float32 through their
 hand-written CUDA kernels, the Sedov DG(P1) deck through the port's
 inciter command, mesh refinement (t0ref, dtref) and tracer particles
-through the command and its helpers, and the walker (its Threefry draws,
+through the command and its helpers, the walker (its Threefry draws,
 every SDE class, the coupled Langevin family at 10^6 particles and the
-walker command):
+walker command), the rngtest command and batteries, and meshconv:
 
 1. card    the name and power limit from nvidia-smi;
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -143,7 +143,13 @@ walker command):
            names, finite; then one small float64 deck per build_inciter
            branch (CLI_SMALL) runs on the card and on the CPU, the diag
            rows agreeing at card_vs_cpu's tolerances, and one of them runs
-           as `python3 -m quinoa_tpu_torch inciter`, which must exit 0.
+           as `python3 -m quinoa_tpu_torch inciter`, which must exit 0;
+           run D (A's deck, -b -v --profile --trace-dir) in a directory
+           of its own: the three mesh statistics lines and the three mesh
+           PDFs there, a Chrome trace holding as many device events of
+           limit_vol, face_wflux and basis_accum as kernels.launches
+           counts (33 each), run A's rows digit for digit, and its
+           timestep ms/step beside run C's (the trace's overhead).
 20. amr_small the AMR_SMALL decks (DiagCG SlotCyl with dtref in each of
            its three branches, Sedov DG(P1) with dtref, a t0ref deck of
            uniform, coords and uniform_derefine passes) through the command
@@ -193,15 +199,31 @@ walker command):
            5 sigma/sqrt(npar) of 0; then `walker` through cli.main on the
            card and the CPU in float64, stat rows equal at the printed
            precision and the PDF's bins equal.
+27. rngtest `rngtest --battery smallcrush --seed 7` through cli.main on the
+           card (14/14 pass); SmallCrush again test by test on the card,
+           each test's seconds split into draws on the card (with their
+           copies to the host) and statistics on the host, every p-value
+           equal to the port's CPU run's at RNG_RTOL; RANDU through the
+           draw seam fails at least one of six equidistribution tests;
+           Crush's five scomp entries (LinearComp x4 at n = 120000,
+           LempelZiv at k = 25, reps 10) on the card's draws through the
+           host library, with their seconds; no hand kernel launched.
+28. meshconv a 48^3 box through `meshconv -v`: gmsh -> ExodusII classic ->
+           netgen, and the 4 ExodusII pieces of a split joined; each output
+           has the box's node, element and boundary-triangle counts, its
+           connectivity and its coordinates (to CONV_COORD_ATOL: the text
+           formats print 16 digits).  fileconv writes netCDF-4 through
+           h5py, which the card's machine lacks: it runs only where h5py
+           imports.
 
 Every path that reports launches sets the counts to 0 just before it and
 reads them just after; a kernel of the path that did not launch as
 stated, or one that does not belong to it and launched, fails the run.
 Any failure raises, so the script exits non-zero.  Paths 20-25 add no
 kernel: their launches are those of the solvers rebuilt on each refined
-mesh; path 26 launches none.  Its last two lines are a JSON object of the kernels and the
-result line {"ok": true, "device": {...}}.  Needs one CUDA card, nvcc and
-no network.
+mesh; paths 26-28 launch none.  Its last two lines are a JSON object of
+the kernels and the result line {"ok": true, "device": {...}}.  Needs one
+CUDA card, nvcc, a host C++ compiler and no network.
 """
 
 import contextlib
@@ -555,6 +577,21 @@ WALKER_SMALL_NPAR = 4096
 WALKER_SMALL_STEPS = 5
 WALKER_RTOL = 1e-12
 WALKER_ATOL = 1e-14
+#: path 27, rngtest: the seed of the command and of the card-vs-CPU
+#: SmallCrush, the p-value tolerance (the draws are bit-identical), the
+#: RANDU subset (tests/test_rngtest.py:59-60) and the seed of the scomp
+#: entries (the command's default)
+RNG_SEED = 7
+RNG_RTOL = 1e-12
+RANDU_SUBSET = ("gap", "max_of_t", "weight_distrib", "random_walk",
+                "ks_uniform", "hamming_indep")
+SCOMP_SEED = 0
+#: path 28, meshconv: the box, the pieces of its split and the coordinate
+#: tolerance of the text formats (16 significant digits of coordinates in
+#: [0, 1])
+CONV_N = 48
+CONV_PIECES = 4
+CONV_COORD_ATOL = 1e-15
 #: the walker command's inline deck (float64, card against CPU)
 WALKER_DECK = """title "walker smoke"
 walker
@@ -1958,7 +1995,8 @@ def cli_phase(torch, dev, card, big):
     CLI_RSFREQ, field output at the end, --profile), run B (--restart
     from A's checkpoint), run C (-b, one diag row, --profile: the timing
     run), an in-process DGSolver on box_geom's 48^3 geometry (big) for
-    reference; then the CLI_SMALL decks card against CPU and one run of
+    reference, run D (A's deck with -v and --trace-dir: trace_run); then
+    the CLI_SMALL decks card against CPU and one run of
     `python3 -m quinoa_tpu_torch inciter`."""
     import tempfile
 
@@ -1996,7 +2034,7 @@ def cli_phase(torch, dev, card, big):
         ck = os.path.join(d, "ck")
         base = {t: ["inciter", "-c", decks["C" if t == "C" else "A"], "-i",
                     mesh, "--diag", os.path.join(d, f"{t}.diag"), "-o",
-                    os.path.join(d, t)] for t in "ABC"}
+                    os.path.join(d, t)] for t in "ABCD"}
 
         # run A: launches counted from 0 just before, read just after
         torch.cuda.synchronize()
@@ -2078,6 +2116,8 @@ def cli_phase(torch, dev, card, big):
               f"DGSolver {drive_ms:.4f} ms/step over {CLI_NSTEP} steps "
               f"(one synchronize at the end), on {card}")
 
+        trace_run(torch, dev, card, base["D"], rows_a, prof_c)
+
         cli_small_decks(torch, d, dev)
 
         # one small deck as a command of its own, on the card
@@ -2100,6 +2140,95 @@ def cli_phase(torch, dev, card, big):
             raise AssertionError(f"cli: the command failed:\n{res.stdout}"
                                  f"\n{res.stderr[-4000:]}")
     return counts
+
+
+#: path 19's run D: the inciter command in a process of its own that
+#: counts the kernels' launches from 0 and prints them last
+TRACE_RUN = ("import json, sys\n"
+             "from quinoa_tpu_torch import kernels\n"
+             "from quinoa_tpu_torch.cli import main\n"
+             "kernels.build()\n"
+             "kernels.reset_launches()\n"
+             "rc = main(sys.argv[1:])\n"
+             "print(json.dumps(kernels.launches))\n"
+             "raise SystemExit(rc)\n")
+
+
+def trace_run(torch, dev, card, argv, rows_a, prof_c):
+    """Path 19's run D: run A's deck (argv) with -b -v --profile and
+    --trace-dir, as `quinoa_tpu_torch.cli.main` on the card in a process
+    of its own (TRACE_RUN), in a directory of its own.  A torch.profiler
+    session in a process that has run profiler windows before has lost
+    3 to 17 of its 3047 kernel records on the H100 (my chip runs), and
+    this run's gate counts every launch; a new process has lost none.
+    Gates: the three mesh statistics lines and the three mesh PDFs in
+    that directory, the trace's device events of each CLI_KERNELS kernel
+    as many as kernels.launches counts (33), run A's rows digit for
+    digit.  Prints the timestep ms/step beside run C's (the trace's
+    overhead)."""
+    from quinoa_tpu_torch.base.profiler import TRACE_FILE
+
+    dd = os.path.dirname(argv[argv.index("-o") + 1])
+    dd = os.path.join(dd, "D_run")
+    os.makedirs(dd)
+    trace = os.path.join(dd, "trace")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", TRACE_RUN, *argv, "-b",
+                          "-v", "--profile", "--trace-dir", trace], cwd=dd,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    out = res.stdout
+    for line in out.splitlines():
+        phase("cli", "  | " + line)
+    if res.returncode != 0:
+        raise AssertionError(f"cli: run D exited {res.returncode}:\n"
+                             f"{res.stderr[-4000:]}")
+    counts = json.loads(out.splitlines()[-1])
+    phase("cli", f"run D: a process of its own, {time.perf_counter() - t0:.1f}"
+          f" s, launches {counts}")
+    want = {k: (3 * CLI_NSTEP if k in CLI_KERNELS else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"cli: run D launched {counts}")
+    stats = [ln for ln in out.splitlines()
+             if ln.startswith("Mesh statistics")]
+    pdfs = {f: os.path.getsize(os.path.join(dd, f))
+            if os.path.exists(os.path.join(dd, f)) else 0
+            for f in ("mesh_edge_pdf.txt", "mesh_vol_pdf.txt",
+                      "mesh_ntet_pdf.txt")}
+    ntet = N_BIG ** 3 * 6
+    ok = (len(stats) == 3 and stats[2].endswith(f"{ntet} / {ntet} / {ntet}")
+          and all(pdfs.values()))
+    phase("cli", f"run D -v: {stats}, PDFs (bytes) {pdfs}: "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cli: run D's mesh statistics or PDFs")
+    with open(os.path.join(trace, TRACE_FILE)) as fh:
+        events = json.load(fh)["traceEvents"]
+    kern = [e["name"] for e in events if e.get("cat") == "kernel"]
+    seen = {k: sum(k in name for name in kern) for k in CLI_KERNELS}
+    ok = seen == {k: counts[k] for k in CLI_KERNELS}
+    phase("cli", f"run D trace: {len(events)} events, {len(kern)} device "
+          f"kernels, of them {seen} vs launches "
+          f"{ {k: counts[k] for k in CLI_KERNELS} }: {'ok' if ok else 'FAIL'}"
+          f" ({os.path.getsize(os.path.join(trace, TRACE_FILE))} bytes)")
+    if not ok:
+        raise AssertionError("cli: the trace's kernel events differ from "
+                             "the launch counts")
+    rows_d = diag_lines(argv[argv.index("--diag") + 1])
+    ok = rows_d == rows_a
+    phase("cli", f"run D rows {'equal' if ok else 'DIFFER from'} run A's "
+          "digit for digit")
+    if not ok:
+        raise AssertionError(f"cli: traced rows {rows_d[-1:]} vs "
+                             f"{rows_a[-1:]}")
+    (sec_d, n_d), (sec_c, n_c) = (profile_table(out)["timestep"],
+                                  prof_c["timestep"])
+    phase("cli", f"run D timestep {1e3 * sec_d / n_d:.4f} ms/step traced "
+          f"(torch.profiler, CPU + CUDA activity) vs run C "
+          f"{1e3 * sec_c / n_c:.4f} untraced, over {n_d} and {n_c} steps, "
+          f"on {card}")
 
 
 def read_rows(path):
@@ -2809,6 +2938,184 @@ def walker_phase(torch, dev, card):
     phase("walker", f"path took {time.perf_counter() - t_phase:.1f} s")
 
 
+class _Randu:
+    """RANDU (x <- 65539 x mod 2^31) as the batteries' draw seam, keys
+    ignored (tests/test_rngtest.py's first shim): uniforms x / 2^31,
+    integers scaled uniforms.  Made a subclass of battery.Draws when
+    used."""
+
+    def __init__(self):
+        super().__init__(device="cpu")
+        self.state = 1
+
+    def _raw(self, n):
+        out = np.empty(n, dtype=np.int64)
+        s = self.state
+        for i in range(n):
+            s = (65539 * s) % 2 ** 31
+            out[i] = s
+        self.state = s
+        return out / 2 ** 31
+
+    def uniform(self, key, shape, dtype=None):
+        return self._raw(int(np.prod(shape))).reshape(shape)
+
+    def randint(self, key, shape, minval, maxval, dtype=None):
+        u = self._raw(int(np.prod(shape)))
+        return (u * (maxval - minval) + minval).astype(np.int64).reshape(
+            shape)
+
+
+def rngtest_phase(torch, dev, card):
+    """Path 27: the rngtest command on the card (SmallCrush at RNG_SEED,
+    14/14 pass), SmallCrush test by test with each test's seconds split
+    into draws on the card (with their copies to the host) and statistics
+    on the host, its p-values against the port's CPU run (RNG_RTOL),
+    RANDU through the draw seam (at least one of RANDU_SUBSET fails), and
+    Crush's five scomp entries on the card's draws with their seconds.
+    No hand kernel launches."""
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.rng.threefry import fold_in, key
+    from quinoa_tpu_torch.rngtest import battery as bat
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = cli_run(["rngtest", "--battery", "smallcrush", "--seed",
+                   str(RNG_SEED)], dev, path="rngtest")
+    if not out.endswith("14/14 tests passed\n"):
+        raise AssertionError("rngtest: the command's SmallCrush failed")
+
+    bat.DRAWS.device, bat.DRAWS.x64 = dev, False
+    k = key(RNG_SEED)
+    card_res, tot, drw = [], 0.0, 0.0
+    for i, test in enumerate(bat.SmallCrush):
+        bat.DRAWS.seconds = 0.0
+        t0 = time.perf_counter()
+        r = test(fold_in(k, i))
+        sec = time.perf_counter() - t0
+        card_res.append(r)
+        tot, drw = tot + sec, drw + bat.DRAWS.seconds
+        phase("rngtest", f"{r.name}: p {r.pvalue!r} "
+              f"{'pass' if r.passed else 'FAIL'}, {sec:.4f} s: draws on "
+              f"the card {bat.DRAWS.seconds:.4f} s, statistics on the host "
+              f"{sec - bat.DRAWS.seconds:.4f} s")
+    phase("rngtest", f"SmallCrush {tot:.3f} s: draws on the card "
+          f"{drw:.3f} s, statistics on the host {tot - drw:.3f} s, on "
+          f"{card}")
+    t0 = time.perf_counter()
+    cpu_res, _ = bat.run_battery(seed=RNG_SEED, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    a = np.array([r.pvalue for r in card_res])
+    b = np.array([r.pvalue for r in cpu_res])
+    ok = ([r.name for r in card_res] == [r.name for r in cpu_res]
+          and all(r.passed for r in card_res)
+          and np.allclose(a, b, rtol=RNG_RTOL, atol=0.0))
+    phase("rngtest", f"card vs CPU ({cpu_s:.3f} s on the host): "
+          f"{int((a == b).sum())} of {len(a)} p-values identical, max rel "
+          f"{float(np.max(np.abs(a - b) / np.abs(b))):.3e} (rtol "
+          f"{RNG_RTOL}), {sum(r.passed for r in card_res)}/14 pass: "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"rngtest: card {a} vs CPU {b}")
+
+    seam = bat.DRAWS
+    bat.DRAWS = type("Randu", (_Randu, bat.Draws), {})()
+    try:
+        res, failed = bat.run_battery(
+            seed=0, battery=[getattr(bat, n) for n in RANDU_SUBSET],
+            device="cpu")
+    finally:
+        bat.DRAWS = seam
+    phase("rngtest", "RANDU through the seam: " + ", ".join(
+        f"{r.name} {r.pvalue:.3e}" for r in res)
+        + f": failed {failed}: {'ok' if failed else 'FAIL'}")
+    if not failed:
+        raise AssertionError("rngtest: RANDU passed every test")
+
+    bat.DRAWS.device, bat.DRAWS.x64 = dev, False
+    k = key(SCOMP_SEED)
+    names = ("linear_comp_jump", "linear_comp_size", "lempel_ziv")
+    total = 0.0
+    for i, test in enumerate(bat.Crush):
+        if not set(names) & set(test.__code__.co_names):
+            continue
+        bat.DRAWS.seconds = 0.0
+        t0 = time.perf_counter()
+        r = test(fold_in(k, i))
+        sec = time.perf_counter() - t0
+        total += sec
+        if not np.isfinite(r.pvalue):
+            raise AssertionError(f"rngtest: Crush[{i}] {r}")
+        phase("rngtest", f"Crush[{i}] {r.name}: p {r.pvalue!r} "
+              f"{'pass' if r.passed else 'FAIL'}, {sec:.3f} s: draws on "
+              f"the card {bat.DRAWS.seconds:.3f} s, bit stream and host "
+              f"library {sec - bat.DRAWS.seconds:.3f} s")
+    counts = dict(kernels.launches)
+    if any(counts.values()):
+        raise AssertionError(f"rngtest: hand kernels launched {counts}")
+    phase("rngtest", f"scomp entries {total:.3f} s; path took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def meshconv_phase(dev, card):
+    """Path 28: a CONV_N^3 box through meshconv: gmsh -> ExodusII classic
+    -> netgen, and its CONV_PIECES ExodusII pieces joined; each output has
+    the box's node, element and boundary-triangle counts, its
+    connectivity and its coordinates to CONV_COORD_ATOL.  fileconv runs
+    where h5py imports (its netCDF-4 side)."""
+    import importlib.util
+    import tempfile
+
+    from quinoa_tpu_torch.io import read_mesh, write_exodus_pieces, write_gmsh
+    from quinoa_tpu_torch.mesh import box_tet_mesh
+
+    t_phase = time.perf_counter()
+    mesh = box_tet_mesh(CONV_N, CONV_N, CONV_N)
+    nbt = sum(len(v) for v in mesh.bface.values())
+    with tempfile.TemporaryDirectory(prefix="quinoa_conv_") as d:
+        p = lambda name: os.path.join(d, name)  # noqa: E731
+        t0 = time.perf_counter()
+        write_gmsh(p("box.msh"), mesh)
+        parts = np.arange(mesh.nelem) * CONV_PIECES // mesh.nelem
+        pieces = write_exodus_pieces(p("box"), mesh, parts)
+        phase("meshconv", f"{CONV_N}^3 box written as gmsh and "
+              f"{CONV_PIECES} ExodusII pieces in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for argv, out in ((["-i", p("box.msh")], "box.exo"),
+                          (["-i", p("box.exo")], "box.mesh"),
+                          (["-i", *pieces], "joined.exo")):
+            t0 = time.perf_counter()
+            cli_run(["meshconv", *argv, "-o", p(out), "-v"], dev,
+                    path="meshconv")
+            sec = time.perf_counter() - t0
+            m = read_mesh(p(out))
+            err = float(np.abs(m.coords - mesh.coords).max())
+            got = (m.nnode, m.nelem, sum(len(v) for v in m.bface.values()))
+            ok = (got == (mesh.nnode, mesh.nelem, nbt)
+                  and np.array_equal(m.inpoel, mesh.inpoel)
+                  and err <= CONV_COORD_ATOL)
+            phase("meshconv", f"{out}: {sec:.2f} s, (nodes, tets, boundary "
+                  f"tris) {got}, connectivity equal "
+                  f"{np.array_equal(m.inpoel, mesh.inpoel)}, max |d coord| "
+                  f"{err:.3e}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"meshconv: {out} differs from the box")
+        if importlib.util.find_spec("h5py") is None:
+            phase("meshconv", "fileconv not run: its netCDF-4 side needs "
+                  "h5py, which this machine lacks")
+        else:
+            cli_run(["fileconv", "-i", p("joined.exo"), "-o", p("f4.exo"),
+                     "-v"], dev, path="meshconv")
+            cli_run(["fileconv", "-i", p("f4.exo"), "-o", p("f3.exo"),
+                     "-v"], dev, path="meshconv")
+            m = read_mesh(p("f3.exo"))
+            if not np.array_equal(m.inpoel, mesh.inpoel):
+                raise AssertionError("meshconv: fileconv round trip")
+    phase("meshconv", f"path took {time.perf_counter() - t_phase:.1f} s "
+          f"on {card}")
+
+
 def main():
     import torch
 
@@ -2844,6 +3151,12 @@ def main():
     kernels.build()
     phase("build", f"{time.perf_counter() - t0:.1f} s "
           f"({os.path.basename(kernels.library_path())})")
+    from quinoa_tpu_torch.rngtest import scomp
+
+    t0 = time.perf_counter()
+    scomp.build()
+    phase("build", f"scomp host library {time.perf_counter() - t0:.1f} s "
+          f"({os.path.basename(scomp.library_path())})")
     entry = ""
     for line in kernels.build_log().splitlines():
         if "Compiling entry function" in line:
@@ -3146,6 +3459,10 @@ def main():
 
     # 26. the walker: no hand kernel (PATHS["walker"])
     walker_phase(torch, dev, card)
+
+    # 27. the rngtest command and batteries; 28. meshconv (no hand kernel)
+    rngtest_phase(torch, dev, card)
+    meshconv_phase(dev, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms")

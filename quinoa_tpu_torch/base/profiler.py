@@ -1,19 +1,22 @@
-"""Per-phase wall-clock profiling.
+"""Per-phase wall-clock profiling and the torch trace.
 
-The port's own copy of quinoa_tpu/base/profiler.py's PhaseProfiler, the
+The port's own copy of quinoa_tpu/base/profiler.py.  PhaseProfiler is the
 analog of the reference's timer table printed by Main at the end of a
 run (src/Main/Inciter.cpp timers: mesh read, partition, time stepping):
 phases accumulate host wall-clock over repeated entries.  A phase times
 device work only where the code inside it waits for the device (the
 inciter step loop reads the iteration count back inside its timestep
-phase).
+phase).  ``torch_trace`` wraps a block in torch.profiler, the
+counterpart of the JAX package's jax_trace (the reference's Charm++
+Projections analog): the host's operators and, on the card, every kernel
+launched, written as a Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 class PhaseProfiler:
@@ -71,3 +74,36 @@ class PhaseProfiler:
             f"{100.0 * (tot - acc) / tot:5.1f}")
         lines.append(f"{'total':<{w}}  {tot:9.3f}  100.0")
         return "\n".join(lines)
+
+
+#: the trace file torch_trace writes into its directory
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def torch_trace(logdir: Optional[str], cuda: bool = False):
+    """Wrap a block in torch.profiler when logdir is set (no-op
+    otherwise): CPU activity, and CUDA activity with cuda (a run on the
+    card), written to logdir/TRACE_FILE as a Chrome trace (chrome://
+    tracing, Perfetto).  On the card the window opens and closes with
+    the card idle, so the trace holds the block's device work whole and
+    nothing queued before it."""
+    if not logdir:
+        yield
+        return
+    import os
+
+    import torch
+    import torch.profiler as tp
+
+    acts = [tp.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(tp.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    if cuda:
+        torch.cuda.synchronize()
+    with tp.profile(activities=acts) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))

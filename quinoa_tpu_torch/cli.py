@@ -1,9 +1,11 @@
-"""Command-line driver: python -m quinoa_tpu_torch inciter -c deck.q -i mesh
-and python -m quinoa_tpu_torch walker -c deck.q
+"""Command-line driver: python -m quinoa_tpu_torch {inciter,walker,meshconv,
+rngtest,fileconv} [options], and -H [keyword] for the control-file keyword
+help.
 
-The port's own copy of quinoa_tpu/cli.py's single-device inciter and
-walker commands (the reference's InciterDriver and WalkerDriver,
-src/Main/): the same flags, deck schema, file formats and output names.
+The port's own copy of quinoa_tpu/cli.py's single-device commands (the
+reference's InciterDriver, WalkerDriver, MeshConvDriver, RNGTestDriver and
+FileConv, src/Main/): the same flags, deck schema, file formats, output
+names and standard output.
 The inciter command reads the control deck and the mesh,
 applies the deck's initial refinement passes (amr t0ref), Hilbert-reorders
 the elements, builds the solver the deck names
@@ -13,18 +15,27 @@ either package.  During the run it adapts the mesh every dtfreq steps
 (amr dtref: uniform, the incremental multi-level cycle, or one level from
 the base mesh with maxlevels 1), transfers the solution on the host and
 rebuilds the solver on the new mesh; --particles advects tracers with the
-flow and writes their H5Part trajectories.
+flow and writes their H5Part trajectories; -v prints the mesh statistics
+and writes the mesh PDFs; --trace-dir records the step loop with
+torch.profiler.
 
 The walker command reads a walker deck, integrates its SDE systems over
 the particle ensemble and writes the moments' time series (--stat) and
 the deck's PDFs, as quinoa_tpu's walker command does, drawing the same
 random numbers from the same seed.
 
-Both run on the card; ``main(argv, device="cpu")`` runs them on the CPU,
-as the tests do, in torch's default float.  What the port does not have
-yet is refused before any step, with exit code 2 and one line naming the
-missing piece: the parallel options (--npes > 1, -u > 0, --slices,
---pieces > 1), --trace-dir, -H and the other subcommands.
+The rngtest command runs a statistical battery (SmallCrush, Crush or
+BigCrush) once per rng of its deck, drawing jax.random's Threefry streams
+on the card and printing the JAX CLI's lines; meshconv converts a mesh
+between formats, or joins ExodusII pieces; fileconv converts an ExodusII
+field file between the classic and netCDF-4 layouts.
+
+The commands run on the card; ``main(argv, device="cpu")`` runs them on
+the CPU, as the tests do, in torch's default float.  What the port does
+not have yet is refused before any step, with exit code 2 and one line
+naming the missing piece: the parallel options (--npes > 1, -u > 0,
+--slices, --pieces > 1).  The rngtest command refuses the generators
+other than Threefry (--impl, and deck rngs the JAX CLI maps to rbg).
 """
 
 from __future__ import annotations
@@ -95,8 +106,6 @@ def _unported_option(args) -> str | None:
     if args.pieces > 1:
         return "--pieces > 1 (partitioned field output, part of the " \
                "parallel solvers)"
-    if args.trace_dir:
-        return "--trace-dir (on-device tracing)"
     return None
 
 
@@ -145,7 +154,9 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
                     help="print the per-phase wall-clock table at the "
                          "end (the reference Main's timer printout)")
     ap.add_argument("--trace-dir", default=None,
-                    help="on-device trace directory (not ported: refused)")
+                    help="record the step loop with torch.profiler (the "
+                         "card's kernels too) into this directory as a "
+                         "Chrome trace (Projections analog)")
     args = ap.parse_args(argv)
     what = _unported_option(args)
     if what is not None:
@@ -157,7 +168,7 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
 
     import torch
 
-    from .base.profiler import PhaseProfiler
+    from .base.profiler import PhaseProfiler, torch_trace
     from .control.config import apply_t0ref, build_inciter, load_inciter
     from .inciter.checkpoint import (CheckpointMismatch, load_checkpoint,
                                      save_checkpoint)
@@ -189,6 +200,16 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
     # written back in the input file's element order through eorder
     with prof.phase("reorder"):
         mesh, eorder = hilbert_element_reorder(mesh)
+
+    if args.verbose:
+        # setup-time mesh statistics echo and PDF dump
+        # (Transporter::stat/pdfstat, Transporter.cpp:735-846); one chunk
+        from .mesh.stats import (format_mesh_statistics, mesh_statistics,
+                                 write_mesh_pdfs)
+
+        mstats = mesh_statistics(mesh, [mesh.nelem])
+        print(format_mesh_statistics(mstats))
+        write_mesh_pdfs(mstats)
 
     with prof.phase("solver build"):
         solver, diag = build_inciter(cfg, mesh, device=device)
@@ -228,7 +249,8 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
 
     t0 = time.perf_counter()
     it = int(state.it)  # nonzero when restarted from a checkpoint
-    with _Preempt() as pre:
+    with torch_trace(args.trace_dir, cuda=device.type == "cuda"), \
+            _Preempt() as pre:
         while it < cfg.nstep and float(state.t) < cfg.term:
             tprev = float(state.t) if pt is not None else None
             with prof.phase("timestep"):
@@ -615,8 +637,167 @@ def _cmd_walker(argv, device=DEFAULT_DEVICE):
     return 0
 
 
-#: subcommands of the JAX package's CLI the port has not ported yet
-_UNPORTED_COMMANDS = ("meshconv", "rngtest", "fileconv")
+def _cmd_meshconv(argv):
+    ap = argparse.ArgumentParser(prog="quinoa_tpu_torch meshconv")
+    ap.add_argument("-i", "--input", required=True, nargs="+",
+                    help="input mesh, or several exodus PIECES "
+                         "(out.e-s.<it>.<N>.<p>) to join into one file")
+    ap.add_argument("-o", "--output", required=True)
+    ap.add_argument("--netcdf4", action="store_true",
+                    help="write exodus output in the HDF5-based "
+                         "netCDF-4 layout instead of NetCDF-3 classic")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+
+    from .io import (detect_format, join_exodus_pieces, read_mesh,
+                     write_exodus, write_mesh)
+
+    fmt4 = "netcdf4" if args.netcdf4 else "classic"
+    if len(args.input) > 1:
+        # join partitioned pieces back into one mesh and its fields
+        mesh, nf, ef, t = join_exodus_pieces(args.input)
+        if args.verbose:
+            print(f"meshconv: joined {len(args.input)} pieces -> "
+                  f"{args.output}: {mesh.nnode} nodes, {mesh.nelem} tets, "
+                  f"{len(nf)} nodal + {len(ef)} element fields")
+        write_exodus(args.output, mesh, node_fields=nf or None,
+                     elem_fields=ef or None, time=t, fmt=fmt4)
+        return 0
+
+    path = args.input[0]
+    fmt = detect_format(path)
+    mesh = read_mesh(path, fmt)
+    if not mesh.bface and mesh.nelem:
+        # no boundary in the input: derive the exterior surface, as the
+        # reference's meshconv does (shear.exo.std grows a shell block of
+        # the 16000 exterior triangles of its block-only input)
+        from .mesh.derived import exterior_faces
+
+        mesh.bface[1] = exterior_faces(mesh.inpoel, mesh.nnode)
+        mesh.bnode = mesh.bnode_from_bface()
+    if args.verbose:
+        print(f"meshconv: {path} ({fmt}) -> {args.output}: "
+              f"{mesh.nnode} nodes, {mesh.nelem} tets, "
+              f"{sum(len(v) for v in mesh.bface.values())} boundary tris")
+    if args.netcdf4:
+        write_exodus(args.output, mesh, fmt=fmt4)
+    else:
+        write_mesh(args.output, mesh)
+    return 0
+
+
+def _rng_impl(rngname: str) -> str:
+    """The JAX CLI's map from a deck rng to a jax PRNG impl: the Random123
+    philox family to rbg, every other entry (r123_threefry, MKL, RNGSSE) to
+    threefry2x32 (COMPONENTS.md §2.8)."""
+    return "rbg" if rngname.startswith("r123_philox") else "threefry2x32"
+
+
+def _cmd_rngtest(argv, device=DEFAULT_DEVICE):
+    ap = argparse.ArgumentParser(prog="quinoa_tpu_torch rngtest")
+    ap.add_argument("-c", "--control", default=None,
+                    help=".q control file (optional; defaults to smallcrush)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--impl", default="threefry2x32",
+                    help="PRNG implementation (the port has threefry2x32)")
+    ap.add_argument("--battery", default=None,
+                    choices=["smallcrush", "crush", "bigcrush"],
+                    help="battery scale (overrides the deck block)")
+    args = ap.parse_args(argv)
+
+    name = args.battery
+    rngs = None  # [(deck rng name, impl, seed)]
+    if args.control:
+        from .control.qparser import first, parse_deck
+
+        with open(args.control) as fh:
+            tree = parse_deck(fh.read())
+        rt = first(tree, "rngtest") or tree  # battery block may be at root
+        if name is None:
+            name = ("bigcrush" if "bigcrush" in rt else
+                    "crush" if "crush" in rt else "smallcrush")
+        blk = first(rt, name)
+        if isinstance(blk, dict) and blk:
+            # each deck rng gets the battery (testu01suite.ci: one chare
+            # per (rng, test); here one battery run per rng)
+            rngs = []
+            for rn, opts in blk.items():
+                seed = args.seed
+                for row in opts if isinstance(opts, list) else []:
+                    if isinstance(row, list) and len(row) >= 2 \
+                            and row[0] == "seed":
+                        seed = int(row[1])
+                rngs.append((rn, _rng_impl(rn), seed))
+    name = name or "smallcrush"
+    if not rngs:
+        rngs = [(args.impl, args.impl, args.seed)]
+    for rn, impl, _ in rngs:
+        if impl != "threefry2x32":
+            print(f"quinoa_tpu_torch: rng {rn} (impl={impl}) is not ported:"
+                  " the port has threefry2x32 only", file=sys.stderr)
+            return 2
+
+    from .rngtest import BigCrush, Crush, SmallCrush, run_battery
+
+    battery = {"bigcrush": BigCrush, "crush": Crush}.get(name, SmallCrush)
+    device = resolve_device(device)
+    any_failed = False
+    for rn, impl, seed in rngs:
+        # the JAX CLI's draws: x64 off (float32 uniforms, int32 randint)
+        results, failed = run_battery(seed=seed, battery=battery, impl=impl,
+                                      device=device, x64=False)
+        any_failed = any_failed or bool(failed)
+        print(f"{name} battery, rng={rn} (impl={impl}), seed={seed}")
+        for r in results:
+            print(f"  {r.name:20s} p-value {r.pvalue:8.5f}  "
+                  f"{'pass' if r.passed else 'FAIL'}")
+        print(f"{len(results) - len(failed)}/{len(results)} tests passed")
+    return 1 if any_failed else 0
+
+
+def _cmd_fileconv(argv):
+    """Field-file conversion (the reference's fileconv executable,
+    src/Main/FileConv.cpp).  Its ROOT<->ExodusII half needs the ROOT
+    library, as in the JAX package; the ExodusII side converts between the
+    NetCDF-3 classic and netCDF-4/HDF5 layouts, carrying the nodal and
+    element variables of the last time step."""
+    ap = argparse.ArgumentParser(prog="quinoa_tpu_torch fileconv")
+    ap.add_argument("-i", "--input", required=True)
+    ap.add_argument("-o", "--output", required=True)
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+
+    with open(args.input, "rb") as fh:
+        magic = fh.read(4)
+    if magic not in (b"CDF\x01", b"CDF\x02", b"\x89HDF"):
+        print("fileconv: ROOT field files need the ROOT library, which "
+              "is not in this build; only ExodusII inputs are supported",
+              file=sys.stderr)
+        return 1
+    from .io.exodus import (read_exodus, read_exodus_elem_fields,
+                            read_exodus_fields, write_exodus)
+
+    mesh = read_exodus(args.input)
+    nnames, ntimes, nvals = read_exodus_fields(args.input)
+    enames, etimes, evals = read_exodus_elem_fields(args.input)
+    nf = {n: nvals[-1, i] for i, n in enumerate(nnames)} or None
+    ef = {n: evals[-1, i] for i, n in enumerate(enames)} or None
+    t = float(ntimes[-1]) if len(ntimes) else (
+        float(etimes[-1]) if len(etimes) else 0.0)
+    fmt = "classic" if magic == b"\x89HDF" else "netcdf4"
+    write_exodus(args.output, mesh, node_fields=nf, elem_fields=ef,
+                 time=t, fmt=fmt)
+    if args.verbose:
+        print(f"fileconv: {args.input} -> {args.output} ({fmt}): "
+              f"{len(nnames)} nodal + {len(enames)} element fields")
+    return 0
+
+
+#: the commands; those given device run on it
+_COMMANDS = {"inciter": _cmd_inciter, "walker": _cmd_walker,
+             "rngtest": _cmd_rngtest, "meshconv": _cmd_meshconv,
+             "fileconv": _cmd_fileconv}
+_ON_DEVICE = ("inciter", "walker", "rngtest")
 
 
 def main(argv=None, device=DEFAULT_DEVICE):
@@ -624,7 +805,15 @@ def main(argv=None, device=DEFAULT_DEVICE):
     card unless the caller asks for another; returns the exit code."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if "-H" in argv or "--helpkw" in argv:
-        return _refuse("-H (the control-file keyword help)")
+        # -H [keyword]: the control-file keyword help, accepted by every
+        # command (HelpFactory.hpp; Keyword.hpp:90-99)
+        from .control.keywords import format_keyword_help
+
+        i = argv.index("-H" if "-H" in argv else "--helpkw")
+        kw = argv[i + 1] if i + 1 < len(argv) \
+            and not argv[i + 1].startswith("-") else None
+        print(format_keyword_help(kw))
+        return 0
     if "--version" in argv:
         from . import __version__
 
@@ -637,12 +826,11 @@ def main(argv=None, device=DEFAULT_DEVICE):
               "upstream (github.com/quinoacomputing/quinoa) is "
               "BSD-3-Clause.")
         return 0
-    if argv and argv[0] in _UNPORTED_COMMANDS:
-        return _refuse(f"the {argv[0]} command")
-    if argv and argv[0] == "walker":
-        return _cmd_walker(argv[1:], device=device)
-    if not argv or argv[0] != "inciter":
-        print("usage: python -m quinoa_tpu_torch {inciter,walker} [options]",
+    if not argv or argv[0] not in _COMMANDS:
+        print("usage: python -m quinoa_tpu_torch "
+              "{inciter|walker|meshconv|rngtest|fileconv} [options]",
               file=sys.stderr)
         return 2
-    return _cmd_inciter(argv[1:], device=device)
+    if argv[0] in _ON_DEVICE:
+        return _COMMANDS[argv[0]](argv[1:], device=device)
+    return _COMMANDS[argv[0]](argv[1:])

@@ -1,12 +1,16 @@
 """Derived mesh connectivity (vectorized numpy).
 
-The port's own copy of the part of quinoa_tpu/mesh/derived.py it calls
-(reference src/Mesh/DerivedData.hpp): the face neighbours of elements, the
-DG face tables and the edge list.  Node triples and pairs are packed into
-one unsigned 64-bit key each, so every pass is one sort.
+The port's own copy of quinoa_tpu/mesh/derived.py (reference
+src/Mesh/DerivedData.hpp): elements, points and edges surrounding points
+as CSR pairs, the edge list, the face neighbours of elements, the DG face
+tables, the exterior faces and the closed-surface (leak) test.  Node
+triples and pairs are packed into one unsigned 64-bit key each, so every
+pass is one sort.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -18,6 +22,42 @@ _TET_FACES = np.array([[1, 2, 3], [0, 3, 2], [0, 1, 3], [0, 2, 1]],
 # The six edges of a tet by local node pairs.
 _TET_EDGES = np.array([[0, 1], [1, 2], [2, 0], [0, 3], [1, 3], [2, 3]],
                       dtype=np.int32)
+
+CSR = Tuple[np.ndarray, np.ndarray]  # (items, row offsets of nrow + 1)
+
+
+def _csr_offsets(rows: np.ndarray, nrow: int) -> np.ndarray:
+    offsets = np.zeros(nrow + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=nrow), out=offsets[1:])
+    return offsets
+
+
+def gen_esup(inpoel: np.ndarray, nnode: int) -> CSR:
+    """Elements surrounding points: items[offsets[p]:offsets[p + 1]] are
+    the elements holding node p, in element order."""
+    flat = inpoel.ravel()
+    order = np.argsort(flat, kind="stable")
+    items = (order // inpoel.shape[1]).astype(np.int32)
+    return items, _csr_offsets(flat, nnode)
+
+
+def gen_psup(inpoel: np.ndarray, nnode: int) -> CSR:
+    """Points surrounding points: a tet mesh's point graph is its edge
+    graph, so this is the symmetrized edge list by (node, neighbour)."""
+    e = gen_inpoed(inpoel)
+    both = np.concatenate([e, e[:, ::-1]], axis=0)
+    both = both[np.lexsort((both[:, 1], both[:, 0]))]
+    return both[:, 1].astype(np.int32), _csr_offsets(both[:, 0], nnode)
+
+
+def gen_edsup(inpoel: np.ndarray, nnode: int) -> CSR:
+    """Edges surrounding points: the ids (gen_inpoed's rows) of the edges
+    at each node."""
+    edges = gen_inpoed(inpoel)
+    eid = np.arange(edges.shape[0], dtype=np.int32)
+    node = np.concatenate([edges[:, 0], edges[:, 1]])
+    order = np.argsort(node, kind="stable")
+    return np.concatenate([eid, eid])[order], _csr_offsets(node, nnode)
 
 
 def gen_inpoed(inpoel: np.ndarray) -> np.ndarray:
@@ -109,3 +149,25 @@ def gen_faces(inpoel: np.ndarray, nnode: int):
     lfacer[nbfac:] = lf_r
     return {"esuf": esuf, "inpofa": inpofa, "lfacel": lfacel,
             "lfacer": lfacer, "nbfac": nbfac}
+
+
+def exterior_faces(inpoel: np.ndarray, nnode: int) -> np.ndarray:
+    """The faces with no neighbour element, outward (ntri, 3) int32: the
+    boundary meshconv derives for an input without one (the reference's
+    shear.exo.std gains a 16000-triangle shell this way)."""
+    e, lf = np.nonzero(gen_esuel(inpoel, nnode) < 0)
+    return inpoel[e[:, None], _TET_FACES[lf]].astype(np.int32)
+
+
+def leaky_partition(esuel: np.ndarray, inpoel: np.ndarray,
+                    coords: np.ndarray) -> bool:
+    """True if the outward normals of the boundary faces do not sum to
+    zero, relative to their magnitudes (tk::leakyPartition, reference
+    src/Inciter/DG.cpp:148): a closed surface's do."""
+    e_idx, f_idx = np.nonzero(esuel < 0)
+    tris = inpoel[e_idx[:, None], _TET_FACES[f_idx]]
+    a, b, c = coords[tris[:, 0]], coords[tris[:, 1]], coords[tris[:, 2]]
+    n = np.cross(b - a, c - a)  # 2 * area * outward normal
+    s = np.abs(n.sum(axis=0))
+    ref = np.abs(n).sum(axis=0) + 1e-300
+    return bool((s / ref > 1e-9).any())

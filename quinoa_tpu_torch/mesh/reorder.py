@@ -1,8 +1,11 @@
 """Hilbert element and first-touch node reordering (numpy).
 
-Port of quinoa_tpu/mesh/reorder.py:32-132.  The Hilbert order keeps face neighbours close in element rank (the
-reference's Sorter/Reorder locality pass), which on the card keeps the
-neighbour reads of the limit and face kernels within nearby cache lines.
+Port of quinoa_tpu/mesh/reorder.py:21-132: remap and shift_to_zero
+(reference src/Base/Reorder.cpp), the Hilbert codes and the element and
+node reorders.  The Hilbert order keeps face neighbours close in element
+rank (the reference's Sorter/Reorder locality pass), which on the card
+keeps the neighbour reads of the limit and face kernels within nearby
+cache lines.
 """
 
 from __future__ import annotations
@@ -12,6 +15,18 @@ from typing import Tuple
 import numpy as np
 
 from .unsmesh import UnsMesh
+
+
+def remap(ids: np.ndarray, newid: np.ndarray) -> np.ndarray:
+    """A connectivity array under a node renumbering (tk::remap)."""
+    return newid[ids]
+
+
+def shift_to_zero(inpoel: np.ndarray) -> Tuple[np.ndarray, int]:
+    """Node ids shifted so that the smallest is zero, and the shift
+    (tk::shiftToZero)."""
+    lo = int(inpoel.min())
+    return inpoel - lo, lo
 
 
 def hilbert_codes(pts: np.ndarray, bits: int = 16) -> np.ndarray:

@@ -116,6 +116,74 @@ def random_bits(k: Key, shape: Sequence[int], width: int = 32,
     raise ValueError("width must be 32 or 64")
 
 
+def _mul32(a, b):
+    """a * b mod 2^32 for 32-bit words a (a tensor) and b (an int),
+    in 16-bit halves of b so that no product leaves int64."""
+    lo = a * (b & 0xFFFF)
+    hi = (a * (b >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & M32
+
+
+def randint(k: Key, shape: Sequence[int], minval: int, maxval: int,
+            dtype=torch.int32, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """jax.random.randint(k, shape, minval, maxval, dtype) for int32 and
+    int64 (jax/_src/random.py _randint): from split(k)'s two keys, the
+    higher and lower nbits-wide draws, each reduced mod the span, combined
+    as (higher mod span) * (2^nbits mod span) + lower mod span in
+    nbits-bit unsigned arithmetic, then reduced again.  minval and maxval
+    are Python ints, clipped to dtype as jax clips them; maxval <= minval
+    gives minval everywhere.
+
+    The 64-bit draws live in int64 tensors as their two 32-bit words, and
+    every remainder of a 64-bit draw is taken word by word, so the top bit
+    never makes a draw negative.  That is exact while the span is below
+    2^31 (every call of the rngtest batteries); a wider span at 64 bits
+    raises."""
+    device = resolve_device(device)
+    if dtype == torch.int32:
+        nbits = 32
+    elif dtype == torch.int64:
+        nbits = 64
+    else:
+        raise TypeError(f"randint takes int32 or int64, not {dtype}")
+    lo_t, hi_t = -(1 << (nbits - 1)), (1 << (nbits - 1)) - 1
+    minval, maxval = int(minval), int(maxval)
+    out_of_range = maxval > hi_t
+    minval = min(max(minval, lo_t), hi_t)
+    maxval = min(max(maxval, lo_t), hi_t)
+    mod = 1 << nbits
+    span = (maxval - minval) % mod
+    if maxval <= minval:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) % mod   # 0: the full range, every rem a no-op
+    k1, k2 = split(k)
+    (h1, h0), (l1, l0) = (_bit_words(kk, shape, device) for kk in (k1, k2))
+    if nbits == 32:
+        # the uint32 draws are the xor of each key's two words
+        higher, lower = h1 ^ h0, l1 ^ l0
+        if span == 0:
+            offset = lower
+        else:
+            mult = ((1 << 16) % span) ** 2 % mod % span
+            offset = ((_mul32(higher % span, mult) + lower % span) & M32) \
+                % span
+        value = (offset + minval) & M32
+        return (value - ((value >> 31) << 32)).to(torch.int32)
+    if span >= 1 << 31:
+        raise ValueError(f"randint: a span of {span} at 64 bits is beyond "
+                         "the port's exact range (below 2^31)")
+    w = (1 << 32) % span                  # 2^32 mod span
+    mult = w * w % span                   # 2^64 mod span
+
+    def rem(a1, a0):
+        # (a1 2^32 + a0) mod span, for words a1, a0 < 2^32
+        return ((a1 % span) * w + a0 % span) % span
+
+    offset = (rem(h1, h0) * mult + rem(l1, l0)) % span
+    return offset + minval
+
+
 _ONE_BITS = {torch.float32: 0x3F800000, torch.float64: 0x3FF0000000000000}
 
 

@@ -22,7 +22,9 @@ and multimat DG(P0) interface advection.  Checked:
 - --sync-io and the asynchronous writer give byte-equal files; -b
   writes no field output; format/precision shape the diag file;
 - every option or deck setting the port has not ported exits 2 before
-  any step; a SIGTERM drains: checkpoint, final output, exit 0;
+  any step, and the options and commands it has since ported (--trace-dir,
+  -H, meshconv, rngtest, fileconv) run in those cases' place; a SIGTERM
+  drains: checkpoint, final output, exit 0;
 - mesh refinement and tracers (AMR_DECKS): a t0ref deck, the three dtref
   branches (the multi-level cycle on DiagCG and on DG(P1), maxlevels 1,
   dtref_uniform) and --particles with and without dtref (each velocity
@@ -304,6 +306,8 @@ REFUSED = {
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_options_exit_2_before_any_step(tmp_path, capsys, case):
+    """The parallel options exit 2 before any step; --trace-dir, once
+    refused here, now runs and writes its trace."""
     tail, amr, word = REFUSED[case]
     dp, mp = _inputs(str(tmp_path), "diagcg_slotcyl")
     if amr:
@@ -313,9 +317,16 @@ def test_unported_options_exit_2_before_any_step(tmp_path, capsys, case):
         with open(dp, "w") as fh:
             fh.write(deck)
     out = str(tmp_path / "r")
+    if case == "trace_dir":
+        tail = ["--trace-dir", str(tmp_path / "tr"), "-b"]
     rc = _port(["inciter", "-c", dp, "-i", mp, "--diag", out + ".diag",
                 "-o", out, *tail])
     err = capsys.readouterr().err.strip().splitlines()
+    if case == "trace_dir":
+        assert rc == 0 and not err
+        assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
+        assert len(open(out + ".diag").read().splitlines()) == NSTEP + 1
+        return
     assert rc == 2
     assert len(err) == 1 and word in err[0] and "not ported" in err[0]
     assert not os.path.exists(out + ".diag")   # no step, no diagnostics
@@ -324,13 +335,37 @@ def test_unported_options_exit_2_before_any_step(tmp_path, capsys, case):
 @pytest.mark.parametrize("argv", [["-H"], ["inciter", "--helpkw"],
                                   ["walker", "-c", "x.q", "--npes", "2"],
                                   ["meshconv"], ["rngtest"], ["fileconv"]])
-def test_unported_commands_exit_2(capsys, argv):
-    assert t_main(argv, device="cpu") == 2
-    err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and "not ported" in err[0]
+def test_unported_commands_exit_2(tmp_path, capsys, argv):
+    """The walker's --npes 2 exits 2 with one line; the commands once
+    refused here now run: -H prints the keyword list, meshconv converts a
+    gmsh box, rngtest runs SmallCrush (seed 7, all pass), fileconv writes
+    a netCDF-4 copy."""
+    src = str(tmp_path / "in.msh")
+    tio.write_gmsh(src, box_tet_mesh(2, 2, 2))
+    tails = {"meshconv": ["-i", src, "-o", str(tmp_path / "m.exo"), "-v"],
+             "rngtest": ["--seed", "7"],
+             "fileconv": ["-i", str(tmp_path / "m.exo"), "-o",
+                          str(tmp_path / "f.exo"), "-v"]}
+    if argv[0] == "fileconv":
+        assert t_main(["meshconv", *tails["meshconv"]]) == 0
+        capsys.readouterr()
+    rc = t_main(argv + tails.get(argv[0], []), device="cpu")
+    out, err = capsys.readouterr()
+    if argv[0] == "walker":
+        err = err.strip().splitlines()
+        assert rc == 2 and len(err) == 1 and "not ported" in err[0]
+        return
+    assert rc == 0 and not err
+    first = out.splitlines()[0]
+    assert {"meshconv": first.startswith(f"meshconv: {src} (gmsh) ->"),
+            "rngtest": out.endswith("14/14 tests passed\n"),
+            "fileconv": first.endswith("(netcdf4): 0 nodal + 0 element "
+                                       "fields")}.get(
+        argv[0], first.startswith("Control-file keywords"))
 
 
-def test_version_license_usage_and_notes(tmp_path, capsys):
+def test_version_license_usage_and_notes(tmp_path, capsys, monkeypatch):
+    monkeypatch.chdir(tmp_path)   # -v writes the mesh PDFs here
     assert t_main(["--version"]) == 0
     assert capsys.readouterr().out.startswith("quinoa_tpu_torch ")
     assert t_main(["--license"]) == 0
@@ -347,8 +382,10 @@ def test_version_license_usage_and_notes(tmp_path, capsys):
     assert "--lbfreq has no effect" in cap.err
     for text in ("quinoa_tpu_torch inciter:", "mesh: ", "scheme=diagcg",
                  "it=4 ", "done: 5 steps", "timestep", "mesh read",
-                 "reorder", "solver build", "diagnostics", "total"):
+                 "reorder", "solver build", "diagnostics", "total",
+                 "Mesh statistics: min/max/avg(ntets) = 864 / 864 / 864"):
         assert text in cap.out, text
+    assert (tmp_path / "mesh_edge_pdf.txt").exists()
 
 
 def test_the_card_is_the_default_device(tmp_path):
