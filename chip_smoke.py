@@ -12,7 +12,8 @@ hand-written CUDA kernels, the Sedov DG(P1) deck through the port's
 inciter command, mesh refinement (t0ref, dtref) and tracer particles
 through the command and its helpers, the walker (its Threefry draws,
 every SDE class, the coupled Langevin family at 10^6 particles and the
-walker command), the rngtest command and batteries, and meshconv:
+walker command), the rngtest command and batteries, meshconv, and the
+parallel layer (every shard resident on the one card):
 
 1. card    the name and power limit from nvidia-smi;
 2. build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -215,15 +216,43 @@ walker command), the rngtest command and batteries, and meshconv:
            formats print 16 digits).  fileconv writes netCDF-4 through
            h5py, which the card's machine lacks: it runs only where h5py
            imports.
+29. spmd    Sedov P1 at 48^3 (path 4's configuration) through
+           build_inciter_spmd, the command's builder, in process at S = 1
+           (-u 0.5: 2 chunks on one shard), 2, 4 and 8 shards: 1 + 10
+           steps with K1, K12 and K13 3*S launches a step each, the host
+           ms of one ghost exchange of u, a torch.profiler window, and
+           from the known-good's initial state L2(sol) after 11 steps
+           against tools/bench_l2_known_good.json (rtol 5e-4) and against
+           path 4's single-device run (rtol 1e-4 + 8 f32 ulps);
+30. spmd_cli the same deck through the command: --npes 4 --pieces 4 -r 5
+           in a process of its own (LAUNCH_RUN: K1, K12, K13 132 each)
+           and -u 0.5 at --npes 1 in process (33 each), row 11's L2(sol)
+           against the single-device command's (path 19's in-process
+           solver) at path 29's second tolerance; a --restart from the
+           last sharded checkpoint prints the uninterrupted rows after
+           it, and the 4 pieces joined equal its gathered field;
+31. spmd_legs DiagCG SlotCyl 64^3 --npes 4 (K10, K11; the FCT bounds of
+           its sharded checkpoint), ALECG SlotCyl 48^3 --npes 4 (K7-K9)
+           and multimat Sod P1 48^3 --npes 2 -u 0.5 (K4, K14, K13; the
+           JAX builder runs it as 2 plain shards) through the command,
+           launches counted over each run, row 11 gated on JAX_L2 as
+           their single-device paths;
+32. spmd_walker walker --npes 4 against --npes 1 at 10^6 float64
+           particles through the command (stat rows within 1e-9 of each
+           column's largest value: the shards fold their sums);
+33. spmd_small Sedov P1 float64 at S = 4 on the card against the same
+           sharded run on the CPU (u within 1e-12 of max(1, max|u|)).
 
 Every path that reports launches sets the counts to 0 just before it and
 reads them just after; a kernel of the path that did not launch as
 stated, or one that does not belong to it and launched, fails the run.
 Any failure raises, so the script exits non-zero.  Paths 20-25 add no
 kernel: their launches are those of the solvers rebuilt on each refined
-mesh; paths 26-28 launch none.  Its last two lines are a JSON object of
-the kernels and the result line {"ok": true, "device": {...}}.  Needs one
-CUDA card, nvcc, a host C++ compiler and no network.
+mesh; paths 26-28 launch none; paths 29-33 launch each kernel of their
+path once per shard (the kernels line gives those counts per kernel as
+spmd_launches).  Its last two lines are a JSON object of the kernels and
+the result line {"ok": true, "device": {...}}.  Needs one CUDA card,
+nvcc, a host C++ compiler and no network.
 """
 
 import contextlib
@@ -593,6 +622,66 @@ CONV_N = 48
 CONV_PIECES = 4
 CONV_COORD_ATOL = 1e-15
 #: the walker command's inline deck (float64, card against CPU)
+#: paths 29-33, spmd: the parallel layer on the one card (every shard
+#: resident on cuda:0).  The main path's in-process runs: shard counts
+#: and virtualization (S = 1 under -u 0.5 packs 2 chunks on one shard)
+SPMD_RUNS = ((1, 0.5), (2, 0.0), (4, 0.0), (8, 0.0))
+#: the float64 card-vs-CPU run: Sedov P1 on the SMALL box at S = 4, 2
+#: steps, u within SPMD_RTOL of the CPU run's (of max(1, max|u|))
+SPMD_SMALL_SHARDS = 4
+#: path 29's shard count whose shards certainly carry pad elements and
+#: pad faces at 48^3 (the end shards' one interface against the middle
+#: shard's two), for the kernels' check against their plain versions
+SPMD_PAD_SHARDS = 3
+SPMD_RTOL = 1e-12
+#: the legs through the command: (deck, box n, box lo, box hi, flags,
+#: the JAX_L2 entry that gates its row 11, its shards)
+SPMD_SLOTCYL = """inciter
+  nstep {nstep}
+  cfl 0.8
+  scheme {scheme}
+  transport
+    physics advection problem slot_cyl ncomp 1 depvar c
+    bc_dirichlet sideset 1 2 3 4 5 6 end end
+  end
+  diagnostics interval 1 error l2 end
+end
+"""
+SPMD_MM = """inciter
+  nstep {nstep}
+  cfl 0.5
+  scheme dgp1
+  multimat
+    physics veleq problem sod_shocktube nmat 2
+    bc_extrapolate sideset 1 2 end end
+    bc_sym sideset 3 4 5 6 end end
+  end
+  diagnostics interval 1 end
+end
+"""
+SPMD_LEGS = {
+    "spmd_diagcg": (SPMD_SLOTCYL.format(nstep=CLI_NSTEP, scheme="diagcg"),
+                    64, ["--npes", "4"], "diagcg", 4),
+    "spmd_alecg": (SPMD_SLOTCYL.format(nstep=CLI_NSTEP, scheme="alecg"),
+                   N_BIG, ["--npes", "4"], "alecg", 4),
+    # the JAX builder cuts multimat into --npes shards whatever -u says
+    "spmd_mm_p1": (SPMD_MM.format(nstep=CLI_NSTEP), N_BIG,
+                   ["--npes", "2", "-u", "0.5"], "mm_p1", 2),
+}
+#: their kernels a shard launches a step, and at a solver build
+SPMD_LEG_KERNELS = {"spmd_diagcg": ("diagcg", {"node_gather": 2}),
+                    "spmd_alecg": ("alecg", {}),
+                    "spmd_mm_p1": ("mm_p1", {})}
+#: the main path's command runs: --npes 4 (4 pieces, a checkpoint every
+#: SPMD_RSFREQ steps) in a process of its own, and -u 0.5 at --npes 1
+SPMD_RSFREQ = 5
+#: walker --npes: WALKER_DECK at SPMD_WALKER_NPAR particles, float64, its
+#: stat rows at --npes 4 against --npes 1 within SPMD_WALKER_RTOL of the
+#: column's largest value (the shards' sums fold in another order than
+#: one tensor's mean, inside the Langevin steps too)
+SPMD_WALKER_NPAR = 1_000_000
+SPMD_WALKER_RTOL = 1e-9
+
 WALKER_DECK = """title "walker smoke"
 walker
   term 0.05  dt 0.005  npar 20000
@@ -1707,6 +1796,12 @@ def l2_gate(name, solver, state):
     else:
         row = Diagnostics(solver.system, solver.geom).compute(state)
         l2sol, l2err = row.l2sol, row.l2err
+    l2_check(name, name, l2sol, l2err,
+             f"after {int(state.it)} steps t={float(state.t):.9e}")
+
+
+def l2_check(path, name, l2sol, l2err, when):
+    """l2_gate's test of L2(sol) and L2(err) against JAX_L2[name]."""
     want = JAX_L2[name]
     sol = want["l2sol"]
     rule = L2_SCALE.get(name, "own")
@@ -1727,8 +1822,7 @@ def l2_gate(name, solver, state):
                    for a, b, s in zip(got, ref, scale))
 
     ok = close(l2sol, sol, 0 if rule == "own" else ulps)
-    msg = (f"after {int(state.it)} steps t={float(state.t):.9e}: L2(sol) "
-           f"{l2sol} vs JAX {sol}, max rel "
+    msg = (f"{when}: L2(sol) {l2sol} vs JAX {sol}, max rel "
            f"{max(abs(a - b) / abs(b) for a, b in zip(l2sol, sol)):.3e}")
     if "l2err" in want:
         ok = ok and close(l2err, want["l2err"], ulps)
@@ -1738,10 +1832,10 @@ def l2_gate(name, solver, state):
     of = {"own": "the component's own L2(sol), on L2(err) only",
           "largest": "the largest L2(sol)",
           "kind": "the largest L2(sol) of the component's kind"}[rule]
-    phase(name, f"{msg}: {'ok' if ok else 'FAIL'} (rtol {JAX_L2_RTOL:g} + "
+    phase(path, f"{msg}: {'ok' if ok else 'FAIL'} (rtol {JAX_L2_RTOL:g} + "
           f"{ulps} f32 ulps of {of})")
     if not ok:
-        raise AssertionError(f"{name}: L2 gate failed")
+        raise AssertionError(f"{path}: L2 gate failed")
 
 
 def alpha_gate(name, solver, state):
@@ -1871,7 +1965,7 @@ def mm_breakdown(torch, solver, name, state, reps=5):
     C, K = sy.ncomp, g.ndof
     Uv = u.reshape(C, K, -1)
     X = sy.thinc_carriers(g, Uv) if sy.intsharp else None
-    if sy.fused_ok:
+    if solver.fused_ok:
         face = {"face pass K14 + K13": lambda: mm_face_pass(sy, g, u, X)}
         acc = mm_face_pass(sy, g, u, X)[0]
     else:
@@ -3116,6 +3210,431 @@ def meshconv_phase(dev, card):
           f"on {card}")
 
 
+#: path 30's --npes 4 run: the inciter command in a process of its own
+#: that counts the kernels' launches from 0 and prints them last (the
+#: entry point `python -m quinoa_tpu_torch` calls)
+LAUNCH_RUN = ("import json, sys\n"
+              "from quinoa_tpu_torch import kernels\n"
+              "from quinoa_tpu_torch.__main__ import main\n"
+              "kernels.build()\n"
+              "kernels.reset_launches()\n"
+              "rc = main(sys.argv[1:])\n"
+              "print(json.dumps(kernels.launches))\n"
+              "raise SystemExit(rc)\n")
+
+
+def spmd_drive(torch, solver, name, card, nshard, path="p1"):
+    """drive() for a sharded solver: 1 warm-up and NSTEPS timed steps,
+    launches counted from 0 just before and read just after, each kernel
+    of `path` nshard times its single-device count a step."""
+    from quinoa_tpu_torch import kernels
+
+    state = solver.initial_state()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    state = solver.step(state)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NSTEPS):
+        state = solver.step(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    want = {k: (NSTEPS + 1) * nshard * PATHS[path].get(k, 0)
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f"{name}: kernel launches {counts}, expected "
+                             f"{want}")
+    if not all(bool(torch.isfinite(u).all()) for u in state.u):
+        raise AssertionError(f"{name}: non-finite state")
+    E = solver.sharded.nelem_global
+    phase(name, f"{E * NSTEPS / wall:.1f} cell-updates/s, "
+          f"{1e3 * wall / NSTEPS:.3f} ms/step over {nshard} shards on "
+          f"{solver.group.placement()}, launches {counts}, on {card}")
+    return state, counts, wall
+
+
+def spmd_scatter(torch, solver, u_glob):
+    """Per-shard blocks of a global (C*K, E) tensor through eglobal (pads
+    read element 0)."""
+    ids = np.maximum(solver.sharded.arrays["eglobal"], 0)
+    return [u_glob[:, torch.from_numpy(ids[s].astype(np.int64)).to(
+        u_glob.device)].contiguous() for s in range(ids.shape[0])]
+
+
+def spmd_l2_gate(name, l2sol, good, single):
+    """Sedov P1's gates on a sharded run's L2(sol) after 11 steps from the
+    known-good's initial state: the committed known-good at rtol L2_RTOL,
+    and the single-device run's at JAX_L2_RTOL plus L2_ULPS float32 ulps
+    of each component's own L2(sol)."""
+    eps = float(np.finfo(np.float32).eps)
+    ok_good = np.allclose(l2sol, good, rtol=L2_RTOL, atol=0.0)
+    ok_single = all(abs(a - b) <= JAX_L2_RTOL * abs(b) + L2_ULPS * eps * b
+                    for a, b in zip(l2sol, single))
+    phase(name, f"L2(sol) from the known-good's initial state {list(l2sol)}"
+          f": vs the known-good {'ok' if ok_good else 'FAIL'} (rtol "
+          f"{L2_RTOL}), vs the single-device run "
+          f"{'ok' if ok_single else 'FAIL'} (rtol {JAX_L2_RTOL:g} + "
+          f"{L2_ULPS} f32 ulps; max rel "
+          f"{max(abs(a - b) / b for a, b in zip(l2sol, single)):.3e})")
+    if not (ok_good and ok_single):
+        raise AssertionError(f"{name}: L2(sol) gate failed")
+
+
+def spmd_small(torch, dev):
+    """Sedov P1 on the small float64 box at SPMD_SMALL_SHARDS shards on the
+    card against the same sharded run on the CPU: 2 steps, u within
+    SPMD_RTOL of max(1, max|u|), dt and ndofel equal."""
+    from quinoa_tpu_torch.mesh import box_tet_mesh, hilbert_element_reorder
+    from quinoa_tpu_torch.parallel import (SPMDDGSolver, ShardGroup,
+                                           build_dg_shards)
+    from quinoa_tpu_torch.pde.dg import BC_SYMMETRY
+    from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow
+    from quinoa_tpu_torch.pde.problems import SedovBlastwave
+
+    nx, ny, nz = SMALL
+    mesh, _ = hilbert_element_reorder(box_tet_mesh(
+        nx, ny, nz, hi=(0.1 * nx, 0.1 * ny, 0.1 * nz)))
+    bc = {i: BC_SYMMETRY for i in range(1, 7)}
+    out = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        S = SPMD_SMALL_SHARDS
+        sh = build_dg_shards(mesh, S, 4, bc, dtype=torch.float64,
+                             group=ShardGroup(S, [d]))
+        solver = SPMDDGSolver(DGCompFlow(SedovBlastwave()), sh, cfl=0.5,
+                              limiter="superbeep1")
+        st = solver.nsteps(solver.initial_state(), 2)
+        out[where] = (solver.gather_global(st), float(st.dt[0]))
+    a, b = out["card"], out["cpu"]
+    err = float(np.abs(a[0] - b[0]).max())
+    tol = SPMD_RTOL * max(1.0, float(np.abs(b[0]).max()))
+    ok = err <= tol and abs(a[1] - b[1]) <= SPMD_RTOL * abs(b[1])
+    phase("spmd_small", f"Sedov P1 float64 at {SPMD_SMALL_SHARDS} shards, "
+          f"2 steps, card vs CPU: max |du| {err:.3e} (<= {tol:.3e}), dt "
+          f"{a[1]!r} vs {b[1]!r}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("spmd_small: card and CPU differ")
+
+
+def spmd_shard_kernels(torch, solver, state, name):
+    """K1, then K12 + K13 on its limited state, against their plain
+    versions bit for bit (kernel_checks) on the shard of solver with the
+    most pad faces, at the state the run left: the ghost and pad elements
+    and the pad faces as the sharded step hands them to the kernels.
+    Returns that shard's pad faces."""
+    geoms = solver.sharded.geoms
+    pads = [int((g.fmask == 0).sum()) for g in geoms]
+    s = max(range(len(geoms)), key=pads.__getitem__)
+    g = geoms[s]
+    pad_elems = int((solver.sharded.arrays["eglobal"][s] < 0).sum())
+    phase(name, f"kernels against their plain versions on shard {s}: "
+          f"E={g.nelem} ({int(g.emask.sum())} owned, {pad_elems} pad), "
+          f"F={g.nface} ({pads[s]} pad faces)")
+    kernel_checks(torch, g, solver.shards[s].system, state.u[s], "float32",
+                  timed=False)
+    return pads[s]
+
+
+def spmd_main_path(torch, dev, card, u_good, good, single):
+    """Path 29: Sedov P1 at 48^3 (the p1 configuration) through
+    build_inciter_spmd, the command's builder, at each SPMD_RUNS shard
+    count in process, all shards on the card: 1 + NSTEPS steps with
+    K1, K12 and K13 3*S launches a step each, the three kernels against
+    their plain versions on the shard with the most pad faces
+    (spmd_shard_kernels; also after one step at SPMD_PAD_SHARDS shards,
+    where there must be some), the
+    exchange's ms, a torch.profiler window, and the L2 gates from the
+    known-good's initial state (u_good, global).  Returns ({path: counts}, {S: ms/step})."""
+    from quinoa_tpu_torch.control import load_inciter
+    from quinoa_tpu_torch.control.config import build_inciter_spmd
+    from quinoa_tpu_torch.mesh import box_tet_mesh, hilbert_element_reorder
+
+    cfg = load_inciter(CLI_DECK.format(nstep=CLI_NSTEP, interval=1))
+    mesh, _ = hilbert_element_reorder(box_tet_mesh(N_BIG, N_BIG, N_BIG))
+    counts, ms = {}, {}
+    pad_faces = 0
+    for S, virt in SPMD_RUNS:
+        name = f"spmd_s{S}" + ("_u" if virt else "")
+        t0 = time.perf_counter()
+        solver = build_inciter_spmd(cfg, mesh, S, devices=[dev],
+                                    virtualization=virt)
+        sh = solver.sharded
+        El = sh.geoms[0].nelem
+        ghosts = int(sum(int(g.nelem) for g in sh.geoms)
+                     - sh.nelem_global)
+        phase(name, f"{S} shard(s) (virtualization {virt}): El={El} "
+              f"Fl={sh.geoms[0].nface}, {sh.nslots} interface elements, "
+              f"{ghosts} ghost + pad rows, "
+              f"{sum(len(r) for r in sh.routes)} ghost routes; built in "
+              f"{time.perf_counter() - t0:.1f} s on the host")
+        state, counts[name], wall = spmd_drive(torch, solver, name, card,
+                                               S)
+        ms[S] = 1e3 * wall / NSTEPS
+        pad_faces += spmd_shard_kernels(torch, solver, state, name)
+        xs = state.u
+        ex = host_ms(torch, lambda: sh.exchange(xs))
+        phase(name, f"exchange of u: {ex:.4f} ms (host clock to a "
+              "synchronize), 2 a stage (its start and after the limiter): "
+              f"{6 * ex:.4f} ms a step")
+        profile_path(torch, solver, name, state, wall / NSTEPS)
+        st = solver.initial_state()
+        st = dataclasses.replace(st, u=spmd_scatter(torch, solver, u_good))
+        st = solver.nsteps(st, NSTEPS + 1)
+        spmd_l2_gate(name, solver.diagnostics(st)[0], good, single)
+        del solver, state, st, xs
+    # the end shards of SPMD_PAD_SHARDS, one interface each, are padded
+    # to the middle shard's ghost layer: pad elements and pad faces
+    solver = build_inciter_spmd(cfg, mesh, SPMD_PAD_SHARDS, devices=[dev])
+    state = solver.step(solver.initial_state())
+    pad_faces += spmd_shard_kernels(torch, solver, state,
+                                    f"spmd_s{SPMD_PAD_SHARDS}")
+    if pad_faces == 0:
+        raise AssertionError("spmd: no checked shard has a pad face")
+    return counts, ms
+
+
+def spmd_cli(torch, dev, card, d):
+    """Path 30: the main path's deck through the command at 48^3: --npes
+    4 --pieces 4 -r SPMD_RSFREQ in a process of its own (LAUNCH_RUN),
+    whose 4 pieces, joined, equal the gathered field of a --restart from
+    its last sharded checkpoint, whose rows are its rows after it; and
+    -u 0.5 at
+    --npes 1 in process.  K1, K12 and K13 launch 3*S times a step; row
+    11 of each equals, to JAX_L2_RTOL, the single-device command's row
+    (the in-process DGSolver's, printed).  Returns (counts, rows)."""
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.io import (join_exodus_pieces,
+                                     read_exodus_elem_fields, write_exodus)
+    from quinoa_tpu_torch.mesh import box_tet_mesh
+
+    mesh = os.path.join(d, "box48.exo")
+    write_exodus(mesh, box_tet_mesh(N_BIG, N_BIG, N_BIG))
+    deck = os.path.join(d, "sedov.q")
+    with open(deck, "w") as fh:
+        fh.write(CLI_DECK.format(nstep=CLI_NSTEP, interval=1))
+    counts, rows = {}, {}
+
+    def argv(tag):
+        return ["inciter", "-c", deck, "-i", mesh, "--diag",
+                os.path.join(d, f"{tag}.diag"), "-o", os.path.join(d, tag)]
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    ck = os.path.join(d, "n4.ck")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", LAUNCH_RUN] + argv("n4") + [
+            "--npes", "4", "--pieces", "4", "-r", str(SPMD_RSFREQ),
+            "--checkpoint-dir", ck, "--profile"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
+    for line in res.stdout.splitlines():
+        phase("spmd_cli", "  | " + line)
+    if res.returncode != 0:
+        raise AssertionError(f"spmd_cli: --npes 4 exited "
+                             f"{res.returncode}:\n{res.stderr[-4000:]}")
+    counts["spmd_cli_n4"] = json.loads(res.stdout.splitlines()[-1])
+    phase("spmd_cli", f"--npes 4 --pieces 4 in its own process: "
+          f"{time.perf_counter() - t0:.1f} s, launches "
+          f"{counts['spmd_cli_n4']}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out_u = cli_run(argv("n1u") + ["-u", "0.5", "-b", "--profile"], dev,
+                    path="spmd_cli")
+    counts["spmd_cli_n1u"] = dict(kernels.launches)
+    for tag, S in (("spmd_cli_n4", 4), ("spmd_cli_n1u", 1)):
+        want = {k: (3 * S * CLI_NSTEP if k in CLI_KERNELS else 0)
+                for k in counts[tag]}
+        if counts[tag] != want:
+            raise AssertionError(f"{tag}: launched {counts[tag]}, expected "
+                                 f"{want}")
+        rows[tag] = diag_lines(os.path.join(
+            d, ("n4" if S == 4 else "n1u") + ".diag"))
+        if len(rows[tag]) != CLI_NSTEP:
+            raise AssertionError(f"{tag}: rows {rows[tag]}")
+    for tag, out in (("spmd_cli_n4", res.stdout), ("spmd_cli_n1u", out_u)):
+        sec, n = profile_table(out)["timestep"]
+        phase("spmd_cli", f"{tag}: timestep {1e3 * sec / n:.4f} ms/step "
+              f"over {n} steps, on {card}")
+
+    # restart from the sharded checkpoint at SPMD_RSFREQ, the gathered
+    # field at the end; the pieces joined equal it
+    cli_run(argv("n4r") + ["--npes", "4", "--restart", ck], dev,
+            path="spmd_cli")
+    with open(os.path.join(ck, "latest")) as fh:
+        slot = os.path.join(ck, f"slot{int(fh.read()) % 2}")
+    with open(os.path.join(slot, "meta.json")) as fh:
+        it_ck = json.load(fh)["it"]
+    rows_r = diag_lines(os.path.join(d, "n4r.diag"))
+    ok = rows_r == rows["spmd_cli_n4"][it_ck:] and rows_r
+    phase("spmd_cli", f"--restart from the sharded checkpoint at it="
+          f"{it_ck}: rows {[int(r.split()[0]) for r in rows_r]} "
+          f"{'equal' if ok else 'DIFFER from'} the uninterrupted run's")
+    if not ok:
+        raise AssertionError("spmd_cli: restart rows differ")
+    pieces = sorted(p for p in os.listdir(d)
+                    if p.startswith(f"n4.e-s.{CLI_NSTEP}.4."))
+    jm, _, je, jt = join_exodus_pieces([os.path.join(d, p)
+                                        for p in pieces])
+    names, _, vals = read_exodus_elem_fields(
+        os.path.join(d, f"n4r.e-s.{CLI_NSTEP}.exo"))
+    ok = (len(pieces) == 4 and jm.nelem == vals.shape[-1]
+          and sorted(je) == sorted(names)
+          and all(np.array_equal(je[k], vals[-1, i])
+                  for i, k in enumerate(names)))
+    phase("spmd_cli", f"{len(pieces)} pieces joined: {jm.nelem} cells, "
+          f"{len(je)} element fields, equal to the restarted run's "
+          f"gathered field: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("spmd_cli: pieces differ from the gathered "
+                             "field")
+    return counts, rows
+
+
+def spmd_rows_gate(name, rows, single_row):
+    """Row 11's L2(sol) of a sharded command run against the
+    single-device run's printed L2(sol), at JAX_L2_RTOL plus L2_ULPS
+    float32 ulps of each component's own."""
+    eps = float(np.finfo(np.float32).eps)
+    got = [float(x) for x in rows[-1].split()[3:8]]
+    want = [float(x) for x in single_row]
+    ok = all(abs(a - b) <= JAX_L2_RTOL * abs(b) + L2_ULPS * eps * b
+             for a, b in zip(got, want))
+    phase(name, f"row {CLI_NSTEP} L2(sol) {got} vs the single-device "
+          f"command's {want}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: L2(sol) differs from the "
+                             "single-device run")
+
+
+def spmd_legs(torch, dev, card, d):
+    """Path 31: DiagCG SlotCyl at 64^3 (--npes 4; K10, K11), ALECG SlotCyl
+    at 48^3 (--npes 4; K7-K9) and multimat Sod P1 at 48^3 (--npes 2 -u
+    0.5; K4, K14, K13) through the command in process, -b, launches
+    counted over the run (solver builds too), each gated on its leg's
+    JAX_L2 by row 11; the DiagCG leg also on the FCT bounds of its
+    sharded checkpoint at step 11.  Returns ({path: counts}, {path:
+    ms/step})."""
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.io import write_exodus
+    from quinoa_tpu_torch.mesh import box_tet_mesh
+
+    counts, ms = {}, {}
+    for name, (deck_text, n, flags, gate, S) in SPMD_LEGS.items():
+        mesh = os.path.join(d, f"{name}.exo")
+        write_exodus(mesh, box_tet_mesh(n, n, n))
+        deck = os.path.join(d, f"{name}.q")
+        with open(deck, "w") as fh:
+            fh.write(deck_text)
+        diag = os.path.join(d, f"{name}.diag")
+        ck = os.path.join(d, f"{name}.ck")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = cli_run(["inciter", "-c", deck, "-i", mesh, "--diag", diag,
+                       "-o", os.path.join(d, name), "-b", "--profile",
+                       "-r", str(CLI_NSTEP), "--checkpoint-dir", ck]
+                      + flags, dev, path=name)
+        counts[name] = dict(kernels.launches)
+        path, build = SPMD_LEG_KERNELS[name]
+        want = {k: S * (CLI_NSTEP * PATHS[path].get(k, 0) + build.get(k, 0))
+                for k in counts[name]}
+        phase(name, f"launches {counts[name]}")
+        if counts[name] != want:
+            raise AssertionError(f"{name}: launched {counts[name]}, "
+                                 f"expected {want}")
+        sec, nst = profile_table(out)["timestep"]
+        ms[name] = 1e3 * sec / nst
+        phase(name, f"timestep {ms[name]:.4f} ms/step over {nst} steps, "
+              f"{' '.join(flags)}, on {card}")
+        row = diag_lines(diag)[-1].split()
+        C = (len(row) - 3) // 3
+        vals = [float(x) for x in row[3:]]
+        l2_check(name, gate, vals[:C], vals[C:2 * C],
+                 f"row {row[0]} t={row[1]}")
+        if name == "spmd_diagcg":
+            with open(os.path.join(ck, "latest")) as fh:
+                slot = os.path.join(ck, f"slot{int(fh.read()) % 2}")
+            u = np.concatenate([np.load(os.path.join(slot, f))["u"].ravel()
+                                for f in sorted(os.listdir(slot))
+                                if f.startswith("shard")])
+            slack = BOUNDS_ULPS * float(np.spacing(np.float32(0.6)))
+            ok = -slack <= u.min() and u.max() <= 0.6 + slack
+            phase(name, f"after {CLI_NSTEP} steps (every shard's copies) "
+                  f"min {u.min():.9e} max {u.max():.9e}, initial [0, 0.6]"
+                  f" +- {slack:.3e}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}: FCT bounds gate failed")
+    return counts, ms
+
+
+def spmd_walker(torch, dev, d):
+    """Path 32: walker --npes 4 against --npes 1 on WALKER_DECK at
+    SPMD_WALKER_NPAR particles, float64, through the command on the card:
+    the stat rows within SPMD_WALKER_RTOL of each column's largest value,
+    the seconds of each."""
+    deck = WALKER_DECK.replace("npar 20000", f"npar {SPMD_WALKER_NPAR}")
+    rows, secs = {}, {}
+    prev, cwd = torch.get_default_dtype(), os.getcwd()
+    torch.set_default_dtype(torch.float64)
+    try:
+        for npes in (1, 4):
+            wd = os.path.join(d, f"walker_n{npes}")
+            os.makedirs(wd)
+            with open(os.path.join(wd, "w.q"), "w") as fh:
+                fh.write(deck)
+            os.chdir(wd)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli_run(["walker", "-c", "w.q", "--stat", "stat.txt", "--npes",
+                     str(npes)], dev, path="spmd_walker")
+            torch.cuda.synchronize()
+            secs[npes] = time.perf_counter() - t0
+            os.chdir(cwd)
+            rows[npes] = np.loadtxt(os.path.join(wd, "stat.txt"))
+    finally:
+        os.chdir(cwd)
+        torch.set_default_dtype(prev)
+    a, b = rows[4], rows[1]
+    rel = np.abs(a - b) / np.maximum(np.abs(b).max(axis=0), 1e-300)
+    ok = a.shape == b.shape and bool((rel <= SPMD_WALKER_RTOL).all())
+    phase("spmd_walker", f"{SPMD_WALKER_NPAR} particles, float64: --npes 4 "
+          f"{secs[4]:.2f} s, --npes 1 {secs[1]:.2f} s (10 steps, 5 stat "
+          f"rows); max diff {float(rel.max()):.3e} of the column's largest "
+          f"(<= {SPMD_WALKER_RTOL:g}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"spmd_walker: stat rows differ\n{a}\n{b}")
+    return secs
+
+
+def spmd_phase(torch, dev, card, u_good, good, single, single_init):
+    """Paths 29-33, the parallel layer on the one card: the main path in
+    process at S = 1 (-u 0.5), 2, 4, 8 (29), through the command (30),
+    the other legs through the command (31), the walker (32) and a
+    float64 card-vs-CPU run (33).  u_good is p1's known-good initial
+    state, good the known-good's L2(sol), single the single-device run's
+    from u_good and single_init its run's from initial_state() (the
+    command's), 11 steps each.  Returns {path: launch counts}."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    phase("spmd", card)
+    counts, ms = spmd_main_path(torch, dev, card, u_good, good, single)
+    with tempfile.TemporaryDirectory(prefix="quinoa_spmd_") as d:
+        c, rows = spmd_cli(torch, dev, card, d)
+        counts.update(c)
+        single_row = [f"{v:.12e}" for v in single_init]
+        for tag, r in rows.items():
+            spmd_rows_gate(tag, r, single_row)
+        c, leg_ms = spmd_legs(torch, dev, card, d)
+        counts.update(c)
+        spmd_walker(torch, dev, d)
+    spmd_small(torch, dev)
+    phase("spmd", "ms/step in process, Sedov P1 48^3: " + ", ".join(
+        f"S={S} {v:.4f}" for S, v in ms.items()) + "; legs through the "
+        "command: " + ", ".join(f"{k} {v:.4f}" for k, v in leg_ms.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s, on {card}")
+    return counts
+
+
 def main():
     import torch
 
@@ -3381,12 +3900,13 @@ def main():
     solver = DGSolver(system, big, cfl=0.5, limiter="superbeep1")
     state, counts["p1"], wall = drive(torch, solver, "p1", card)
     diag = DGDiagnostics(system, big)
-    phase("p1", f"L2(sol) from initial_state(): {diag.compute(state)[0]}")
+    p1_init_l2 = diag.compute(state)[0]
+    phase("p1", f"L2(sol) from initial_state(): {p1_init_l2}")
     profile_path(torch, solver, "p1", state, wall / NSTEPS)
 
     # the L2 gate, from the known-good's own initial state
-    gate = dataclasses.replace(solver.initial_state(),
-                               u=tpu_precision_initial_u(solver, torch))
+    u_good = tpu_precision_initial_u(solver, torch)
+    gate = dataclasses.replace(solver.initial_state(), u=u_good)
     gate = solver.nsteps(gate, NSTEPS + 1)
     if not bool(torch.isfinite(gate.u).all()):
         raise AssertionError("non-finite gate state after 11 steps")
@@ -3399,6 +3919,7 @@ def main():
           f"{max(abs(a - b) / abs(b) for a, b in zip(l2sol, good)):.3e})")
     if not ok:
         raise AssertionError("L2(sol) gate failed")
+    p1_good_l2 = (good, l2sol)
 
     # 5. the p-adaptive Sedov step
     solver = DGSolver(system, big, cfl=0.5, limiter="superbeep1", pref=True)
@@ -3464,6 +3985,10 @@ def main():
     rngtest_phase(torch, dev, card)
     meshconv_phase(dev, card)
 
+    # 29-33. the parallel layer, every shard on the card
+    spmd_counts = spmd_phase(torch, dev, card, u_good, *p1_good_l2,
+                             p1_init_l2)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms")
     rows = [(name, name, MAIN_PATH[name]) for name in KERNELS]
@@ -3472,6 +3997,11 @@ def main():
          "replaces": (path != "p2" and NEARFAR.get(counter)
                       or KERNELS[counter][1]),
          "launches": counts[path][counter],
+         # the sharded paths launch each kernel at its main path's shape
+         **({"spmd_launches": {p: c[counter]
+                               for p, c in spmd_counts.items()
+                               if c.get(counter)}}
+            if entry == counter else {}),
          **{k: stats[entry][k] for k in keys}}
         for entry, counter, path in rows + list(INSTANCES)]}))
     print(json.dumps({"ok": True, "device": {

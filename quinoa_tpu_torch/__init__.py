@@ -24,10 +24,16 @@ own deck parser and config (``control``), mesh and diagnostics I/O
 (``io``), field output and checkpoints (``inciter.fieldout``,
 ``inciter.checkpoint``).
 
+The parallel layer (``parallel``: partitioners, shards, the sharded DG,
+multimat, DiagCG and ALECG solvers, overdecomposition) runs those
+solvers over S shards from one controller, shard s on a list of devices'
+entry s % n (on one card, all of them), for the command's ``--npes``,
+``-u``, ``--slices``, ``--pieces`` and ``--lbfreq``.
+
 The walker (``walker``, ``python -m quinoa_tpu_torch walker -c deck.q``)
 integrates SDE ensembles (``diffeq``) with moments and PDFs
 (``statistics``) in eager torch, drawing jax.random's Threefry streams
-bit for bit (``rng``).
+bit for bit (``rng``), on one tensor or split over shards (``--npes``).
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,13 @@
 """Typed inciter and walker configuration from parsed decks, and their
 builders.
 
-The port's own copy of the single-device parts of
-quinoa_tpu/control/config.py (the reference's Inciter and Walker
+The port's own copy of quinoa_tpu/control/config.py (the reference's Inciter and Walker
 InputDecks, src/Control/*/InputDeck/InputDeck.hpp, and the drivers'
 setup): ``load_inciter`` and ``load_walker`` turn the parsed tree into an
-``InciterConfig`` or a ``WalkerConfig`` exactly as the JAX package does,
-and ``build_inciter`` and ``build_walker`` construct the port's solver or
-walker the deck names, in ``dtype`` on ``device``.
+``InciterConfig`` or a ``WalkerConfig`` exactly as the JAX package does;
+``build_inciter`` and ``build_walker`` construct the port's solver or
+walker the deck names, in ``dtype`` on ``device``, and
+``build_inciter_spmd`` the sharded solver over a list of devices.
 """
 
 from __future__ import annotations
@@ -254,6 +254,74 @@ def _bc_codes(cfg: InciterConfig, dg, inflow: bool) -> Dict[int, int]:
     return bc
 
 
+def _problem(cfg: InciterConfig):
+    """The deck's transport or compflow problem, with the JAX builder's
+    parameter mapping (None for multimat, whose system _mm_system
+    builds)."""
+    from ..pde import problems as prob_mod
+    from ..pde.eos import StiffenedGas
+
+    kwargs = {}
+    if cfg.pde == "transport":
+        cls = getattr(prob_mod, _PROBLEMS_TRANSPORT[cfg.problem])
+        if cfg.problem == "shear_diff":
+            if "u0" in cfg.params:
+                kwargs["u0"] = cfg.params["u0"]
+            if "lambda" in cfg.params:
+                kwargs["lam"] = cfg.params["lambda"]
+            if "diffusivity" in cfg.params:
+                kwargs["diffusivity"] = cfg.params["diffusivity"]
+        return cls(ncomp=cfg.ncomp, **kwargs)
+    if cfg.pde == "multimat":
+        return None
+    # only the deck parameters that are fields of the problem, plus its
+    # equation of state (never a mapping beyond these)
+    cls = getattr(prob_mod, _PROBLEMS_COMPFLOW[cfg.problem])
+    fields = {f.name for f in dataclasses.fields(cls)}
+    for k, v in cfg.params.items():
+        if k in fields:
+            kwargs[k] = v
+    if "eos" in fields:
+        kwargs["eos"] = StiffenedGas(gamma=cfg.gamma, pstiff=cfg.pstiff)
+    return cls(**kwargs)
+
+
+def _mm_system(cfg: InciterConfig):
+    """(MultiMatSystem, ndof) of a multimat deck: scheme dg = DG(P0), the
+    reference fork's parity surface (DGMultiMat.hpp:154 asserts ndof==1);
+    scheme dgp1 = DG(P1) with consistent material-fraction limiting."""
+    from ..pde import problems as prob_mod
+    from ..pde.eos import StiffenedGas
+    from ..pde.multimat import MultiMatSystem
+
+    nmat = cfg.params.get("nmat", 2)
+    eos = tuple(
+        StiffenedGas(gamma=g, cv=cv)
+        for g, cv in zip(cfg.params.get("gammas", (1.4,) * nmat),
+                         cfg.params.get("cvs", (717.5,) * nmat)))
+    mm_problems = {"interface_advection": prob_mod.MMInterfaceAdvection,
+                   "sod_shocktube": prob_mod.MMSodShocktube,
+                   "smooth_wave": prob_mod.MMSmoothWave}
+    if cfg.problem not in mm_problems:
+        raise ValueError(f"unknown multimat problem {cfg.problem!r}")
+    problem = mm_problems[cfg.problem](nmat=nmat, eos=eos)
+    if cfg.scheme not in ("dg", "dgp1"):
+        raise ValueError(
+            f"multimat supports scheme dg (P0) or dgp1, not {cfg.scheme!r}")
+    system = MultiMatSystem(
+        problem,
+        intsharp=bool(cfg.params.get("intsharp", 0)),
+        thinc_beta=cfg.params.get("intsharp_param", 2.5))
+    return system, _SCHEME_NDOF[cfg.scheme]
+
+
+def _bcnodes(cfg: InciterConfig, mesh):
+    """The Dirichlet nodes of a CG deck's side sets, or None."""
+    bcnodes = [mesh.bnode[ss] for ss in cfg.bc_dirichlet
+               if ss in mesh.bnode]
+    return np.unique(np.concatenate(bcnodes)) if bcnodes else None
+
+
 def build_inciter(cfg: InciterConfig, mesh, dtype: Optional[torch.dtype] = None,
                   device=DEFAULT_DEVICE):
     """Construct the solver named by the deck for a host mesh.
@@ -266,36 +334,11 @@ def build_inciter(cfg: InciterConfig, mesh, dtype: Optional[torch.dtype] = None,
     another.
     """
     from ..pde import dg
-    from ..pde import problems as prob_mod
-    from ..pde.eos import StiffenedGas
 
     if dtype is None:
         dtype = torch.get_default_dtype()
     cfl = cfg.cfl if cfg.cfl is not None else 0.5
-    kwargs = {}
-    if cfg.pde == "transport":
-        cls = getattr(prob_mod, _PROBLEMS_TRANSPORT[cfg.problem])
-        if cfg.problem == "shear_diff":
-            if "u0" in cfg.params:
-                kwargs["u0"] = cfg.params["u0"]
-            if "lambda" in cfg.params:
-                kwargs["lam"] = cfg.params["lambda"]
-            if "diffusivity" in cfg.params:
-                kwargs["diffusivity"] = cfg.params["diffusivity"]
-        problem = cls(ncomp=cfg.ncomp, **kwargs)
-    elif cfg.pde == "multimat":
-        problem = None  # constructed in the multimat branch below
-    else:
-        # only the deck parameters that are fields of the problem, plus
-        # its equation of state (never a mapping beyond these)
-        cls = getattr(prob_mod, _PROBLEMS_COMPFLOW[cfg.problem])
-        fields = {f.name for f in dataclasses.fields(cls)}
-        for k, v in cfg.params.items():
-            if k in fields:
-                kwargs[k] = v
-        if "eos" in fields:
-            kwargs["eos"] = StiffenedGas(gamma=cfg.gamma, pstiff=cfg.pstiff)
-        problem = cls(**kwargs)
+    problem = _problem(cfg)
 
     if cfg.scheme in ("diagcg", "alecg"):
         from ..inciter import DiagCGSolver, Diagnostics, make_alecg
@@ -304,9 +347,7 @@ def build_inciter(cfg: InciterConfig, mesh, dtype: Optional[torch.dtype] = None,
 
         system = (CGTransport(problem) if cfg.pde == "transport"
                   else CGCompFlow(problem))
-        bcnodes = [mesh.bnode[ss] for ss in cfg.bc_dirichlet
-                   if ss in mesh.bnode]
-        bcnodes = np.unique(np.concatenate(bcnodes)) if bcnodes else None
+        bcnodes = _bcnodes(cfg, mesh)
         if cfg.scheme == "alecg":
             # RK3 + edge-Rusanov scheme (Scheme.hpp:44-48 kw::alecg)
             solver = make_alecg(system, mesh, cfl=cfl, const_dt=cfg.dt,
@@ -320,34 +361,12 @@ def build_inciter(cfg: InciterConfig, mesh, dtype: Optional[torch.dtype] = None,
     from ..inciter.dg import DGDiagnostics
 
     if cfg.pde == "multimat":
-        from ..pde.multimat import MultiMatSolver, MultiMatSystem
+        from ..pde.multimat import MultiMatSolver
 
-        nmat = cfg.params.get("nmat", 2)
-        eos = tuple(
-            StiffenedGas(gamma=g, cv=cv)
-            for g, cv in zip(cfg.params.get("gammas", (1.4,) * nmat),
-                             cfg.params.get("cvs", (717.5,) * nmat)))
-        mm_problems = {"interface_advection": prob_mod.MMInterfaceAdvection,
-                       "sod_shocktube": prob_mod.MMSodShocktube,
-                       "smooth_wave": prob_mod.MMSmoothWave}
-        if cfg.problem not in mm_problems:
-            raise ValueError(f"unknown multimat problem {cfg.problem!r}")
-        problem = mm_problems[cfg.problem](nmat=nmat, eos=eos)
-        # scheme dg = DG(P0), the reference fork's parity surface
-        # (DGMultiMat.hpp:154 asserts ndof==1); scheme dgp1 = DG(P1)
-        # with consistent material-fraction limiting
-        if cfg.scheme not in ("dg", "dgp1"):
-            raise ValueError(
-                f"multimat supports scheme dg (P0) or dgp1, not "
-                f"{cfg.scheme!r}")
-        mm_ndof = _SCHEME_NDOF[cfg.scheme]
+        system, mm_ndof = _mm_system(cfg)
         geom = dg.build_dggeom(mesh, ndof=mm_ndof,
                                bc_sidesets=_bc_codes(cfg, dg, inflow=False),
                                dtype=dtype, device=device)
-        system = MultiMatSystem(
-            problem,
-            intsharp=bool(cfg.params.get("intsharp", 0)),
-            thinc_beta=cfg.params.get("intsharp_param", 2.5))
         solver = MultiMatSolver(
             system, geom, cfl=cfl, const_dt=cfg.dt,
             limiter=("superbeep1" if mm_ndof == 4 else None))
@@ -370,6 +389,140 @@ def build_inciter(cfg: InciterConfig, mesh, dtype: Optional[torch.dtype] = None,
             # (frozen/limited) P1 dofs (Scheme.hpp:45, Grammar.hpp:378)
             evolve_ndof=1 if cfg.scheme == "p0p1" else None)
         return solver, DGDiagnostics(system, geom)
+
+    raise ValueError(f"unknown scheme {cfg.scheme!r}")
+
+
+def build_inciter_spmd(cfg: InciterConfig, mesh, npes: int, devices=None,
+                       virtualization: float = 0.0, hierarchy=None,
+                       epart=None, elem_weights=None,
+                       dtype: Optional[torch.dtype] = None):
+    """The sharded solver named by the deck over npes shards, as the JAX
+    build_inciter_spmd builds it (quinoa_tpu/control/config.py:406-642):
+    the host mesh is partitioned into npes shards (or, with
+    virtualization > 0, into linearLoadDistributor-many chunks packed
+    onto them), and the scheme's sharded solver runs them.  ``devices``
+    (the JAX package's device mesh) lists the devices the shards go on,
+    shard s on devices[s % len(devices)]; default the card.  Returns the
+    solver; its diagnostics() folds the owned sums over the shards.
+    """
+    from ..parallel import ShardGroup
+    from ..pde import dg
+
+    if epart is not None and (cfg.scheme not in _SCHEME_NDOF
+                              or cfg.pde == "multimat"
+                              or virtualization > 0.0):
+        raise ValueError("an explicit element partition (load "
+                         "balancing) requires a DG scheme without -u")
+    if elem_weights is not None and (cfg.scheme not in _SCHEME_NDOF
+                                     or cfg.pde == "multimat"
+                                     or virtualization <= 0.0):
+        raise ValueError("element weights (chunk re-packing) require a "
+                         "DG scheme under -u")
+    if dtype is None:
+        dtype = torch.get_default_dtype()
+    if devices is None:
+        devices = [DEFAULT_DEVICE]
+    from ..device import resolve_device
+
+    group = ShardGroup(npes, [resolve_device(d) for d in devices])
+    cfl = cfg.cfl if cfg.cfl is not None else 0.5
+
+    if cfg.pde == "multimat":
+        from ..parallel import SPMDMultiMatSolver, build_dg_shards
+
+        # the JAX builder cuts multimat into npes shards whatever -u says
+        system, mm_ndof = _mm_system(cfg)
+        sharded = build_dg_shards(
+            mesh, npes, ndof=mm_ndof,
+            bc_sidesets=_bc_codes(cfg, dg, inflow=False),
+            algorithm=cfg.partitioner, hierarchy=hierarchy, dtype=dtype,
+            group=group)
+        return SPMDMultiMatSolver(
+            system, sharded, cfl=cfl, const_dt=cfg.dt,
+            limiter=("superbeep1" if mm_ndof == 4 else None))
+
+    problem = _problem(cfg)
+    if virtualization > 0.0 and hierarchy is not None:
+        raise ValueError(
+            "multi-slice hierarchy with virtualization is not "
+            "supported yet: chunk LPT packing would have to be "
+            "slice-aware to preserve the intra-slice halo locality")
+    if virtualization > 0.0 and cfg.scheme not in (
+            "diagcg", "alecg", "dg", "p0p1", "dgp1", "dgp2", "pdg"):
+        raise ValueError(
+            "virtualization (overdecomposition) is implemented for "
+            "diagcg, alecg, and the DG schemes; run others with "
+            "virtualization 0")
+
+    if cfg.scheme in ("diagcg", "alecg"):
+        from ..parallel import (SPMDALECGSolver, SPMDDiagCGSolver,
+                                build_alecg_shards, build_cg_shards)
+        from ..parallel import overdecomp
+        from ..pde.cg import CGTransport
+        from ..pde.cg_compflow import CGCompFlow
+
+        system = (CGTransport(problem) if cfg.pde == "transport"
+                  else CGCompFlow(problem))
+        bcnodes = _bcnodes(cfg, mesh)
+        over = None
+        kw = dict(bcnodes=bcnodes, algorithm=cfg.partitioner, dtype=dtype,
+                  group=group)
+        if cfg.scheme == "alecg":
+            if virtualization > 0.0:
+                over = overdecomp.build_overdecomposed_alecg(
+                    mesh, npes, virtualization, system.ncomp, **kw)
+                sharded = over.sharded
+            else:
+                sharded = build_alecg_shards(mesh, npes, system.ncomp,
+                                             hierarchy=hierarchy, **kw)
+            solver = SPMDALECGSolver(system, sharded, cfl=cfl,
+                                     const_dt=cfg.dt)
+        else:
+            if virtualization > 0.0:
+                # linearLoadDistributor-many chunks, LPT-packed and
+                # merged per shard (parallel/overdecomp.py)
+                over = overdecomp.build_overdecomposed_cg(
+                    mesh, npes, virtualization, system.ncomp, **kw)
+                sharded = over.sharded
+            else:
+                sharded = build_cg_shards(mesh, npes, system.ncomp,
+                                          hierarchy=hierarchy, **kw)
+            solver = SPMDDiagCGSolver(system, sharded, cfl=cfl,
+                                      const_dt=cfg.dt, ctau=cfg.ctau,
+                                      fct=cfg.fct)
+        # chunk bookkeeping for per-chare field writes (MeshWriter's
+        # file-per-chare contract, MeshWriter.hpp:33-100)
+        solver.overdecomp = over
+        return solver
+
+    if cfg.scheme in _SCHEME_NDOF:
+        from ..parallel import SPMDDGSolver, build_dg_shards
+        from ..parallel.overdecomp import build_overdecomposed_dg
+        from ..pde.dg_compflow import DGCompFlow, DGTransport
+
+        bc = _bc_codes(cfg, dg, inflow=True)
+        system = (DGTransport(problem) if cfg.pde == "transport"
+                  else DGCompFlow(problem, riemann_flux=cfg.flux))
+        ndof = _SCHEME_NDOF[cfg.scheme]
+        if virtualization > 0.0:
+            over = build_overdecomposed_dg(
+                mesh, npes, virtualization, ndof, bc_sidesets=bc,
+                algorithm=cfg.partitioner, elem_weights=elem_weights,
+                dtype=dtype, group=group)
+            sharded = over.sharded
+        else:
+            over = None
+            sharded = build_dg_shards(
+                mesh, npes, ndof, bc_sidesets=bc, algorithm=cfg.partitioner,
+                hierarchy=hierarchy, epart=epart, dtype=dtype, group=group)
+        solver = SPMDDGSolver(
+            system, sharded, cfl=cfl, const_dt=cfg.dt, limiter=cfg.limiter,
+            cweight=cfg.cweight,
+            evolve_ndof=1 if cfg.scheme == "p0p1" else None,
+            pref=(cfg.scheme == "pdg") or cfg.pref, tolref=cfg.tolref)
+        solver.overdecomp = over
+        return solver
 
     raise ValueError(f"unknown scheme {cfg.scheme!r}")
 
@@ -750,10 +903,12 @@ _SHEAR_DU = (0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 
 
 def build_walker(cfg: WalkerConfig, seed: int = 0,
-                 dtype: Optional[torch.dtype] = None, device=DEFAULT_DEVICE):
+                 dtype: Optional[torch.dtype] = None, device=DEFAULT_DEVICE,
+                 nshard: int = 1):
     """The Walker of a deck's systems, couplings resolved to offsets, in
     dtype (None: torch's default) on ``device`` (the card unless the
-    caller asks for another)."""
+    caller asks for another); nshard > 1 folds its ensemble means over
+    that many row blocks (walker --npes, the JAX builder's mesh)."""
     from ..walker import Walker
 
     systems = Walker.layout(cfg.sdes)
@@ -776,4 +931,5 @@ def build_walker(cfg: WalkerConfig, seed: int = 0,
         central=cfg.central,
         dtype=dtype,
         device=device,
+        nshard=nshard,
     )

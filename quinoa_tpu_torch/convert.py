@@ -11,6 +11,11 @@ for a CG one), so this module never imports jax:
     arrays["tables"] = dict(g.tables)
     geom = geom_from_arrays(arrays, device="cuda", dtype=torch.float32)
 
+A sharded (SPMD) state crosses as the JAX package's stacked arrays,
+``{field: (S, ...) numpy}`` with shard s's block in row s; the port holds
+one tensor per shard in each field (``sharded_state_from_stacked`` and
+``sharded_state_to_stacked``).
+
 A walker's state crosses as the JAX walker's particle array, the data of
 its key (``jax.random.key_data``) and its step counter
 (``walker_state_from_arrays``).
@@ -135,6 +140,39 @@ def cg_state_from_arrays(arrays: dict, device=DEFAULT_DEVICE,
 def cg_state_to_arrays(state) -> dict:
     """The inverse of cg_state_from_arrays."""
     return {k: getattr(state, k).cpu().numpy() for k in CG_STATE_FIELDS}
+
+
+def shard_of(state, s: int):
+    """Shard s's state (the same class, one tensor per field) of a
+    sharded state."""
+    return type(state)(**{f: v[s] for f, v in vars(state).items()})
+
+
+def sharded_state_from_arrays(per, state_cls, devices,
+                              dtype: torch.dtype = torch.float64):
+    """A sharded state of ``state_cls`` (DGState or CGState) from one
+    {field: numpy} dict per shard, shard s on devices[s]."""
+    build = (state_from_arrays if state_cls.__name__ == "DGState"
+             else cg_state_from_arrays)
+    shards = [build(a, device=d, dtype=dtype) for a, d in zip(per, devices)]
+    return state_cls(**{f: [getattr(st, f) for st in shards]
+                        for f in vars(shards[0])})
+
+
+def sharded_state_from_stacked(arrays: dict, state_cls, devices,
+                               dtype: torch.dtype = torch.float64):
+    """A sharded state from the JAX package's stacked SPMD state arrays
+    ({field: (S, ...)}), shard s on devices[s]."""
+    S = len(devices)
+    return sharded_state_from_arrays(
+        [{k: np.asarray(v)[s] for k, v in arrays.items()} for s in range(S)],
+        state_cls, devices, dtype)
+
+
+def sharded_state_to_stacked(state) -> dict:
+    """The inverse of sharded_state_from_stacked: {field: (S, ...)}."""
+    return {f: np.stack([x.detach().cpu().numpy() for x in v])
+            for f, v in vars(state).items()}
 
 
 def walker_state_from_arrays(walker, P, key, it0: int) -> torch.Tensor:

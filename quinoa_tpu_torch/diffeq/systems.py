@@ -9,6 +9,13 @@ particle array P (npar, nprop_total) and returns a new array, P itself
 untouched.  The Gaussian increments are the JAX package's draws from the
 same key (rng.threefry.normal), in P's dtype on P's device.
 
+An ensemble mean inside a step (the coefficients of the homogeneous and
+decaying Beta families, the Langevin models' Reynolds stress and mean
+frequency) goes through _emean: with ``nshard`` > 1 (walker --npes) the
+ensemble is nshard equal row blocks and the mean folds the blocks' sums
+in block order, as the JAX walker's reduction over its sharded 'par'
+axis does.
+
 Each system owns ``nprop`` slots from ``offset`` (derived quantities such
 as the instantaneous density ride beside the advanced ones), and coupled
 systems (Position <- Velocity <- Dissipation, the Langevin family) read
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from ..rng import threefry
+from ..statistics.stats import block_mean
 
 
 @functools.lru_cache(maxsize=512)
@@ -43,6 +51,20 @@ def _arr(values, like: torch.Tensor) -> torch.Tensor:
         values = tuple(tuple(v) if isinstance(v, (list, tuple)) else v
                        for v in values)
     return _const(values, like.dtype, like.device)
+
+
+def _emean(x, nshard=1):
+    """The ensemble mean over the particle axis 0 (statistics.block_mean:
+    over nshard row blocks, their sums folded in block order)."""
+    return block_mean(x, nshard)
+
+
+def _emean_all(x, nshard=1):
+    """The mean of every entry of x (particle axis first), as x.mean();
+    the row blocks of a row-major x are the flat array's blocks."""
+    if nshard == 1:
+        return x.mean()
+    return block_mean(x.reshape(-1), nshard)
 
 
 def _gauss(key, npar, ncomp, like):
@@ -96,7 +118,7 @@ class DiagOrnsteinUhlenbeck(SDEBase):
     def ncomp(self):
         return len(self.theta)
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         Y = self.slice(P)
         dW = _gauss(key, Y.shape[0], self.ncomp, Y)
         th, mu = _arr(self.theta, Y), _arr(self.mu, Y)
@@ -119,7 +141,7 @@ class OrnsteinUhlenbeck(SDEBase):
     def ncomp(self):
         return len(self.theta)
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         Y = self.slice(P)
         dW = _gauss(key, Y.shape[0], self.ncomp, Y)
         th, mu = _arr(self.theta, Y), _arr(self.mu, Y)
@@ -144,7 +166,7 @@ class Beta(SDEBase):
     def ncomp(self):
         return len(self.b)
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         Y = self.slice(P)
         dW = _gauss(key, Y.shape[0], self.ncomp, Y)
         Y = _beta_step(Y, dW, _arr(self.b, Y), _arr(self.S, Y),
@@ -187,7 +209,7 @@ class NumberFractionBeta(_FractionBetaMixin, SDEBase):
     def rho(self, X):
         return _arr(self.rho2, X) * (1.0 - _arr(self.rcomma, X) * X)
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         X = self.slice(P)
         dW = _gauss(key, X.shape[0], self.ncomp, X)
         X = _beta_step(X, dW, _arr(self.b, X), _arr(self.S, X),
@@ -213,7 +235,7 @@ class MassFractionBeta(_FractionBetaMixin, SDEBase):
     def rho(self, Y):
         return _arr(self.rho2, Y) / (1.0 + _arr(self.r, Y) * Y)
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         Y = self.slice(P)
         dW = _gauss(key, Y.shape[0], self.ncomp, Y)
         Y = _beta_step(Y, dW, _arr(self.b, Y), _arr(self.S, Y),
@@ -232,10 +254,10 @@ def _decay_coeffs(bprime, kprime, m, v):
     return b, k
 
 
-def _mean_var(Y):
-    m = Y.mean(dim=0)
+def _mean_var(Y, nshard=1):
+    m = _emean(Y, nshard)
     f = Y - m
-    return m, (f * f).mean(dim=0)
+    return m, _emean(f * f, nshard)
 
 
 @dataclasses.dataclass
@@ -256,10 +278,10 @@ class MixNumberFractionBeta(_FractionBetaMixin, SDEBase):
     def rho(self, X):
         return _arr(self.rho2, X) * (1.0 - _arr(self.rcomma, X) * X)
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         X = self.slice(P)
         dW = _gauss(key, X.shape[0], self.ncomp, X)
-        m, v = _mean_var(X)
+        m, v = _mean_var(X, nshard)
         b, k = _decay_coeffs(_arr(self.bprime, X), _arr(self.kprime, X), m, v)
         X = _beta_step(X, dW, b, _arr(self.S, X), k, dt)
         return self._store(P, X)
@@ -331,19 +353,19 @@ class MixMassFractionBeta(_FractionBetaMixin, SDEBase):
         o, n = self.offset, self.ncomp
         return {o + n: rho, o + 2 * n: 1.0 / rho, o + 3 * n: 1.0 - Y}
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         Y = self.slice(P)
         dW = _gauss(key, Y.shape[0], self.ncomp, Y)
         bprime, kprime = _arr(self.bprime, Y), _arr(self.kprime, Y)
         r_, rho2_ = _arr(self.r, Y), _arr(self.rho2, Y)
-        m, v = _mean_var(Y)
+        m, v = _mean_var(Y, nshard)
 
         if self.coeff in ("homdecay", "hydrotimescale"):
             R = self.rho(Y)
-            d = R.mean(dim=0)
+            d = _emean(R, nshard)
             rf = R - d
-            d2 = (rf * rf).mean(dim=0)
-            d3 = (rf * rf * rf).mean(dim=0)
+            d2 = _emean(rf * rf, nshard)
+            d3 = _emean(rf * rf * rf, nshard)
 
         if self.coeff == "homdecay":
             b, k = _decay_coeffs(bprime, kprime, m, v)
@@ -354,16 +376,16 @@ class MixMassFractionBeta(_FractionBetaMixin, SDEBase):
             # (MixMassFractionBetaCoeffPolicy.cpp:318-403)
             b, k = _decay_coeffs(bprime, kprime, m, v)
             R = self.rho(Y)
-            r2 = (R * R).mean(dim=0)
-            yr2 = (Y * R * R).mean(dim=0)
-            y1myr3 = (Y * (1.0 - Y) * (R * R * R)).mean(dim=0)
+            r2 = _emean(R * R, nshard)
+            yr2 = _emean(Y * R * R, nshard)
+            y1myr3 = _emean(Y * (1.0 - Y) * (R * R * R), nshard)
             r2 = torch.where(r2 < 1e-8, 0.5, r2)
             S = (yr2 + 2.0 * k / b * r_ / rho2_ * y1myr3) / r2
             S = torch.where((S < 0.0) | (S > 1.0), 0.5, S)
         elif self.coeff == "hydrotimescale":
             V = 1.0 / R
-            RY = (R * Y).mean(dim=0)
-            ds = -(rf * (V - V.mean(dim=0))).mean(dim=0)  # -<rv>
+            RY = _emean(R * Y, nshard)
+            ds = -_emean(rf * (V - _emean(V, nshard)), nshard)  # -<rv>
             yt = RY / d
             ts = torch.tensor([tb(t) for tb in self.hts], dtype=Y.dtype,
                               device=Y.device)              # eps/k
@@ -414,7 +436,7 @@ class Dirichlet(SDEBase):
     def ncomp(self):
         return len(self.b)
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         Y = self.slice(P)
         dW = _gauss(key, Y.shape[0], self.ncomp, Y)
         b, S, k = _arr(self.b, Y), _arr(self.S, Y), _arr(self.kappa, Y)
@@ -439,7 +461,7 @@ class GeneralizedDirichlet(SDEBase):
     def ncomp(self):
         return len(self.b)
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         Y = self.slice(P)
         n = self.ncomp
         dW = _gauss(key, Y.shape[0], n, Y)
@@ -501,7 +523,7 @@ class MixDirichlet(SDEBase):
         # K advanced + YN + density + volume
         return self.ncomp + 3
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         n = self.ncomp
         o = self.offset
         Y = P[:, o:o + n]
@@ -513,9 +535,9 @@ class MixDirichlet(SDEBase):
         if self.coeff in ("homogeneous", "hydrotimescale"):
             R = P[:, o + n + 1:o + n + 2]  # derived density slot
             R2 = R * R
-            R2Y = (R2 * Y).mean(dim=0)                  # <R^2 Yc>
-            R2YN = (R2 * yn).mean()                     # <R^2 YN>
-            R3YNY = (R2 * R * Y * yn).mean(dim=0)       # <R^3 Yc YN>
+            R2Y = _emean(R2 * Y, nshard)                # <R^2 Yc>
+            R2YN = _emean_all(R2 * yn, nshard)          # <R^2 YN>
+            R3YNY = _emean(R2 * R * Y * yn, nshard)     # <R^3 Yc YN>
             if self.normalization == "light":           # rho sorted desc
                 rhoL, rhoH = rhoN[-1], rhoN[0]
                 rc = (rhoL / rhoN[:-1] + 1.0 - 2.0) * rhoH / rhoL
@@ -557,7 +579,7 @@ class Gamma(SDEBase):
     def ncomp(self):
         return len(self.b)
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         Y = self.slice(P)
         dW = _gauss(key, Y.shape[0], self.ncomp, Y)
         b, S, k = _arr(self.b, Y), _arr(self.S, Y), _arr(self.kappa, Y)
@@ -577,7 +599,7 @@ class SkewNormal(SDEBase):
     def ncomp(self):
         return len(self.T)
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         X = self.slice(P)
         dW = _gauss(key, X.shape[0], self.ncomp, X)
         T, s2, lam = _arr(self.T, X), _arr(self.sigmasq, X), _arr(self.lam, X)
@@ -605,7 +627,7 @@ class WrightFisher(SDEBase):
     def ncomp(self):
         return len(self.omega)
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         Y = self.slice(P)
         n = self.ncomp
         om = _arr(self.omega, Y)
@@ -633,7 +655,7 @@ class Position(SDEBase):
 
     ncomp = 3
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         X = self.slice(P)
         u = P[:, self.velocity_offset:self.velocity_offset + 3]
         G = _arr(np.asarray(self.dU, dtype=np.float64).reshape(3, 3), X)
@@ -641,9 +663,9 @@ class Position(SDEBase):
         return self.put(P, X)
 
 
-def _rij(fluc):
+def _rij(fluc, nshard=1):
     """The single-point velocity covariance <u_i u_j> (3, 3)."""
-    return (fluc[:, :, None] * fluc[:, None, :]).mean(dim=0)
+    return _emean(fluc[:, :, None] * fluc[:, None, :], nshard)
 
 
 @dataclasses.dataclass
@@ -660,11 +682,11 @@ class Dissipation(SDEBase):
 
     ncomp = 1
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         Op = self.slice(P)
-        O = Op.mean()
+        O = _emean_all(Op, nshard)
         u = P[:, self.velocity_offset:self.velocity_offset + 3]
-        rij = _rij(u - u.mean(dim=0))
+        rij = _rij(u - _emean(u, nshard), nshard)
         tke = 0.5 * (rij[0, 0] + rij[1, 1] + rij[2, 2])
         Prod = -rij[0, 1] * self.prescribed_shear
         Som = self.com2 - self.com1 * Prod / (O * tke)
@@ -716,10 +738,10 @@ class Velocity(SDEBase):
 
     ncomp = 3
 
-    def advance(self, key, P, dt, t, moments=None):
+    def advance(self, key, P, dt, t, moments=None, nshard=1):
         U = self.slice(P)
-        fluc = U - U.mean(dim=0)
-        rij = _rij(fluc)
+        fluc = U - _emean(U, nshard)
+        rij = _rij(fluc, nshard)
         k = 0.5 * (rij[0, 0] + rij[1, 1] + rij[2, 2])
         eye = torch.eye(3, dtype=U.dtype, device=U.device)
         if self.coeff == "stationary":
@@ -731,7 +753,7 @@ class Velocity(SDEBase):
             G = (-(0.5 + 0.75 * self.c0) * ts) * eye
         else:  # const_shear
             if self.dissipation_offset is not None:
-                O = P[:, self.dissipation_offset].mean()
+                O = _emean_all(P[:, self.dissipation_offset], nshard)
                 eps = k * O
             else:
                 eps = k  # unit-timescale fallback

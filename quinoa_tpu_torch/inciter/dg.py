@@ -46,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from ..base.lockstep import run_alone
 from ..ops.basis import eval_basis_np
 from ..ops.face_fused import face_pass_for, fused_face_pass
 from ..ops.nbr_bounds import (neighbor_mean_bounds, superbee_limit_window,
@@ -154,14 +155,30 @@ class DGSolver:
         return (k < ndofel[None, :]).to(self.geom.dtype)
 
     def step(self, state: DGState) -> DGState:
+        return run_alone(self.step_coroutine(state))
+
+    def step_coroutine(self, state: DGState, owned=None):
+        """The step as a coroutine (base/lockstep.py): it yields
+        ("halo", x) where ghost elements must take their owners' values
+        (the reference's comsol and comlim exchanges: at each stage's
+        start, after the limiter, and twice around the p-adaptive ring
+        promotion) and ("min", dt) for the global time step.  On a shard
+        ``owned`` (E,) marks the elements that advance; the others keep
+        their values until an exchange refreshes them
+        (quinoa_tpu/parallel/dg_spmd.py:185-331)."""
         g, system = self.geom, self.system
         C = system.ncomp
         u = un = state.u
         ndofel, dt = state.ndofel, state.dt
         for s in range(3):
+            u = yield "halo", u
             if s == 0 and self.pref and g.ndof >= 4:
-                ndofel = propagate_ndof(g, eval_ndof_sticky(
-                    g, u, ndofel, C, self.tolref))
+                # a ghost's sticky history lives with its owner: the
+                # decisions are exchanged, promoted one ring, exchanged
+                ndofel = eval_ndof_sticky(g, u, ndofel, C, self.tolref)
+                ndofel = (yield "halo", ndofel[None])[0]
+                ndofel = propagate_ndof(g, ndofel)
+                ndofel = (yield "halo", ndofel[None])[0]
             dofmask = self._dofmask(ndofel) if self.pref else None
             dm = None if dofmask is None else dofmask.repeat(C, 1)
             rv = None
@@ -176,6 +193,10 @@ class DGSolver:
                                 bounds=neighbor_mean_bounds(g, u, C))
             elif self.limiter == "wenop1":
                 u = weno_p1(g, u, dofmask, C, self.cweight)
+            if self.limiter is not None:
+                # a ghost limited with an incomplete neighbour set takes
+                # its owner's limited values
+                u = yield "halo", u
             if s == 0:
                 if dm is not None:
                     # coarsened elements' high-order dofs are ZEROED at
@@ -188,7 +209,7 @@ class DGSolver:
                     dt = self.const_dt
             if self.face_gp:
                 if s == 0 and self.const_dt is None:
-                    dt = dg_dt(system, g, u, dofmask) * (
+                    dt = yield "min", dg_dt(system, g, u, dofmask) * (
                         self.cfl * self.cflscale)
                 # the JAX step passes the step's start time to every
                 # stage's rhs (quinoa_tpu/inciter/dg.py:302-315)
@@ -212,16 +233,18 @@ class DGSolver:
                               else volume_rhs_plain(system, g, uf))
                     r, delt = self.p1_face_pass(system, g, uf, vol_rhs=rv)
                 if s == 0 and self.const_dt is None:
-                    dt = dg_dt_from_delt(g, delt) * (
+                    dt = yield "min", dg_dt_from_delt(g, delt) * (
                         self.cfl * self.cflscale)
             unew = RK0[s] * un + RK1[s] * (u + dt * r * self.minv)
             if self.evolved is not None:
                 # rDG: the reconstructed dofs keep their current (limited)
                 # values (quinoa_tpu/inciter/dg.py:324-330)
                 unew = torch.where(self.evolved, unew, u)
-            u = unew
             if dm is not None:
-                u = torch.where(dm > 0, u, un)
+                unew = torch.where(dm > 0, unew, un)
+            if owned is not None:
+                unew = torch.where(owned, unew, u)
+            u = unew
         return DGState(u=u, ndofel=ndofel, t=state.t + dt,
                        it=state.it + 1, dt=dt)
 
@@ -248,6 +271,20 @@ class DGDiagnostics:
         p-adaptive states are evaluated with each element's active dofs
         only, and a P0 element's error is taken at its centroid
         (ElemDiagnostics.cpp:171-196, Quadrature.hpp:45-50)."""
+        s2, e2, einf = self.sums(state)
+        l2sol = torch.sqrt(s2 / self.total_vol)
+        l2err = torch.sqrt(e2 / self.total_vol)
+        return (
+            [float(v) for v in l2sol],
+            [float(v) for v in l2err],
+            [float(v) for v in einf],
+        )
+
+    def sums(self, state: DGState):
+        """The per-component sums (C,) over the elements with emask > 0:
+        the volume-weighted squares of the solution and of its error, and
+        the largest error.  A shard's emask marks its owned elements, so
+        the parallel diagnostics fold these over the shards."""
         g = self.geom
         C, K = self.system.ncomp, g.ndof
         dt_, dev = state.u.dtype, state.u.device
@@ -283,10 +320,4 @@ class DGDiagnostics:
             errc = (Uv[:, 0, :] - a) * p0
             e2 = e2 + (ve * errc**2).sum(dim=1)
             einf = torch.maximum(einf, errc.abs().amax(dim=1))
-        l2sol = torch.sqrt(s2 / self.total_vol)
-        l2err = torch.sqrt(e2 / self.total_vol)
-        return (
-            [float(v) for v in l2sol],
-            [float(v) for v in l2err],
-            [float(v) for v in einf],
-        )
+        return s2, e2, einf

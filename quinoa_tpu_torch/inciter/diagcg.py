@@ -55,23 +55,38 @@ def diagcg_advance(
     bc_n=None,
     vol_n=None,
 ):
-    """One DiagCG(+FCT) update of u (C, N) over dt.
+    """One DiagCG(+FCT) update of u (C, N) over dt, with the JAX package's
+    signature: diagcg_advance_coroutine below, its requests answered by
+    the combine hooks (the identity on one device; combine_min sits at
+    the JAX package's position and is never called).  bc_n (4, C, E) and
+    vol_n (4, E) are the static gathers of bcmask and the nodal volumes
+    (the solver makes them once)."""
+    hooks = {"sum": combine_sum, "max": combine_max}
+    gen = diagcg_advance_coroutine(system, fct, use_fct, geom, lhs, bcmask,
+                                   u, t, dt, bc_n=bc_n, vol_n=vol_n)
+    try:
+        op, x = next(gen)
+        while True:
+            op, x = gen.send(hooks[op](x))
+    except StopIteration as e:
+        return e.value
 
-    The combine hooks act on (C, N) node buffers where the reference's
-    DistFCT exchanged chare-boundary messages (sums: rhs + dif, P, A;
-    maxima: Q, whose minima ride negated); on one device they are the
-    identity.  combine_min is taken at the JAX package's position and not
-    called: Q's minima ride negated through combine_max in both packages.
-    bc_n (4, C, E) and vol_n (4, E) are the static gathers of bcmask and
-    the nodal volumes (the solver makes them once).
-    """
+
+def diagcg_advance_coroutine(system, fct: FCT, use_fct: bool, geom: CGGeom,
+                             lhs, bcmask, u, t, dt, bc_n=None, vol_n=None):
+    """One DiagCG(+FCT) update of u (C, N) over dt as a coroutine
+    (base/lockstep.py).  It yields ("sum", x) and ("max", x) where the
+    reference's DistFCT exchanged chare-boundary messages on node buffers
+    x (C', N): sums of rhs + dif, P and A; maxima of Q, whose minima ride
+    negated (the JAX package's combine_min is never called either), and
+    returns the updated u."""
     C = u.shape[0]
     # one nodal gather feeds the PDE rhs, the mass diffusion and the AEC;
     # rhs and diffusion ride one stacked assembly
     un = cg_gather(geom, u)                                  # (4, C, E)
     rc = system.rhs_contrib(t, dt, geom, u, un)
     dc = fct.diff_contrib(geom, un)
-    rd = combine_sum(cg_assemble_add(geom, torch.cat([rc, dc], dim=1)))
+    rd = yield "sum", cg_assemble_add(geom, torch.cat([rc, dc], dim=1))
     r, dif = rd[:C], rd[C:]
 
     # Dirichlet BCs: lhs = 1, rhs = the increment, dif = 0 at BC nodes
@@ -99,11 +114,11 @@ def diagcg_advance(
     # four corners of an element.  Each row is summed or maxed in slot
     # order, so this equals the JAX package's split and fused paths.
     P2, Q2 = cg_assemble_add_max(geom, pq, s_el[None])
-    P2 = combine_sum(P2)
+    P2 = yield "sum", P2
     P = torch.stack([P2[:C], P2[C:]])
-    Q2 = combine_max(Q2)                                     # [qmax | -qmin]
+    Q2 = yield "max", Q2                                     # [qmax | -qmin]
     Q = torch.stack([Q2[:C], -Q2[C:]])
-    A = combine_sum(fct.lim(geom, aec, P, Q, ul))
+    A = yield "sum", fct.lim(geom, aec, P, Q, ul)
     return ul + A
 
 

@@ -1,8 +1,8 @@
 """Hilbert element and first-touch node reordering (numpy).
 
-Port of quinoa_tpu/mesh/reorder.py:21-132: remap and shift_to_zero
-(reference src/Base/Reorder.cpp), the Hilbert codes and the element and
-node reorders.  The Hilbert order keeps face neighbours close in element
+Port of quinoa_tpu/mesh/reorder.py: remap and shift_to_zero (reference
+src/Base/Reorder.cpp), the Hilbert codes, the element and node reorders,
+and the Morton (SFC) renumbering of both.  The Hilbert order keeps face neighbours close in element
 rank (the reference's Sorter/Reorder locality pass), which on the card
 keeps the neighbour reads of the limit and face kernels within nearby
 cache lines.
@@ -112,3 +112,33 @@ def first_touch_node_reorder(mesh: UnsMesh) -> Tuple[UnsMesh, np.ndarray]:
     out.bface = {k: nperm[np.asarray(v)] for k, v in mesh.bface.items()}
     out.bnode = {k: nperm[np.asarray(v)] for k, v in mesh.bnode.items()}
     return out, nperm
+
+
+def sfc_reorder(mesh: UnsMesh) -> Tuple[UnsMesh, np.ndarray, np.ndarray]:
+    """Renumber nodes and elements along the Morton curve
+    (quinoa_tpu/mesh/reorder.py:135).
+
+    Returns (new mesh, node_perm, elem_perm) where node_perm[old] = new
+    and elem_perm[old] = new, to remap fields with.
+    """
+    from ..parallel.partition import _morton_codes, element_centroids
+
+    ncode = _morton_codes(mesh.coords)
+    norder = np.argsort(ncode, kind="stable")  # new -> old
+    node_perm = np.empty(mesh.nnode, dtype=np.int64)
+    node_perm[norder] = np.arange(mesh.nnode)  # old -> new
+
+    ecode = _morton_codes(element_centroids(mesh.coords, mesh.inpoel))
+    eorder = np.argsort(ecode, kind="stable")
+    elem_perm = np.empty(mesh.nelem, dtype=np.int64)
+    elem_perm[eorder] = np.arange(mesh.nelem)
+
+    out = UnsMesh(
+        coords=mesh.coords[norder],
+        inpoel=node_perm[mesh.inpoel[eorder]].astype(np.int32),
+    )
+    out.bface = {
+        ss: node_perm[tris].astype(np.int32) for ss, tris in mesh.bface.items()
+    }
+    out.bnode = out.bnode_from_bface()
+    return out, node_perm, elem_perm

@@ -43,7 +43,8 @@ builds them in XLA outside its kernels) and the face pass takes the THINC
 flavour of K14, which sharpens both face states before AUSM+up (on
 Dirichlet faces the facade in torch, the ghost's copied carriers
 included).  At P0 intsharp is accepted and ignored, as in the JAX
-package.  The SPMD solver is not ported.
+package.  The sharded solver (parallel/dg_spmd.py SPMDMultiMatSolver) runs
+MultiMatSolver.step_coroutine on each shard.
 """
 
 from __future__ import annotations
@@ -126,7 +127,9 @@ class MultiMatSystem:
         self.nrows = self.ncomp + 3 * self.nmat + 1
         self.facade = _FusedMMFacade(self)
         self.thinc_facade = _FusedMMFacade(self, thinc=True)
-        #: set by MultiMatSolver: no Dirichlet face, the multimat face pass
+        #: the route of rhs and rhs_p0 when the caller names none: True the
+        #: multimat face pass (no Dirichlet face); a MultiMatSolver names
+        #: its own route and leaves this alone
         self.fused_ok = False
 
     # -- state helpers --------------------------------------------------------
@@ -342,8 +345,11 @@ class MultiMatSystem:
         :345-405, face sums through K6).  accum_plan, at the JAX package's
         position, must be None: the port has no accumulation plans."""
         no_plan(accum_plan)
+        return self._rhs_p0(geom, U, t, self.fused_ok, want_delt)
+
+    def _rhs_p0(self, geom: DGGeom, U, t, fused, want_delt):
         nmat, C = self.nmat, self.ncomp
-        if self.fused_ok:
+        if fused:
             acc, delt = mm_face_pass(self, geom, U)
             R, dap, divu = self._split_acc(acc, 1)
             R = R[:, 0] + self._nonconservative(geom, U, dap, divu)
@@ -401,15 +407,21 @@ class MultiMatSystem:
         fused_ok, not face_gp, picks the route, as the JAX solver sets
         face_gp exactly where fused_ok is false."""
         no_plan(accum_plan)
+        return self.rhs_routed(geom, U, t, self.fused_ok, want_delt)
+
+    def rhs_routed(self, geom: DGGeom, U, t, fused, want_delt=False):
+        """rhs on the route the caller names, fused (the multimat face
+        pass) or not (the Dirichlet route), whatever fused_ok says: a
+        MultiMatSolver's step names its own."""
         K = geom.ndof
         if K == 1:
-            return self.rhs_p0(geom, U, t, want_delt=want_delt)
+            return self._rhs_p0(geom, U, t, fused, want_delt)
         C = self.ncomp
         E = U.shape[-1]
         Uv = U.reshape(C, K, E)
         carriers = self.thinc_carriers(geom, Uv) if self.intsharp else None
         Rv = volume_rhs(self, geom, U, t)
-        if self.fused_ok:
+        if fused:
             acc, delt = mm_face_pass(self, geom, U, carriers)
             R, dap, divu = self._split_acc(acc, K)
             R = Rv.reshape(C, K, E) + R
@@ -635,7 +647,7 @@ class MultiMatSolver:
     Gauss-point route and the stage-0 dt the face sweep (system.dt)."""
 
     def __init__(self, system: MultiMatSystem, geom: DGGeom, cfl=0.5,
-                 const_dt=None, limiter=None):
+                 const_dt=None, limiter=None, fused_ok=None):
         if geom.ndof not in (1, 4):
             raise ValueError("multimat supports DG(P0) and DG(P1) only")
         if limiter not in (None, "superbeep1"):
@@ -644,8 +656,11 @@ class MultiMatSolver:
                 "consistent fraction limiting needs the phi factors)")
         if limiter is not None and geom.ndof < 4:
             raise ValueError("limiters require ndof >= 4")
-        # the face kernel has no Dirichlet ghost (it samples the solution)
-        has_dirichlet = bool((geom.bctype == BC_DIRICHLET).any())
+        # the face kernel has no Dirichlet ghost (it samples the solution):
+        # the multimat face pass unless geom has a Dirichlet face or the
+        # caller names the route (the sharded solver, one for every shard)
+        self.fused_ok = (not bool((geom.bctype == BC_DIRICHLET).any())
+                         if fused_ok is None else bool(fused_ok))
         self.system = system
         self.geom = geom
         self.cfl = cfl
@@ -655,7 +670,6 @@ class MultiMatSolver:
         # CFL order scale (DG.cpp:1404-1418)
         p = {1: 0.0, 4: 1.0}[geom.ndof]
         self.cflscale = 1.0 / (2.0 * p + 1.0)
-        system.fused_ok = not has_dirichlet
         if geom.ndof == 1:
             self.minv = 1.0 / geom.vol
         else:
@@ -685,28 +699,47 @@ class MultiMatSolver:
         )
 
     def step(self, state):
+        from ..base.lockstep import run_alone
+
+        return run_alone(self.step_coroutine(state))
+
+    def step_coroutine(self, state, owned=None):
+        """The step as a coroutine (base/lockstep.py): ("halo", u) at each
+        stage's start and after the limiter, ("min", dt) for the global
+        time step; on a shard only the ``owned`` elements advance
+        (quinoa_tpu/parallel/dg_spmd.py:471-524)."""
         from ..inciter.dg import DGState
 
         g, system = self.geom, self.system
         un = u = state.u
         dt = self.const_dt
         for s in range(3):
-            u = self._limit(u)
+            u = yield "halo", u
+            if self.limiter is not None:
+                u = self._limit(u)
+                u = yield "halo", u
             if s == 0:
                 # RK anchor is the LIMITED stage-0 solution (DG.cpp:1471);
                 # dt on the limited state as well
                 un = u
-                if dt is None and not system.fused_ok:
-                    dt = system.dt(g, u) * self.cfl * self.cflscale
-            if system.fused_ok and s == 0 and self.const_dt is None:
+                if dt is None and not self.fused_ok:
+                    dt = yield "min", system.dt(g, u) * self.cfl \
+                        * self.cflscale
+            if self.fused_ok and s == 0 and self.const_dt is None:
                 # the face pass emits the dt charvel sums with the rhs
-                r, delt = system.rhs(g, u, state.t, want_delt=True)
-                dt = dg_dt_from_delt(g, delt) * self.cfl * self.cflscale
+                r, delt = system.rhs_routed(g, u, state.t, True,
+                                            want_delt=True)
+                dt = yield "min", dg_dt_from_delt(g, delt) * self.cfl \
+                    * self.cflscale
             else:
-                r = system.rhs(g, u, state.t)
-            u = RK0[s] * un + RK1[s] * (u + dt * r * self.minv)
+                r = system.rhs_routed(g, u, state.t, self.fused_ok)
+            unew = RK0[s] * un + RK1[s] * (u + dt * r * self.minv)
             if g.ndof > 1:
-                u = clean_alpha_closure(u, system.ncomp, g.ndof, system.nmat)
+                unew = clean_alpha_closure(unew, system.ncomp, g.ndof,
+                                           system.nmat)
+            if owned is not None:
+                unew = torch.where(owned, unew, u)
+            u = unew
         return DGState(u=u, ndofel=state.ndofel, t=state.t + dt,
                        it=state.it + 1, dt=dt)
 

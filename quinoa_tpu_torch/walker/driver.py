@@ -3,7 +3,11 @@
 The port's own copy of quinoa_tpu/walker/driver.py (the reference's
 Distributor/Integrator/Collector, src/Walker/): the particle ensemble is
 one (npar, nprop) tensor on one device, each step advances every system
-in turn, and the moments are means over the ensemble.  The keys are the
+in turn, and the moments are means over the ensemble.  With nshard > 1
+(walker --npes) every ensemble mean, inside a step and in the moments,
+adds the sums of nshard equal row blocks in block order
+(statistics.block_mean), as the JAX walker's reduction over its sharded
+'par' axis does; the draws are the whole ensemble's.  The keys are the
 JAX package's: ``initialize`` folds 10_000 + i into the seed's key for
 system i's init policy, ``run`` folds the global step into it and each
 step folds the system's index into that, so the port draws the JAX
@@ -36,6 +40,8 @@ class Walker:
     dtype   : the particles' float type (None: torch's default)
     device  : where the particles live, the card unless the caller asks
               for another
+    nshard  : the row blocks the ensemble means fold over (walker --npes;
+              npar a multiple of it)
     """
 
     def __init__(
@@ -49,6 +55,7 @@ class Walker:
         central: Sequence[Term] = (),
         dtype=None,
         device=DEFAULT_DEVICE,
+        nshard: int = 1,
     ):
         self.systems = list(systems)
         self.npar = npar
@@ -67,6 +74,10 @@ class Walker:
 
         self._it0 = 0  # global step counter: successive run() calls draw
         # fresh per-step keys (never reuse a (seed, step) pair)
+        if nshard < 1 or npar % nshard:
+            raise ValueError(f"npar {npar} is not a multiple of the "
+                             f"{nshard} shards")
+        self.nshard = int(nshard)
 
     @staticmethod
     def layout(systems: Sequence) -> List:
@@ -98,8 +109,15 @@ class Walker:
         system i's fold_in(step key, i)."""
         key = threefry.fold_in(self.key, it)
         for i, s in enumerate(self.systems):
-            P = s.advance(threefry.fold_in(key, i), P, self.dt, t)
+            P = s.advance(threefry.fold_in(key, i), P, self.dt, t,
+                          nshard=self.nshard)
         return P
+
+    def moments(self, P):
+        """The ordinary and central moments of the ensemble, {term: 0-d
+        tensor}."""
+        return estimate_moments(P, self.offsets, self.ordinary, self.central,
+                                self.nshard)
 
     def run(self, nsteps: int, stat_every: int = 0, P=None):
         """Integrate; returns (P, history) where history is a list of
@@ -112,10 +130,7 @@ class Walker:
             P = self.step(P, it, t)
             t += self.dt
             if stat_every and (it + 1) % stat_every == 0:
-                mom = estimate_moments(
-                    P, self.offsets, self.ordinary, self.central
-                )
-                history.append((t, moments_to_host(mom)))
+                history.append((t, moments_to_host(self.moments(P))))
         self._it0 += nsteps
         return P, history
 

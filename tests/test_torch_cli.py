@@ -21,10 +21,9 @@ and multimat DG(P0) interface advection.  Checked:
   equal the uninterrupted run's;
 - --sync-io and the asynchronous writer give byte-equal files; -b
   writes no field output; format/precision shape the diag file;
-- every option or deck setting the port has not ported exits 2 before
-  any step, and the options and commands it has since ported (--trace-dir,
-  -H, meshconv, rngtest, fileconv) run in those cases' place; a SIGTERM
-  drains: checkpoint, final output, exit 0;
+- the options and commands once refused (--trace-dir, -H, meshconv,
+  rngtest, fileconv) run; a SIGTERM drains: checkpoint, final output,
+  exit 0;
 - mesh refinement and tracers (AMR_DECKS): a t0ref deck, the three dtref
   branches (the multi-level cycle on DiagCG and on DG(P1), maxlevels 1,
   dtref_uniform) and --particles with and without dtref (each velocity
@@ -293,21 +292,17 @@ def test_diag_format_precision(tmp_path):
         assert "e" not in tok and len(tok.split(".")[1]) == 4
 
 
-#: argv tails and deck edits the port refuses, with the word its message
-#: names
+#: argv tails and deck edits once refused, with the word a refusal named:
+#: --trace-dir runs now (the parallel options run since they were ported,
+#: tests/test_torch_spmd_cli.py)
 REFUSED = {
-    "npes": (["--npes", "2"], None, "--npes"),
-    "virtualization": (["-u", "0.5"], None, "-u"),
-    "slices": (["--slices", "2"], None, "--slices"),
-    "pieces": (["--pieces", "2"], None, "--pieces"),
     "trace_dir": (["--trace-dir", "tr"], None, "--trace-dir"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_options_exit_2_before_any_step(tmp_path, capsys, case):
-    """The parallel options exit 2 before any step; --trace-dir, once
-    refused here, now runs and writes its trace."""
+    """--trace-dir, once refused here, now runs and writes its trace."""
     tail, amr, word = REFUSED[case]
     dp, mp = _inputs(str(tmp_path), "diagcg_slotcyl")
     if amr:
@@ -322,24 +317,18 @@ def test_unported_options_exit_2_before_any_step(tmp_path, capsys, case):
     rc = _port(["inciter", "-c", dp, "-i", mp, "--diag", out + ".diag",
                 "-o", out, *tail])
     err = capsys.readouterr().err.strip().splitlines()
-    if case == "trace_dir":
-        assert rc == 0 and not err
-        assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
-        assert len(open(out + ".diag").read().splitlines()) == NSTEP + 1
-        return
-    assert rc == 2
-    assert len(err) == 1 and word in err[0] and "not ported" in err[0]
-    assert not os.path.exists(out + ".diag")   # no step, no diagnostics
+    assert rc == 0 and not err
+    assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
+    assert len(open(out + ".diag").read().splitlines()) == NSTEP + 1
 
 
 @pytest.mark.parametrize("argv", [["-H"], ["inciter", "--helpkw"],
-                                  ["walker", "-c", "x.q", "--npes", "2"],
                                   ["meshconv"], ["rngtest"], ["fileconv"]])
 def test_unported_commands_exit_2(tmp_path, capsys, argv):
-    """The walker's --npes 2 exits 2 with one line; the commands once
-    refused here now run: -H prints the keyword list, meshconv converts a
-    gmsh box, rngtest runs SmallCrush (seed 7, all pass), fileconv writes
-    a netCDF-4 copy."""
+    """The commands once refused here now run: -H prints the keyword
+    list, meshconv converts a gmsh box, rngtest runs SmallCrush (seed 7,
+    all pass), fileconv writes a netCDF-4 copy (walker --npes runs since
+    it was ported, tests/test_torch_spmd_lb.py)."""
     src = str(tmp_path / "in.msh")
     tio.write_gmsh(src, box_tet_mesh(2, 2, 2))
     tails = {"meshconv": ["-i", src, "-o", str(tmp_path / "m.exo"), "-v"],
@@ -351,10 +340,6 @@ def test_unported_commands_exit_2(tmp_path, capsys, argv):
         capsys.readouterr()
     rc = t_main(argv + tails.get(argv[0], []), device="cpu")
     out, err = capsys.readouterr()
-    if argv[0] == "walker":
-        err = err.strip().splitlines()
-        assert rc == 2 and len(err) == 1 and "not ported" in err[0]
-        return
     assert rc == 0 and not err
     first = out.splitlines()[0]
     assert {"meshconv": first.startswith(f"meshconv: {src} (gmsh) ->"),

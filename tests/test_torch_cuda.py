@@ -781,3 +781,33 @@ def test_lf_and_thinc_on_card_match_cpu(card, case):
     assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11 * scale
     assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
     assert {k for k, v in kernels.launches.items() if v} == used
+
+
+@pytest.mark.parametrize("nshard", [2, 4])
+def test_sharded_dg_on_card_matches_cpu(card, nshard):
+    """Sedov P1 on nshard shards resident on the card against the same
+    sharded run on the CPU, float64, 2 steps: u atol 1e-11 of max(1,
+    max|u|), dt rtol 1e-12, and K1, K12 and K13 launched 3 * nshard
+    times a step."""
+    from quinoa_tpu_torch.parallel import (SPMDDGSolver, ShardGroup,
+                                           build_dg_shards)
+
+    mesh, _ = hilbert_element_reorder(box_tet_mesh(6, 6, 4,
+                                                   hi=(0.6, 0.6, 0.4)))
+    bc = {i: BC_SYMMETRY for i in range(1, 7)}
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        sh = build_dg_shards(mesh, nshard, 4, bc, dtype=torch.float64,
+                             group=ShardGroup(nshard, [dev]))
+        s = SPMDDGSolver(DGCompFlow(SedovBlastwave()), sh, cfl=0.5,
+                         limiter="superbeep1")
+        kernels.reset_launches()
+        st = s.nsteps(s.initial_state(), 2)
+        out[dev.type] = (s.gather_global(st), float(st.dt[0]),
+                         dict(kernels.launches))
+    (a, dta, la), (b, dtb, _) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(a, b, rtol=0,
+                               atol=1e-11 * max(1.0, np.abs(b).max()))
+    assert np.isclose(dta, dtb, rtol=1e-12)
+    assert la == {**ZERO, "limit_vol": 6 * nshard, "face_wflux": 6 * nshard,
+                  "basis_accum": 6 * nshard}

@@ -89,7 +89,8 @@ def test_port_imports_no_jax(tmp_path):
     (SlotCyl, VorticalFlow) on small boxes, built on the CPU, and the
     port's inciter command (quinoa_tpu_torch.cli.main on the CPU: an
     ExodusII box and a DG(P1) Sedov deck with a checkpoint, field output
-    and a restart; a DiagCG SlotCyl deck with a dtref event (the
+    and a restart, and the same deck sharded (--npes 2 -u 0.5); a DiagCG
+    SlotCyl deck with a dtref event (the
     multi-level cycle) and tracers written to H5Part), two steps of the
     coupled Langevin walker and the port's walker command on a small
     deck with a stat file and a PDF, a subset of the rngtest battery
@@ -244,6 +245,11 @@ def test_port_imports_no_jax(tmp_path):
         "names, _, vals = read_exodus_elem_fields(os.path.join(d,\n"
         "                                                      'out.e-s.2.exo'))\n"
         "l2 += [float(v) for v in vals[-1, :, 0]]\n"
+        "assert main(argv[:7] + ['-b', '--diag', os.path.join(d, 'sh'),\n"
+        "                        '--npes', '2', '-u', '0.5'],\n"
+        "            device='cpu') == 0\n"
+        "with open(os.path.join(d, 'sh')) as fh:\n"
+        "    l2 += [float(x) for x in fh.read().splitlines()[-1].split()]\n"
         "with open(os.path.join(d, 'diag')) as fh:\n"
         "    l2 += [float(x) for x in fh.read().splitlines()[-1].split()]\n"
         "write_exodus(os.path.join(d, 'slot.exo'),\n"

@@ -11,8 +11,8 @@ gmsh and exodus output types exist with the same names.  The decks are
 the inline decks of tests/test_walker.py (the rng-seed deck at two
 seeds, the PDF-options deck) and a coupled Position + Velocity +
 Dissipation deck with three moment orders.  The configs loaded from the
-decks are the JAX package's, field for field.  --npes 2 exits 2 before
-it reads the deck.
+decks are the JAX package's, field for field.  (walker --npes runs since
+it was ported: tests/test_torch_spmd_lb.py.)
 
 The port builds a deck's SDE systems in deck order, the same in every
 process.  The JAX package builds them in the order it iterates the set
@@ -352,13 +352,6 @@ def test_deck_order_sets_keys_and_offsets(tmp_path):
         _same_at_printed_precision(a, b)
     fwd = t_load(DECKS["langevin"])
     assert [s.depvar for s in fwd.sdes] == ["x", "u", "o"]
-
-
-def test_npes_2_exits_2(tmp_path, capsys):
-    rc = _port(["walker", "-c", str(tmp_path / "absent.q"), "--npes", "2"])
-    err = capsys.readouterr().err.strip().splitlines()
-    assert rc == 2
-    assert len(err) == 1 and "--npes" in err[0] and "not ported" in err[0]
 
 
 def test_the_card_is_the_default_device(tmp_path):
