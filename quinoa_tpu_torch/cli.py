@@ -158,11 +158,21 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
     if args.checkpoint_dir is None:
         args.checkpoint_dir = args.output + ".restart"
 
+    from .base.profiler import PhaseProfiler, tracing
+
+    prof = PhaseProfiler()
+    # --profile and --trace-dir turn the program's spans and counters on,
+    # nested under the command's phases
+    with tracing(prof if args.profile or args.trace_dir else None):
+        return _run_inciter(args, device, prof)
+
+
+def _run_inciter(args, device, prof):
     import dataclasses
 
     import torch
 
-    from .base.profiler import PhaseProfiler, torch_trace
+    from .base.profiler import torch_trace
     from .control.config import apply_t0ref, build_inciter, load_inciter
     from .inciter.checkpoint import (CheckpointMismatch, load_checkpoint,
                                      save_checkpoint)
@@ -171,7 +181,6 @@ def _cmd_inciter(argv, device=DEFAULT_DEVICE):
     from .mesh.reorder import hilbert_element_reorder
 
     device = resolve_device(device)
-    prof = PhaseProfiler()
     with open(args.control) as fh:
         cfg = load_inciter(fh.read())
     with prof.phase("mesh read"):

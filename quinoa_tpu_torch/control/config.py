@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..base.profiler import span
 from ..device import DEFAULT_DEVICE
 
 from .qparser import parse_deck, first, occurrences
@@ -331,8 +332,15 @@ def build_inciter(cfg: InciterConfig, mesh, dtype: Optional[torch.dtype] = None,
     parameter mapping.  dtype None is torch's default float, the
     counterpart of the JAX builders' default (jax's default float); the
     solver lives on ``device``, the card unless the caller asks for
-    another.
+    another.  Spans (base/profiler.py): build, and inside it geometry
+    (pde/dg.py build_dggeom, or make_cggeom) and solver, the solver's
+    constructor.
     """
+    with span("build"):
+        return _build_inciter(cfg, mesh, dtype, device)
+
+
+def _build_inciter(cfg, mesh, dtype, device):
     from ..pde import dg
 
     if dtype is None:
@@ -350,13 +358,18 @@ def build_inciter(cfg: InciterConfig, mesh, dtype: Optional[torch.dtype] = None,
         bcnodes = _bcnodes(cfg, mesh)
         if cfg.scheme == "alecg":
             # RK3 + edge-Rusanov scheme (Scheme.hpp:44-48 kw::alecg)
-            solver = make_alecg(system, mesh, cfl=cfl, const_dt=cfg.dt,
-                                bcnodes=bcnodes, dtype=dtype, device=device)
-            return solver, Diagnostics(system, solver.geom)
-        geom = make_cggeom(mesh, dtype=dtype, device=device)
-        solver = DiagCGSolver(system, geom, cfl=cfl, const_dt=cfg.dt,
-                              ctau=cfg.ctau, fct=cfg.fct, bcnodes=bcnodes)
-        return solver, Diagnostics(system, geom)
+            with span("solver"):
+                solver = make_alecg(system, mesh, cfl=cfl, const_dt=cfg.dt,
+                                    bcnodes=bcnodes, dtype=dtype,
+                                    device=device)
+                return solver, Diagnostics(system, solver.geom)
+        with span("geometry"):
+            geom = make_cggeom(mesh, dtype=dtype, device=device)
+        with span("solver"):
+            solver = DiagCGSolver(system, geom, cfl=cfl, const_dt=cfg.dt,
+                                  ctau=cfg.ctau, fct=cfg.fct,
+                                  bcnodes=bcnodes)
+            return solver, Diagnostics(system, geom)
 
     from ..inciter.dg import DGDiagnostics
 
@@ -367,10 +380,11 @@ def build_inciter(cfg: InciterConfig, mesh, dtype: Optional[torch.dtype] = None,
         geom = dg.build_dggeom(mesh, ndof=mm_ndof,
                                bc_sidesets=_bc_codes(cfg, dg, inflow=False),
                                dtype=dtype, device=device)
-        solver = MultiMatSolver(
-            system, geom, cfl=cfl, const_dt=cfg.dt,
-            limiter=("superbeep1" if mm_ndof == 4 else None))
-        return solver, DGDiagnostics(system, geom)
+        with span("solver"):
+            solver = MultiMatSolver(
+                system, geom, cfl=cfl, const_dt=cfg.dt,
+                limiter=("superbeep1" if mm_ndof == 4 else None))
+            return solver, DGDiagnostics(system, geom)
 
     if cfg.scheme in _SCHEME_NDOF:
         from ..inciter.dg import DGSolver
@@ -381,14 +395,15 @@ def build_inciter(cfg: InciterConfig, mesh, dtype: Optional[torch.dtype] = None,
                                dtype=dtype, device=device)
         system = (DGTransport(problem) if cfg.pde == "transport"
                   else DGCompFlow(problem, riemann_flux=cfg.flux))
-        solver = DGSolver(
-            system, geom, cfl=cfl, const_dt=cfg.dt, limiter=cfg.limiter,
-            cweight=cfg.cweight, pref=(cfg.scheme == "pdg") or cfg.pref,
-            tolref=cfg.tolref,
-            # P0P1 = rDG: evolve the cell average only, faces see the
-            # (frozen/limited) P1 dofs (Scheme.hpp:45, Grammar.hpp:378)
-            evolve_ndof=1 if cfg.scheme == "p0p1" else None)
-        return solver, DGDiagnostics(system, geom)
+        with span("solver"):
+            solver = DGSolver(
+                system, geom, cfl=cfl, const_dt=cfg.dt, limiter=cfg.limiter,
+                cweight=cfg.cweight, pref=(cfg.scheme == "pdg") or cfg.pref,
+                tolref=cfg.tolref,
+                # P0P1 = rDG: evolve the cell average only, faces see the
+                # (frozen/limited) P1 dofs (Scheme.hpp:45, Grammar.hpp:378)
+                evolve_ndof=1 if cfg.scheme == "p0p1" else None)
+            return solver, DGDiagnostics(system, geom)
 
     raise ValueError(f"unknown scheme {cfg.scheme!r}")
 

@@ -47,6 +47,7 @@ from typing import Optional
 import torch
 
 from ..base.lockstep import run_alone
+from ..base.profiler import count, span
 from ..ops.basis import eval_basis_np
 from ..ops.face_fused import face_pass_for, fused_face_pass
 from ..ops.nbr_bounds import (neighbor_mean_bounds, superbee_limit_window,
@@ -139,23 +140,25 @@ class DGSolver:
                             < self.evolve_ndof)[:, None]
 
     def initial_state(self, t0: float = 0.0) -> DGState:
-        g = self.geom
-        u0 = dg_initialize(self.system, g, t0)
-        return DGState(
-            u=u0.to(g.dtype).contiguous(),
-            ndofel=torch.full((g.nelem,), g.ndof, dtype=torch.int32,
-                              device=g.device),
-            t=torch.tensor(t0, dtype=g.dtype, device=g.device),
-            it=torch.tensor(0, dtype=torch.int32, device=g.device),
-            dt=torch.tensor(0.0, dtype=g.dtype, device=g.device),
-        )
+        with span("initial_state"):
+            g = self.geom
+            u0 = dg_initialize(self.system, g, t0)
+            return DGState(
+                u=u0.to(g.dtype).contiguous(),
+                ndofel=torch.full((g.nelem,), g.ndof, dtype=torch.int32,
+                                  device=g.device),
+                t=torch.tensor(t0, dtype=g.dtype, device=g.device),
+                it=torch.tensor(0, dtype=torch.int32, device=g.device),
+                dt=torch.tensor(0.0, dtype=g.dtype, device=g.device),
+            )
 
     def _dofmask(self, ndofel):
         k = torch.arange(self.geom.ndof, device=ndofel.device)[:, None]
         return (k < ndofel[None, :]).to(self.geom.dtype)
 
     def step(self, state: DGState) -> DGState:
-        return run_alone(self.step_coroutine(state))
+        with span("step"):
+            return run_alone(self.step_coroutine(state))
 
     def step_coroutine(self, state: DGState, owned=None):
         """The step as a coroutine (base/lockstep.py): it yields
@@ -165,7 +168,11 @@ class DGSolver:
         promotion) and ("min", dt) for the global time step.  On a shard
         ``owned`` (E,) marks the elements that advance; the others keep
         their values until an exchange refreshes them
-        (quinoa_tpu/parallel/dg_spmd.py:185-331)."""
+        (quinoa_tpu/parallel/dg_spmd.py:185-331).
+
+        Its spans (base/profiler.py) partition each stage: pref, limit,
+        volume, face_pass, dt and rk_update; each closes before the next
+        yield."""
         g, system = self.geom, self.system
         C = system.ncomp
         u = un = state.u
@@ -175,24 +182,31 @@ class DGSolver:
             if s == 0 and self.pref and g.ndof >= 4:
                 # a ghost's sticky history lives with its owner: the
                 # decisions are exchanged, promoted one ring, exchanged
-                ndofel = eval_ndof_sticky(g, u, ndofel, C, self.tolref)
+                with span("pref"):
+                    ndofel = eval_ndof_sticky(g, u, ndofel, C, self.tolref)
                 ndofel = (yield "halo", ndofel[None])[0]
-                ndofel = propagate_ndof(g, ndofel)
+                with span("pref"):
+                    ndofel = propagate_ndof(g, ndofel)
                 ndofel = (yield "halo", ndofel[None])[0]
-            dofmask = self._dofmask(ndofel) if self.pref else None
-            dm = None if dofmask is None else dofmask.repeat(C, 1)
+            dofmask = dm = None
+            if self.pref:
+                with span("pref"):
+                    dofmask = self._dofmask(ndofel)
+                    dm = dofmask.repeat(C, 1)
             rv = None
-            if self.fused_limit:
-                u, rv = superbee_limit_window(g, u, system)
-                if system.has_src:
-                    # K1 integrates the flux only: the source term at the
-                    # step's start time rides on top, in torch
+            with span("limit"):
+                if self.fused_limit:
+                    u, rv = superbee_limit_window(g, u, system)
+                elif self.limiter == "superbeep1":
+                    u = superbee_p1(g, u, dofmask, C,
+                                    bounds=neighbor_mean_bounds(g, u, C))
+                elif self.limiter == "wenop1":
+                    u = weno_p1(g, u, dofmask, C, self.cweight)
+            if self.fused_limit and system.has_src:
+                # K1 integrates the flux only: the source term at the
+                # step's start time rides on top, in torch
+                with span("volume"):
                     rv = rv + source_rhs(system, g, state.t)
-            elif self.limiter == "superbeep1":
-                u = superbee_p1(g, u, dofmask, C,
-                                bounds=neighbor_mean_bounds(g, u, C))
-            elif self.limiter == "wenop1":
-                u = weno_p1(g, u, dofmask, C, self.cweight)
             if self.limiter is not None:
                 # a ghost limited with an incomplete neighbour set takes
                 # its owner's limited values
@@ -203,16 +217,20 @@ class DGSolver:
                     # stage 0 (DG.cpp:1452-1469), which also feeds the
                     # anchor: a later ring promotion restarts them from
                     # clean P0 state
-                    u = u * dm
+                    with span("pref"):
+                        u = u * dm
                 un = u
                 if self.const_dt is not None:
                     dt = self.const_dt
             if self.face_gp:
                 if s == 0 and self.const_dt is None:
-                    dt = yield "min", dg_dt(system, g, u, dofmask) * (
-                        self.cfl * self.cflscale)
+                    with span("dt"):
+                        dt = dg_dt(system, g, u, dofmask) * (
+                            self.cfl * self.cflscale)
+                    dt = yield "min", dt
                 # the JAX step passes the step's start time to every
-                # stage's rhs (quinoa_tpu/inciter/dg.py:302-315)
+                # stage's rhs (quinoa_tpu/inciter/dg.py:302-315); dg_rhs
+                # opens the volume and face_pass spans
                 r = dg_rhs(system, g, u, dofmask, state.t, face_gp=True,
                            vol_rhs=rv)
             else:
@@ -220,31 +238,42 @@ class DGSolver:
                     # the source at the step's start time, as the JAX
                     # step passes it to every stage's rhs; at P0 the
                     # volume term is the source alone
-                    rv = (volume_rhs(system, g, u, state.t)
-                          if g.ndof == 10 or system.has_src else None)
-                    r, delt = fused_face_pass(system, g, u, vol_rhs=rv)
+                    with span("volume"):
+                        rv = (volume_rhs(system, g, u, state.t)
+                              if g.ndof == 10 or system.has_src else None)
+                    with span("face_pass"):
+                        r, delt = fused_face_pass(system, g, u, vol_rhs=rv)
                 else:
                     # the fused pass sees the masked state; the rows it
                     # writes for inactive dofs are dropped by the restore
-                    uf = u if dm is None or s == 0 else u * dm
+                    uf = u
+                    if dm is not None and s != 0:
+                        with span("pref"):
+                            uf = u * dm
                     if rv is None:
-                        rv = (volume_rhs(system, g, uf, state.t)
-                              if system.has_src
-                              else volume_rhs_plain(system, g, uf))
-                    r, delt = self.p1_face_pass(system, g, uf, vol_rhs=rv)
+                        with span("volume"):
+                            rv = (volume_rhs(system, g, uf, state.t)
+                                  if system.has_src
+                                  else volume_rhs_plain(system, g, uf))
+                    with span("face_pass"):
+                        r, delt = self.p1_face_pass(system, g, uf,
+                                                    vol_rhs=rv)
                 if s == 0 and self.const_dt is None:
-                    dt = yield "min", dg_dt_from_delt(g, delt) * (
-                        self.cfl * self.cflscale)
-            unew = RK0[s] * un + RK1[s] * (u + dt * r * self.minv)
-            if self.evolved is not None:
-                # rDG: the reconstructed dofs keep their current (limited)
-                # values (quinoa_tpu/inciter/dg.py:324-330)
-                unew = torch.where(self.evolved, unew, u)
-            if dm is not None:
-                unew = torch.where(dm > 0, unew, un)
-            if owned is not None:
-                unew = torch.where(owned, unew, u)
-            u = unew
+                    with span("dt"):
+                        dt = dg_dt_from_delt(g, delt) * (
+                            self.cfl * self.cflscale)
+                    dt = yield "min", dt
+            with span("rk_update"):
+                unew = RK0[s] * un + RK1[s] * (u + dt * r * self.minv)
+                if self.evolved is not None:
+                    # rDG: the reconstructed dofs keep their current
+                    # (limited) values (quinoa_tpu/inciter/dg.py:324-330)
+                    unew = torch.where(self.evolved, unew, u)
+                if dm is not None:
+                    unew = torch.where(dm > 0, unew, un)
+                if owned is not None:
+                    unew = torch.where(owned, unew, u)
+                u = unew
         return DGState(u=u, ndofel=ndofel, t=state.t + dt,
                        it=state.it + 1, dt=dt)
 
@@ -271,24 +300,33 @@ class DGDiagnostics:
         p-adaptive states are evaluated with each element's active dofs
         only, and a P0 element's error is taken at its centroid
         (ElemDiagnostics.cpp:171-196, Quadrature.hpp:45-50)."""
-        s2, e2, einf = self.sums(state)
-        l2sol = torch.sqrt(s2 / self.total_vol)
-        l2err = torch.sqrt(e2 / self.total_vol)
-        return (
-            [float(v) for v in l2sol],
-            [float(v) for v in l2err],
-            [float(v) for v in einf],
-        )
+        with span("diag"):
+            s2, e2, einf = self.sums(state)
+            l2sol = torch.sqrt(s2 / self.total_vol)
+            l2err = torch.sqrt(e2 / self.total_vol)
+            with span("diag.read"):
+                count("host_syncs", 3 * len(l2sol))
+                return (
+                    [float(v) for v in l2sol],
+                    [float(v) for v in l2err],
+                    [float(v) for v in einf],
+                )
 
     def sums(self, state: DGState):
         """The per-component sums (C,) over the elements with emask > 0:
         the volume-weighted squares of the solution and of its error, and
         the largest error.  A shard's emask marks its owned elements, so
         the parallel diagnostics fold these over the shards."""
+        with span("diag.sums"):
+            return self._sums(state)
+
+    def _sums(self, state: DGState):
         g = self.geom
         C, K = self.system.ncomp, g.ndof
         dt_, dev = state.u.dtype, state.u.device
         Uv = uview(state.u, C, K)
+        if K > 1:
+            count("host_syncs")         # the read of the mask test
         mixed = K > 1 and bool((state.ndofel == 1).any())
         p0 = None
         if mixed:
@@ -301,6 +339,7 @@ class DGDiagnostics:
         e2 = torch.zeros(C, dtype=dt_, device=dev)
         einf = torch.zeros(C, dtype=dt_, device=dev)
         for gi in range(len(self.w)):
+            count("host_syncs", 2)      # the two uploads below
             B = torch.as_tensor(self.B[gi], dtype=dt_, device=dev)[:, None]
             sgp = (Uv * B).sum(dim=1)                       # (C,E)
             xi = torch.as_tensor(self.pts[gi], dtype=dt_, device=dev)[:, None]

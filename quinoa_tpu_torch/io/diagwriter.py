@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+from ..base.profiler import span
+
 
 class DiagWriter:
     def __init__(self, path: str, ncomp: int,
@@ -37,13 +39,14 @@ class DiagWriter:
         self._fh.write("# " + "\t".join(f"{i + 1}:{c}" for i, c in enumerate(cols)) + "\n")
 
     def write(self, it: int, t: float, dt: float, l2sol, l2err=None, linferr=None):
-        F = self._f
-        row: List[str] = [str(it), F(t), F(dt)]
-        row += [F(v) for v in l2sol]
-        row += [F(v) for v in (l2err if l2err is not None else [])]
-        row += [F(v) for v in (linferr if linferr is not None else [])]
-        self._fh.write("\t".join(row) + "\n")
-        self._fh.flush()
+        with span("diag.write"):
+            F = self._f
+            row: List[str] = [str(it), F(t), F(dt)]
+            row += [F(v) for v in l2sol]
+            row += [F(v) for v in (l2err if l2err is not None else [])]
+            row += [F(v) for v in (linferr if linferr is not None else [])]
+            self._fh.write("\t".join(row) + "\n")
+            self._fh.flush()
 
     def close(self):
         self._fh.close()

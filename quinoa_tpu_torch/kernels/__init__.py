@@ -26,6 +26,8 @@ import subprocess
 import numpy as np
 import torch
 
+from ..base.profiler import count, span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -162,13 +164,23 @@ def _compile(so: str):
 def build() -> ctypes.CDLL:
     """Compile csrc/*.cu if needed and load the library (once per
     process).  The compiler's register/spill report is kept beside the
-    library as <name>.log."""
+    library as <name>.log.  Spans (base/profiler.py): kernels.build (nvcc,
+    which also counts one kernels_built) and kernels.load."""
     global _lib
     if _lib is not None:
         return _lib
     so = library_path()
     if not os.path.exists(so):
-        _compile(so)
+        with span("kernels.build"):
+            _compile(so)
+        count("kernels_built")
+    with span("kernels.load"):
+        _lib = _load(so)
+    return _lib
+
+
+def _load(so: str) -> ctypes.CDLL:
+    """The library at so, with the argument types of its entries."""
     lib = ctypes.CDLL(so)
     P, D, L = ctypes.c_void_p, ctypes.c_double, ctypes.c_longlong
     I = ctypes.c_int
@@ -215,7 +227,6 @@ def build() -> ctypes.CDLL:
         fn = getattr(lib, f"qtk_mm_face_wflux_{sfx}")
         fn.argtypes = [P] * 10 + [D] * 6 + [P, D, P, P, I, I, I, L, L, P]
         fn.restype = ctypes.c_int
-    _lib = lib
     return lib
 
 

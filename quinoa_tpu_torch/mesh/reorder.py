@@ -14,6 +14,7 @@ from typing import Tuple
 
 import numpy as np
 
+from ..base.profiler import span
 from .unsmesh import UnsMesh
 
 
@@ -75,13 +76,18 @@ def hilbert_element_reorder(mesh: UnsMesh) -> Tuple[UnsMesh, np.ndarray]:
     """Renumber ELEMENTS along the Hilbert curve (nodes untouched).
 
     Returns (new mesh, eorder) with eorder new->old: new.inpoel[i] =
-    mesh.inpoel[eorder[i]]."""
-    centroids = mesh.coords[mesh.inpoel].mean(axis=1)
-    eorder = np.argsort(hilbert_codes(centroids), kind="stable")
-    out = UnsMesh(coords=mesh.coords, inpoel=mesh.inpoel[eorder])
-    out.bface = dict(mesh.bface)
-    out.bnode = mesh.bnode
-    return out, eorder
+    mesh.inpoel[eorder[i]].  Spans (base/profiler.py): reorder, and inside
+    it reorder.codes, reorder.sort and reorder.permute."""
+    with span("reorder"):
+        with span("reorder.codes"):
+            codes = hilbert_codes(mesh.coords[mesh.inpoel].mean(axis=1))
+        with span("reorder.sort"):
+            eorder = np.argsort(codes, kind="stable")
+        with span("reorder.permute"):
+            out = UnsMesh(coords=mesh.coords, inpoel=mesh.inpoel[eorder])
+            out.bface = dict(mesh.bface)
+            out.bnode = mesh.bnode
+        return out, eorder
 
 
 def first_touch_node_reorder(mesh: UnsMesh) -> Tuple[UnsMesh, np.ndarray]:

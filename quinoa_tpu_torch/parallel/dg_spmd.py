@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..base.lockstep import run_lockstep
+from ..base.profiler import count, span
 from ..inciter.dg import DGDiagnostics, DGSolver, DGState
 from ..pde.dg import dg_initialize
 from .dg_shard import ShardedDG
@@ -93,16 +94,17 @@ class SPMDDGSolver:
         return self.sharded.ndof
 
     def initial_state(self, t0: float = 0.0) -> DGState:
-        us, nds, ts, its, dts = [], [], [], [], []
-        for g in self.sharded.geoms:
-            u = dg_initialize(self.system, g, t0).to(g.dtype).contiguous()
-            us.append(u)
-            nds.append(torch.full((g.nelem,), g.ndof, dtype=torch.int32,
-                                  device=g.device))
-            ts.append(torch.tensor(t0, dtype=g.dtype, device=g.device))
-            its.append(torch.tensor(0, dtype=torch.int32, device=g.device))
-            dts.append(torch.tensor(0.0, dtype=g.dtype, device=g.device))
-        return DGState(u=us, ndofel=nds, t=ts, it=its, dt=dts)
+        with span("initial_state"):
+            us, nds, ts, its, dts = [], [], [], [], []
+            for g in self.sharded.geoms:
+                u = dg_initialize(self.system, g, t0).to(g.dtype).contiguous()
+                us.append(u)
+                nds.append(torch.full((g.nelem,), g.ndof, dtype=torch.int32,
+                                      device=g.device))
+                ts.append(torch.tensor(t0, dtype=g.dtype, device=g.device))
+                its.append(torch.tensor(0, dtype=torch.int32, device=g.device))
+                dts.append(torch.tensor(0.0, dtype=g.dtype, device=g.device))
+            return DGState(u=us, ndofel=nds, t=ts, it=its, dt=dts)
 
     def shard_state(self, state: DGState, s: int) -> DGState:
         return DGState(u=state.u[s], ndofel=state.ndofel[s], t=state.t[s],
@@ -112,7 +114,8 @@ class SPMDDGSolver:
         gens = [sv.step_coroutine(self.shard_state(state, s),
                                   owned=self.sharded.owned[s])
                 for s, sv in enumerate(self.shards)]
-        outs = run_lockstep(gens, self._answer)
+        with span("step"):
+            outs = run_lockstep(gens, self._answer)
         return DGState(**{f: [getattr(o, f) for o in outs]
                           for f in ("u", "ndofel", "t", "it", "dt")})
 
@@ -134,6 +137,7 @@ class SPMDDGSolver:
         einf = g.pmax([p[2] for p in parts])[0]
 
         def host(x):
+            count("host_syncs")
             return x.detach().cpu().numpy()
 
         return (host(torch.sqrt(s2 / vol_tot)),

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..base.lockstep import run_lockstep
+from ..base.profiler import span
 from ..fct.fct import FCT
 from ..inciter.diagcg import CGState, diagcg_advance_coroutine
 from ..pde.cg import cg_gather
@@ -57,7 +58,8 @@ class _CGShardSolver:
     def step(self, state: CGState) -> CGState:
         gens = [self._step_coroutine(s, self.shard_state(state, s))
                 for s in range(self.cg.nshard)]
-        outs = run_lockstep(gens, self._answer)
+        with span("step"):
+            outs = run_lockstep(gens, self._answer)
         return CGState(**{f: [getattr(o, f) for o in outs]
                           for f in ("u", "t", "it", "dt")})
 

@@ -25,6 +25,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..base.profiler import count, span
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..mesh.derived import _TET_FACES, gen_esuel, gen_faces
 from ..ops.basis import eval_basis_cm, eval_basis_np, eval_dbdxi, mass_diag
@@ -228,66 +229,79 @@ def build_dggeom(
     unless ``device`` says otherwise.
 
     bc_sidesets maps side-set id -> BC code; unlisted boundary faces
-    default to extrapolate.
+    default to extrapolate.  Its spans (base/profiler.py): geometry, and
+    inside it the host phases geometry.jacobians, geometry.faces,
+    geometry.face_tables and geometry.fose, then geometry.upload, the
+    copies onto the device.
     """
-    device = resolve_device(device)
+    with span("geometry"):
+        return _build_dggeom(mesh, ndof, bc_sidesets, dtype,
+                             resolve_device(device))
+
+
+def _build_dggeom(mesh, ndof, bc_sidesets, dtype, device) -> DGGeom:
     coords, inpoel = mesh.coords, mesh.inpoel
     E = mesh.nelem
 
-    n0 = coords[inpoel[:, 0]]
-    Jm = np.stack(
-        [
-            coords[inpoel[:, 1]] - n0,
-            coords[inpoel[:, 2]] - n0,
-            coords[inpoel[:, 3]] - n0,
-        ],
-        axis=2,
-    )  # (E,3,3)
-    detJ = np.linalg.det(Jm)
-    if not (detJ > 0).all():
-        raise ValueError("mesh has non-positive element Jacobians")
-    vol = detJ / 6.0
-    jacInv = np.linalg.inv(Jm)
+    with span("geometry.jacobians"):
+        n0 = coords[inpoel[:, 0]]
+        Jm = np.stack(
+            [
+                coords[inpoel[:, 1]] - n0,
+                coords[inpoel[:, 2]] - n0,
+                coords[inpoel[:, 3]] - n0,
+            ],
+            axis=2,
+        )  # (E,3,3)
+        detJ = np.linalg.det(Jm)
+        if not (detJ > 0).all():
+            raise ValueError("mesh has non-positive element Jacobians")
+        vol = detJ / 6.0
+        jacInv = np.linalg.inv(Jm)
 
-    fd = gen_faces(inpoel, mesh.nnode)
-    esuf = fd["esuf"]
-    inpofa = fd["inpofa"]
-    nbfac = fd["nbfac"]
-    F = esuf.shape[0]
+    with span("geometry.faces"):
+        fd = gen_faces(inpoel, mesh.nnode)
+        esuf = fd["esuf"]
+        inpofa = fd["inpofa"]
+        nbfac = fd["nbfac"]
+        F = esuf.shape[0]
 
-    a = coords[inpofa[:, 0]]
-    b = coords[inpofa[:, 1]]
-    c = coords[inpofa[:, 2]]
-    nvec = np.cross(b - a, c - a)
-    farea = 0.5 * np.linalg.norm(nvec, axis=1)
-    fn = nvec / (2.0 * farea[:, None])
+        a = coords[inpofa[:, 0]]
+        b = coords[inpofa[:, 1]]
+        c = coords[inpofa[:, 2]]
+        nvec = np.cross(b - a, c - a)
+        farea = 0.5 * np.linalg.norm(nvec, axis=1)
+        fn = nvec / (2.0 * farea[:, None])
 
-    tp, _ = gauss_tri(ng_face(ndof))
-    shp = np.stack([1.0 - tp[:, 0] - tp[:, 1], tp[:, 0], tp[:, 1]], axis=1)
-    el = esuf[:, 0].astype(np.int64)
-    er = np.where(esuf[:, 1] < 0, el, esuf[:, 1]).astype(np.int64)
-    xi_l, xi_r = face_xi(coords, inpofa, shp, jacInv, n0, el, er)
+    with span("geometry.face_tables"):
+        tp, _ = gauss_tri(ng_face(ndof))
+        shp = np.stack([1.0 - tp[:, 0] - tp[:, 1], tp[:, 0], tp[:, 1]],
+                       axis=1)
+        el = esuf[:, 0].astype(np.int64)
+        er = np.where(esuf[:, 1] < 0, el, esuf[:, 1]).astype(np.int64)
+        xi_l, xi_r = face_xi(coords, inpofa, shp, jacInv, n0, el, er)
 
-    bctype = np.zeros(F, dtype=np.int32)
-    bctype[:nbfac] = BC_EXTRAPOLATE
-    if bc_sidesets:
-        key2f = {tuple(sorted(inpofa[i])): i for i in range(nbfac)}
-        for ss, code in bc_sidesets.items():
-            for tri in mesh.bface.get(ss, ()):
-                f = key2f.get(tuple(sorted(tri)))
-                if f is not None:
-                    bctype[f] = code
+        bctype = np.zeros(F, dtype=np.int32)
+        bctype[:nbfac] = BC_EXTRAPOLATE
+        if bc_sidesets:
+            key2f = {tuple(sorted(inpofa[i])): i for i in range(nbfac)}
+            for ss, code in bc_sidesets.items():
+                for tri in mesh.bface.get(ss, ()):
+                    f = key2f.get(tuple(sorted(tri)))
+                    if f is not None:
+                        bctype[f] = code
 
-    # faces sorted by their left element, as the JAX geometry (fose is
-    # built from the sorted order, so face ids agree between packages)
-    forder = np.argsort(el, kind="stable")
-    el, er = el[forder], er[forder]
-    fn, farea = fn[forder], farea[forder]
-    xi_l, xi_r = xi_l[forder], xi_r[forder]
-    bctype = bctype[forder]
+        # faces sorted by their left element, as the JAX geometry (fose is
+        # built from the sorted order, so face ids agree between packages)
+        forder = np.argsort(el, kind="stable")
+        el, er = el[forder], er[forder]
+        fn, farea = fn[forder], farea[forder]
+        xi_l, xi_r = xi_l[forder], xi_r[forder]
+        bctype = bctype[forder]
 
-    fose, fsideR = build_fose(el, er, E)
-    esuel = gen_esuel(inpoel, mesh.nnode)
+    with span("geometry.fose"):
+        fose, fsideR = build_fose(el, er, E)
+        esuel = gen_esuel(inpoel, mesh.nnode)
 
     arrays = dict(
         vol=vol,
@@ -312,7 +326,8 @@ def build_dggeom(
     )
     from ..convert import geom_from_arrays
 
-    return geom_from_arrays(arrays, device=device, dtype=dtype)
+    with span("geometry.upload"):
+        return geom_from_arrays(arrays, device=device, dtype=dtype)
 
 
 # -- helpers -----------------------------------------------------------------
@@ -420,6 +435,7 @@ def volume_rhs(system, geom: DGGeom, U, t=0.0):
     C, K, E = system.ncomp, geom.ndof, U.shape[-1]
     tb = geom.tables
     dt_, dev = U.dtype, U.device
+    count("host_syncs", 2)              # the two uploads below
     B_vol = torch.tensor(tb["B_vol"], dtype=dt_, device=dev)       # (G,K)
     wdB = torch.tensor(tb["w_vol"][:, None, None] * tb["dBdxi_vol"],
                        dtype=dt_, device=dev)                     # (G,K,3)
@@ -434,6 +450,7 @@ def volume_rhs(system, geom: DGGeom, U, t=0.0):
     else:
         Rv = U.new_zeros((C, K, E))
     if system.has_src:
+        count("host_syncs")
         wB = torch.tensor(tb["w_vol"][:, None] * tb["B_vol"], dtype=dt_,
                           device=dev)                             # (G,K)
         Rv = Rv + torch.einsum("gk,cge->cke", wB, system.src(gp, t))
@@ -448,6 +465,7 @@ def source_rhs(system, geom: DGGeom, t):
     scaling (quinoa_tpu/pde/dg.py:364-370); the two differ by round-off."""
     C, K = system.ncomp, geom.ndof
     tb = geom.tables
+    count("host_syncs")
     wB = torch.tensor(tb["w_vol"][:, None] * tb["B_vol"], dtype=geom.dtype,
                       device=geom.device)                         # (G,K)
     Rs = torch.einsum("gk,cge->cke", wB, system.src(geom.vol_gp, t))
@@ -497,19 +515,23 @@ def dg_rhs(system, geom: DGGeom, U, dofmask, t, accum_plan=None,
     Um = _masked(U, dofmask, C)
     if vol_rhs is not None:
         Rv = vol_rhs
-    elif K == 4 and not system.has_src:
-        Rv = volume_rhs_plain(system, geom, Um, t)   # K1's sum order
     else:
-        Rv = volume_rhs(system, geom, Um, t)
-    if face_gp:
-        # the test functions are not masked: the rows they would zero
-        # belong to inactive dofs, which the dofmask below zeroes anyway
-        r = accumulate_faces(geom, *face_gp_rows(system, geom, Um, t), Rv)
-        delt = None
-    else:
-        r, delt = face_pass_for(system, K)(system, geom, Um, vol_rhs=Rv)
-    if dofmask is not None:
-        r = r * dofmask.repeat(C, 1)
+        with span("volume"):
+            Rv = (volume_rhs_plain(system, geom, Um, t)  # K1's sum order
+                  if K == 4 and not system.has_src
+                  else volume_rhs(system, geom, Um, t))
+    with span("face_pass"):
+        if face_gp:
+            # the test functions are not masked: the rows they would zero
+            # belong to inactive dofs, which the dofmask below zeroes
+            # anyway
+            r = accumulate_faces(geom, *face_gp_rows(system, geom, Um, t),
+                                 Rv)
+            delt = None
+        else:
+            r, delt = face_pass_for(system, K)(system, geom, Um, vol_rhs=Rv)
+        if dofmask is not None:
+            r = r * dofmask.repeat(C, 1)
     return (r, delt) if want_charvel else r
 
 

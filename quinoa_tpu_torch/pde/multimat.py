@@ -53,6 +53,7 @@ from typing import List
 
 import torch
 
+from ..base.profiler import count, span
 from ..ops.face_accum import accumulate_faces, face_gather
 from ..ops.face_fused import delt_plain, mm_face_pass
 from ..ops.nbr_bounds import neighbor_mean_bounds
@@ -273,6 +274,7 @@ class MultiMatSystem:
         delta = 1.0e-4
         dt_, dev = Uv.dtype, Uv.device
         J, Jm = geom.jacInv, geom.Jmat
+        count("host_syncs", 2)          # the two uploads below
         eb = torch.exp(torch.tensor(beta, dtype=dt_, device=dev))
         emb = torch.exp(torch.tensor(-beta, dtype=dt_, device=dev))
         rows = []
@@ -350,17 +352,24 @@ class MultiMatSystem:
     def _rhs_p0(self, geom: DGGeom, U, t, fused, want_delt):
         nmat, C = self.nmat, self.ncomp
         if fused:
-            acc, delt = mm_face_pass(self, geom, U)
-            R, dap, divu = self._split_acc(acc, 1)
-            R = R[:, 0] + self._nonconservative(geom, U, dap, divu)
-            R = R * geom.emask
+            with span("face_pass"):
+                acc, delt = mm_face_pass(self, geom, U)
+                R, dap, divu = self._split_acc(acc, 1)
+            with span("nonconservative"):
+                R = R[:, 0] + self._nonconservative(geom, U, dap, divu)
+            with span("face_pass"):
+                R = R * geom.emask
             return (R, delt) if want_delt else R
         if want_delt:
             raise ValueError("want_delt needs the multimat face pass")
-        acc = accumulate_faces(geom, *self.dirichlet_face_rows(geom, U, t))
-        R, dap, divu = acc[:C], acc[C:C + 3 * nmat], acc[C + 3 * nmat]
-        R = R + self._nonconservative(geom, U, dap, divu)
-        return R * geom.emask
+        with span("face_pass"):
+            acc = accumulate_faces(geom,
+                                   *self.dirichlet_face_rows(geom, U, t))
+            R, dap, divu = acc[:C], acc[C:C + 3 * nmat], acc[C + 3 * nmat]
+        with span("nonconservative"):
+            R = R + self._nonconservative(geom, U, dap, divu)
+        with span("face_pass"):
+            return R * geom.emask
 
     def dirichlet_face_rows(self, geom: DGGeom, U, t):
         """The Dirichlet route's per-face rows (XL, XR), each (C + 3*nmat +
@@ -419,19 +428,28 @@ class MultiMatSystem:
         C = self.ncomp
         E = U.shape[-1]
         Uv = U.reshape(C, K, E)
-        carriers = self.thinc_carriers(geom, Uv) if self.intsharp else None
-        Rv = volume_rhs(self, geom, U, t)
-        if fused:
-            acc, delt = mm_face_pass(self, geom, U, carriers)
-            R, dap, divu = self._split_acc(acc, K)
-            R = Rv.reshape(C, K, E) + R
-        else:
-            if want_delt:
-                raise ValueError("want_delt needs the multimat face pass")
-            R, dap, divu = self._split_acc(
-                self.dirichlet_face_gp_sums(geom, U, carriers, Rv, t), K)
-        R = R + self._nonconservative_ho(geom, Uv, dap, divu)
-        R = (R * geom.emask).reshape(C * K, E)
+        # spans (base/profiler.py): the THINC carriers, the face sums, their
+        # split and the emask product are the face pass's; the sum with the
+        # non-conservative terms is theirs
+        with span("volume"):
+            Rv = volume_rhs(self, geom, U, t)
+        with span("face_pass"):
+            carriers = (self.thinc_carriers(geom, Uv) if self.intsharp
+                        else None)
+            if fused:
+                acc, delt = mm_face_pass(self, geom, U, carriers)
+                R, dap, divu = self._split_acc(acc, K)
+                R = Rv.reshape(C, K, E) + R
+            else:
+                if want_delt:
+                    raise ValueError("want_delt needs the multimat face "
+                                     "pass")
+                R, dap, divu = self._split_acc(
+                    self.dirichlet_face_gp_sums(geom, U, carriers, Rv, t), K)
+        with span("nonconservative"):
+            R = R + self._nonconservative_ho(geom, Uv, dap, divu)
+        with span("face_pass"):
+            R = (R * geom.emask).reshape(C * K, E)
         return (R, delt) if want_delt else R
 
     def dirichlet_face_gp_sums(self, geom: DGGeom, U, carriers, Rv, t):
@@ -463,6 +481,7 @@ class MultiMatSystem:
         V = geom.vol * geom.emask + (1.0 - geom.emask)
         dapv = dap / V                                   # (3*nmat, E)
         divuv = divu / V                                 # (E,)
+        count("host_syncs", 2)          # the two uploads below
         B_vol = torch.as_tensor(tb["B_vol"], dtype=dt_, device=dev)  # (G,K)
         wB = torch.as_tensor(tb["w_vol"][:, None] * tb["B_vol"], dtype=dt_,
                              device=dev)
@@ -686,28 +705,34 @@ class MultiMatSolver:
     def initial_state(self, t0=0.0):
         from ..inciter.dg import DGState
 
-        g = self.geom
-        # L2 projection onto the modal basis (P0: the centroid value)
-        u0 = dg_initialize(self.system, g, t0)
-        return DGState(
-            u=u0.to(g.dtype).contiguous(),
-            ndofel=torch.full((g.nelem,), g.ndof, dtype=torch.int32,
-                              device=g.device),
-            t=torch.tensor(t0, dtype=g.dtype, device=g.device),
-            it=torch.tensor(0, dtype=torch.int32, device=g.device),
-            dt=torch.tensor(0.0, dtype=g.dtype, device=g.device),
-        )
+        with span("initial_state"):
+            g = self.geom
+            # L2 projection onto the modal basis (P0: the centroid value)
+            u0 = dg_initialize(self.system, g, t0)
+            return DGState(
+                u=u0.to(g.dtype).contiguous(),
+                ndofel=torch.full((g.nelem,), g.ndof, dtype=torch.int32,
+                                  device=g.device),
+                t=torch.tensor(t0, dtype=g.dtype, device=g.device),
+                it=torch.tensor(0, dtype=torch.int32, device=g.device),
+                dt=torch.tensor(0.0, dtype=g.dtype, device=g.device),
+            )
 
     def step(self, state):
         from ..base.lockstep import run_alone
 
-        return run_alone(self.step_coroutine(state))
+        with span("step"):
+            return run_alone(self.step_coroutine(state))
 
     def step_coroutine(self, state, owned=None):
         """The step as a coroutine (base/lockstep.py): ("halo", u) at each
         stage's start and after the limiter, ("min", dt) for the global
         time step; on a shard only the ``owned`` elements advance
-        (quinoa_tpu/parallel/dg_spmd.py:471-524)."""
+        (quinoa_tpu/parallel/dg_spmd.py:471-524).
+
+        Its spans (base/profiler.py) partition each stage: limit, dt,
+        volume, face_pass, nonconservative (in rhs_routed) and rk_update;
+        each closes before the next yield."""
         from ..inciter.dg import DGState
 
         g, system = self.geom, self.system
@@ -716,30 +741,34 @@ class MultiMatSolver:
         for s in range(3):
             u = yield "halo", u
             if self.limiter is not None:
-                u = self._limit(u)
+                with span("limit"):
+                    u = self._limit(u)
                 u = yield "halo", u
             if s == 0:
                 # RK anchor is the LIMITED stage-0 solution (DG.cpp:1471);
                 # dt on the limited state as well
                 un = u
                 if dt is None and not self.fused_ok:
-                    dt = yield "min", system.dt(g, u) * self.cfl \
-                        * self.cflscale
+                    with span("dt"):
+                        dt = system.dt(g, u) * self.cfl * self.cflscale
+                    dt = yield "min", dt
             if self.fused_ok and s == 0 and self.const_dt is None:
                 # the face pass emits the dt charvel sums with the rhs
                 r, delt = system.rhs_routed(g, u, state.t, True,
                                             want_delt=True)
-                dt = yield "min", dg_dt_from_delt(g, delt) * self.cfl \
-                    * self.cflscale
+                with span("dt"):
+                    dt = dg_dt_from_delt(g, delt) * self.cfl * self.cflscale
+                dt = yield "min", dt
             else:
                 r = system.rhs_routed(g, u, state.t, self.fused_ok)
-            unew = RK0[s] * un + RK1[s] * (u + dt * r * self.minv)
-            if g.ndof > 1:
-                unew = clean_alpha_closure(unew, system.ncomp, g.ndof,
-                                           system.nmat)
-            if owned is not None:
-                unew = torch.where(owned, unew, u)
-            u = unew
+            with span("rk_update"):
+                unew = RK0[s] * un + RK1[s] * (u + dt * r * self.minv)
+                if g.ndof > 1:
+                    unew = clean_alpha_closure(unew, system.ncomp, g.ndof,
+                                               system.nmat)
+                if owned is not None:
+                    unew = torch.where(owned, unew, u)
+                u = unew
         return DGState(u=u, ndofel=state.ndofel, t=state.t + dt,
                        it=state.it + 1, dt=dt)
 
