@@ -41,12 +41,12 @@ parallel layer (every shard resident on the one card):
            K12 and K13 at (K, G) = (1, 1) on a perturbed 48^3 Sod state,
            K14 mm_face_wflux (nmat 2 at P0 and
            P1, nmat 3 at P0) and K13 at its 16 and 22 rows on perturbed
-           multimat states, K4 at mm_p1's 9 components, K5 on
+           multimat states, K4 and K15 at mm_p1's 9 components, K5 on
            mm_iface's 12 rows and K6 on its Dirichlet face rows (22)
            (float64 on small meshes); the Lax-Friedrichs flavour of K12
            on a perturbed, limited 48^3 Sod P1 state (and at K = 1, 4 and
            10 in float64), the THINC flavour of K14 (nmat 3) with K13 at 22
-           rows and K4 at 12 components on the limited 48^3 interface
+           rows, K4 and K15 at 12 components on the limited 48^3 interface
            advection state (THINC at nmat 2 and 3 in float64), with the
            share of THINC-flagged face points; K5 at mm_iface_p1's 108
            rows (state and THINC carriers) and 48 rows (the dt sweep's
@@ -107,7 +107,7 @@ parallel layer (every shard resident on the one card):
            K13 at (1, 1), 3 launches each a step;
 13. mm_p0   two-material MMSodShocktube, MultiMatSolver DG(P0), same mesh
            and faces, cfl 0.5: through K14 and K13 (16 rows);
-14. mm_p1   the same at DG(P1) with consistent Superbee: K4, K14, K13;
+14. mm_p1   the same at DG(P1) with consistent Superbee: K15, K14, K13;
 15. mm_iface three-material MMInterfaceAdvection at DG(P0), Dirichlet on
            all six sides, cfl 0.4: the Dirichlet route, K5 (8 a step) and
            K6 (3 a step);
@@ -116,7 +116,7 @@ parallel layer (every shard resident on the one card):
            K12 (face_wflux_lf) and K13, 3 launches each a step;
 17. mm_thinc three-material MMInterfaceAdvection at DG(P1) with THINC
            interface sharpening (beta 2.5) and consistent Superbee,
-           extrapolate on all six sides, cfl 0.4: K4 (12 components), the
+           extrapolate on all six sides, cfl 0.4: K15 (12 components), the
            THINC flavour of K14 (mm_face_wflux_thinc) and K13 (22 rows).
            Paths 12-18 gate L2(sol) after 11 steps against the JAX
            package's CPU float32 run (JAX_L2, jax_reference_l2.py) and,
@@ -126,7 +126,7 @@ parallel layer (every shard resident on the one card):
            non-conservative terms and alpha closure (mm_thinc: and its
            THINC carriers).
 18. mm_iface_p1 the THINC interface advection of path 17 with Dirichlet
-           on all six sides: the face Gauss-point route, K4 (3 a step), K5
+           on all six sides: the face Gauss-point route, K15 (3 a step), K5
            (8 a step: el and er of each stage's rhs on the state and its
            carriers, and of the stage-0 dt sweep) and K6 (3 a step), the
            ghost, THINC and AUSM+up in torch; gated like paths 12-17, with
@@ -233,7 +233,7 @@ parallel layer (every shard resident on the one card):
            it, and the 4 pieces joined equal its gathered field;
 31. spmd_legs DiagCG SlotCyl 64^3 --npes 4 (K10, K11; the FCT bounds of
            its sharded checkpoint), ALECG SlotCyl 48^3 --npes 4 (K7-K9)
-           and multimat Sod P1 48^3 --npes 2 -u 0.5 (K4, K14, K13; the
+           and multimat Sod P1 48^3 --npes 2 -u 0.5 (K15, K14, K13; the
            JAX builder runs it as 2 plain shards) through the command,
            launches counted over each run, row 11 gated on JAX_L2 as
            their single-device paths;
@@ -741,6 +741,9 @@ KERNELS = {
                       "quinoa_tpu/ops/face_fused.py:762"),
     "mm_face_wflux_thinc": ("quinoa_tpu_torch/csrc/mm_face_wflux.cu",
                             "quinoa_tpu/ops/face_fused.py:762"),
+    # the multimat path's bounds (B6) with the consistent Superbee after it
+    "mm_limit": ("quinoa_tpu_torch/csrc/mm_limit.cu",
+                 "quinoa_tpu/ops/nbr_bounds.py:258"),
 }
 #: the kernel instances of the paths, listed in the kernels line beside
 #: the kernels above: (entry, launch counter, path); the source and the
@@ -756,13 +759,12 @@ INSTANCES = (
     ("basis_accum (R=16, K=1)", "basis_accum", "mm_p0"),
     ("mm_face_wflux (K=4)", "mm_face_wflux", "mm_p1"),
     ("basis_accum (R=16, K=4)", "basis_accum", "mm_p1"),
-    ("nbr_bounds (C=9, K=4)", "nbr_bounds", "mm_p1"),
     ("face_gather (R=12)", "face_gather", "mm_iface"),
     ("face_accum (R=22)", "face_accum", "mm_iface"),
     ("face_wflux LF (K=4)", "face_wflux_lf", "p1_lf"),
     ("mm_face_wflux THINC (nmat 3, K=4)", "mm_face_wflux_thinc", "mm_thinc"),
     ("basis_accum (R=22, K=4)", "basis_accum", "mm_thinc"),
-    ("nbr_bounds (C=12, K=4)", "nbr_bounds", "mm_thinc"),
+    ("mm_limit (nmat 3, K=4)", "mm_limit", "mm_thinc"),
     ("face_gather (R=108)", "face_gather", "mm_iface_p1"),
     ("face_gather (R=48)", "face_gather", "mm_iface_p1"),
     ("face_accum (R=88)", "face_accum", "mm_iface_p1"),
@@ -796,14 +798,14 @@ PATHS = {
     "p2": {"face_wflux": 3, "basis_accum": 3},
     "p0": {"face_wflux": 3, "basis_accum": 3},
     "mm_p0": {"mm_face_wflux": 3, "basis_accum": 3},
-    "mm_p1": {"nbr_bounds": 3, "mm_face_wflux": 3, "basis_accum": 3},
+    "mm_p1": {"mm_limit": 3, "mm_face_wflux": 3, "basis_accum": 3},
     "mm_iface": {"face_gather": 8, "face_accum": 3},
     "p1_lf": {"limit_vol": 3, "face_wflux_lf": 3, "basis_accum": 3},
-    "mm_thinc": {"nbr_bounds": 3, "mm_face_wflux_thinc": 3,
+    "mm_thinc": {"mm_limit": 3, "mm_face_wflux_thinc": 3,
                  "basis_accum": 3},
     # K5: el and er of each stage's rhs (108 rows) and of the stage-0 dt
     # sweep (48 rows)
-    "mm_iface_p1": {"nbr_bounds": 3, "face_gather": 8, "face_accum": 3},
+    "mm_iface_p1": {"mm_limit": 3, "face_gather": 8, "face_accum": 3},
     # the walker's draws and steps are torch ops: no hand kernel
     "walker": {},
 }
@@ -815,11 +817,12 @@ MAIN_PATH = {"limit_vol": "p1", "nbr_bounds": "pdg",
              "node_gather": "diagcg", "node_assemble": "diagcg",
              "face_wflux": "p1", "basis_accum": "p1",
              "mm_face_wflux": "mm_p0", "face_wflux_lf": "p1_lf",
-             "mm_face_wflux_thinc": "mm_thinc"}
+             "mm_face_wflux_thinc": "mm_thinc", "mm_limit": "mm_p1"}
 #: floating-point operations a kernel does per entity (element, face,
 #: edge or node; per row where it says so), counted from its source and
 #: rounded up.  Every kernel here is bound by bytes by a wide margin.
-OPS = {"limit_vol": 2000, "nbr_bounds_row": 8, "face_gather": 0,
+OPS = {"limit_vol": 2000, "nbr_bounds_row": 8, "mm_limit_row": 250,
+       "face_gather": 0,
        "face_accum_row": 4, "alecg_vol_row": 40, "alecg_vol_cf": 400,
        "alecg_edge_row": 3, "alecg_edge_cf": 70, "cg_assemble_slot": 1,
        "node_gather": 0, "node_assemble_slot": 1,
@@ -1323,20 +1326,21 @@ def mm_kernel_checks(torch, solver, dtype_name, timed):
     return out
 
 
-def nbr_bounds_check(torch, solver, dtype_name, timed):
-    """K4 against its plain version on mm_perturbed's state of the
-    multimat solver (all C = 3 nmat + 3 components); returns its
+def mm_limit_check(torch, solver, dtype_name, timed):
+    """K15 against its plain version bit for bit on mm_perturbed's state of
+    the multimat P1 solver (all C = 3 nmat + 3 components); returns its
     record."""
     from quinoa_tpu_torch import kernels
-    from quinoa_tpu_torch.ops.nbr_bounds import neighbor_mean_bounds_plain
+    from quinoa_tpu_torch.pde.multimat import mm_consistent_limit_plain
 
-    g, C, K = solver.geom, solver.system.ncomp, solver.geom.ndof
+    g, sy = solver.geom, solver.system
     U = mm_perturbed(torch, solver)
-    return measure(torch, "nbr_bounds", f"E={g.nelem} C={C} K={K}",
-                   lambda: kernels.nbr_bounds(U, g.esuelT, C, K),
-                   lambda: neighbor_mean_bounds_plain(g, U[::K]),
-                   (U[::K], g.esuelT), OPS["nbr_bounds_row"] * C * g.nelem,
-                   dtype_name, timed)
+    return measure(torch, "mm_limit", f"E={g.nelem} nmat={sy.nmat} "
+                   f"K={g.ndof}",
+                   lambda: kernels.mm_limit(U, g.esuelT, g.ktab, sy.nmat),
+                   lambda: mm_consistent_limit_plain(sy, g, U),
+                   (U, g.esuelT), OPS["mm_limit_row"] * sy.ncomp * g.nelem,
+                   dtype_name, timed, bitwise=True)
 
 
 def face_gp_kernel_checks(torch, geom, U, C, fgeom, Uf, cL, cR, base,
@@ -1951,8 +1955,8 @@ def p2_breakdown(torch, solver, state, reps=5):
 
 def mm_breakdown(torch, solver, name, state, reps=5):
     """Host-clock ms of one multimat P1 stage's parts, each call ending in
-    a synchronize (median of reps): the consistent Superbee limit (K4 and
-    the torch phi), the volume integral, with THINC the carriers, the face
+    a synchronize (median of reps): the consistent Superbee limit (K15),
+    the volume integral, with THINC the carriers, the face
     pass (K14 + K13, or on Dirichlet faces the face Gauss-point route: K5,
     the ghost, THINC and AUSM+up in torch, K6; then also the stage-0 dt
     sweep, K5 and torch), the non-conservative volume terms and the alpha
@@ -3763,8 +3767,9 @@ def main():
     # K4 at mm_p1's 9 components, K5 and K6 at mm_iface's 12 and 22 rows
     rec = mm_face_gp_checks(torch, mm["mm_p1"], mm["mm_iface"], "float32",
                             timed=True)
-    stats["nbr_bounds (C=9, K=4)"] = rec["nbr_bounds"]
     stats["face_gather (R=12)"] = rec["face_gather"]
+    stats["mm_limit"] = mm_limit_check(torch, mm["mm_p1"], "float32",
+                                       timed=True)
     stats["face_accum (R=22)"] = rec["face_accum"]
     lf = mm["p1_lf"]
     ulf, rvlf = limit_vol_plain(lf.system, lf.geom, sod_perturbed(torch, lf))
@@ -3775,7 +3780,7 @@ def main():
     stats["mm_face_wflux_thinc"] = rec["mm_face_wflux_thinc"]
     stats["mm_face_wflux THINC (nmat 3, K=4)"] = rec["mm_face_wflux_thinc"]
     stats["basis_accum (R=22, K=4)"] = rec["basis_accum"]
-    stats["nbr_bounds (C=12, K=4)"] = nbr_bounds_check(
+    stats["mm_limit (nmat 3, K=4)"] = mm_limit_check(
         torch, mm["mm_thinc"], "float32", timed=True)
     # K5 at 108 and 48 rows, K6 at 88 rows (path 18)
     stats.update(mm_iface_p1_checks(torch, mm["mm_iface_p1"], "float32",
@@ -3790,6 +3795,8 @@ def main():
         mm_kernel_checks(torch, sm[name], "float64", timed=False)
     mm_face_gp_checks(torch, sm["mm_p1"], sm["mm_iface"], "float64",
                       timed=False)
+    mm_limit_check(torch, sm["mm_p1"], "float64", timed=False)
+    mm_limit_check(torch, sm["mm_thinc"], "float64", timed=False)
     mm_kernel_checks(torch, mm_solver("mm_p0", sm["mm_p0"].geom, nmat=3),
                      "float64", timed=False)
     lf64 = sm["p1_lf"]

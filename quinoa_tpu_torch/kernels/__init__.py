@@ -72,7 +72,7 @@ launches = {"limit_vol": 0, "nbr_bounds": 0, "face_gather": 0,
             "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0,
             "node_gather": 0, "node_assemble": 0, "face_wflux": 0,
             "face_wflux_lf": 0, "basis_accum": 0, "mm_face_wflux": 0,
-            "mm_face_wflux_thinc": 0}
+            "mm_face_wflux_thinc": 0, "mm_limit": 0}
 
 _lib = None
 
@@ -227,6 +227,9 @@ def _load(so: str) -> ctypes.CDLL:
         fn = getattr(lib, f"qtk_mm_face_wflux_{sfx}")
         fn.argtypes = [P] * 10 + [D] * 6 + [P, D, P, P, I, I, I, L, L, P]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_mm_limit_{sfx}")
+        fn.argtypes = [P, P, P, D, P, I, L, P]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -310,6 +313,30 @@ def nbr_bounds(U, esuelT, ncomp, ndof):
             [_ptr(U), _ptr(esuelT), _ptr(umin), _ptr(umax), int(ncomp),
              int(ndof), E], dev)
     return umin, umax
+
+
+def mm_limit(U, esuelT, ktab, nmat):
+    """K15 (csrc/mm_limit.cu): the consistent-Superbee-limited copy (C*K,
+    E) of the multimat DG(P1) state U, C = 3*nmat + 3 with nmat in
+    MM_NMAT, K = 4: the neighbour-mean bounds, the Superbee phi of every
+    component (beta 2, pde/limiter.py superbee_phi's default, as the
+    multimat solvers limit), the common fraction factor
+    (consistent_mm_phi), mode 0 copied and modes 1-3 scaled."""
+    if nmat not in MM_NMAT:
+        raise ValueError(f"the multimat limit kernel takes nmat in "
+                         f"{MM_NMAT}, not {nmat}")
+    E = U.shape[-1]
+    _check("U", U, ((3 * nmat + 3) * K, E), U.dtype, U.device)
+    dev = _cuda_device(U)
+    dt = U.dtype
+    _check("esuelT", esuelT, (4, E), torch.int32, dev)
+    _check("ktab", ktab, (TAB_SIZE,), dt, dev)
+    fn = getattr(build(), f"qtk_mm_limit_{_suffix(dt)}")
+    out = torch.empty_like(U)
+    _launch("mm_limit", fn,
+            [_ptr(U), _ptr(esuelT), _ptr(ktab), 2.0, _ptr(out), int(nmat),
+             E], dev)
+    return out
 
 
 def face_gather(U, idx):

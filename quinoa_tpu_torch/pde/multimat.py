@@ -53,6 +53,7 @@ from typing import List
 
 import torch
 
+from .. import kernels
 from ..base.profiler import count, span
 from ..ops.face_accum import accumulate_faces, face_gather
 from ..ops.face_fused import delt_plain, mm_face_pass
@@ -562,9 +563,17 @@ def clean_alpha_closure(u, C, K, nmat):
 
 def mm_consistent_limit(system, geom: DGGeom, u):
     """Consistent material-fraction Superbee limiting for multimat DG(P1):
-    the neighbour-mean bounds (K4 on a card), the Superbee phi, the
-    common-alpha adjustment (pde/limiter.py consistent_mm_phi), then the
-    P1 dofs scaled by it."""
+    a new (C*K, E) state.  On a CUDA tensor kernel K15
+    (csrc/mm_limit.cu); on a CPU tensor mm_consistent_limit_plain."""
+    if u.device.type == "cpu":
+        return mm_consistent_limit_plain(system, geom, u)
+    return kernels.mm_limit(u, geom.esuelT, geom.ktab, system.nmat)
+
+
+def mm_consistent_limit_plain(system, geom: DGGeom, u):
+    """K15's plain version: the neighbour-mean bounds (K4 on a card), the
+    Superbee phi, the common-alpha adjustment (pde/limiter.py
+    consistent_mm_phi), then the P1 dofs scaled by it."""
     C, K = system.ncomp, geom.ndof
     E = u.shape[-1]
     bounds = neighbor_mean_bounds(geom, u, C)

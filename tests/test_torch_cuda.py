@@ -41,7 +41,7 @@ ZERO = {"limit_vol": 0, "nbr_bounds": 0,
         "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0,
         "node_gather": 0, "node_assemble": 0, "face_wflux": 0,
         "face_wflux_lf": 0, "basis_accum": 0, "mm_face_wflux": 0,
-        "mm_face_wflux_thinc": 0}
+        "mm_face_wflux_thinc": 0, "mm_limit": 0}
 
 
 @pytest.fixture(scope="module")
@@ -535,7 +535,7 @@ def _mm(case, device, dtype=torch.float64):
         system = MultiMatSystem(MMSodShocktube())
         kw = {"cfl": 0.5, "limiter": "superbeep1" if ndof == 4 else None}
         used = ("mm_face_wflux", "basis_accum") + (
-            ("nbr_bounds",) if ndof == 4 else ())
+            ("mm_limit",) if ndof == 4 else ())
     mesh, _ = hilbert_element_reorder(mesh)
     g = build_dggeom(mesh, ndof, bc, dtype=dtype, device=device)
     return MultiMatSolver(system, g, **kw), used
@@ -609,6 +609,76 @@ def test_mm_face_kernel_matches_plain_version(card, case, dtype):
     torch.cuda.synchronize()
     assert kernels.launches == {**ZERO, "mm_face_wflux": 2,
                                 "basis_accum": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nmat", [2, 3])
+def test_mm_limit_matches_plain_version(card, nmat, dtype):
+    """K15 against mm_consistent_limit_plain on the same card tensors bit
+    for bit (NaN by position), on a box whose element count leaves a
+    ragged last block, with boundary elements (esuelT = -1).  The state
+    has face points with uNeg on both sides of +-1e-14, an element with
+    zero slopes, one whose fraction phi cuts its density and energy phi in
+    the consistent step, and a NaN density mean that reaches its
+    neighbours through the bounds.  One launch; u is left as it was."""
+    from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE
+    from quinoa_tpu_torch.pde.limiter import superbee_phi
+    from quinoa_tpu_torch.pde.multimat import (MultiMatSolver,
+                                               MultiMatSystem,
+                                               mm_consistent_limit,
+                                               mm_consistent_limit_plain)
+    from quinoa_tpu_torch.pde.problems import (MMInterfaceAdvection,
+                                               MMSodShocktube)
+
+    mesh, _ = hilbert_element_reorder(
+        box_tet_mesh(7, 3, 2, hi=(1.0, 3 / 7, 2 / 7)))
+    g = build_dggeom(mesh, 4, {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
+                               **{i: BC_SYMMETRY for i in range(3, 7)}},
+                     dtype=dtype, device=card)
+    E = g.nelem
+    assert _ragged(E) and bool((g.esuelT < 0).any())
+    sy = MultiMatSystem(MMSodShocktube() if nmat == 2
+                        else MMInterfaceAdvection(nmat=3))
+    C = sy.ncomp
+    assert sy.nmat == nmat and C == 3 * nmat + 3
+    u0 = MultiMatSolver(sy, g).initial_state().u.cpu().double().numpy()
+    rng = np.random.default_rng(31 + nmat)
+    Uv = u0.reshape(C, 4, E).copy()
+    Uv[:, 1:4] = (0.2 * np.abs(Uv[:, :1]) + 1e-3) * rng.uniform(
+        -1.0, 1.0, (C, 3, E))
+    tiny = np.arange(E // 5, E // 5 + 8)
+    Uv[:, 0, tiny] = 0.0
+    Uv[:, 1:4, tiny] = rng.uniform(-4e-14, 4e-14, (C, 3, tiny.size))
+    flat, cut, bad = E // 3, E // 2, 2 * E // 3
+    Uv[:, 1:4, flat] = 0.0
+    Uv[:nmat, 1:4, cut] = 10.0
+    Uv[nmat:2 * nmat, 1:4, cut] = 0.0
+    Uv[2 * nmat + 3:, 1:4, cut] = 0.0
+    Uv[nmat, 0, bad] = np.nan
+    u = torch.as_tensor(Uv.reshape(C * 4, E)).to(dtype).to(card)
+    before = u.clone()
+
+    B = torch.as_tensor(g.tables["B_selfface"].reshape(-1, 4)).to(u)
+    uv = u.view(C, 4, E)
+    uneg = (torch.einsum("pk,cke->cpe", B, uv) - uv[:, None, 0]).abs()
+    assert bool(((uneg > 0) & (uneg < 1e-14)).any())
+    assert bool(((uneg > 1e-14) & (uneg < 4e-14)).any())
+    phi = superbee_phi(g, u, None, C)
+    assert float(phi[:nmat, cut].min()) < min(
+        float(phi[nmat:2 * nmat, cut].min()), float(phi[2 * nmat + 3:,
+                                                        cut].min()))
+
+    kernels.reset_launches()
+    got = mm_consistent_limit(sy, g, u)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**ZERO, "mm_limit": 1}
+    want = mm_consistent_limit_plain(sy, g, u)
+    assert _same((got,), (want,))
+    assert _same((u,), (before,))
+    slopes_nan = got.view(C, 4, E)[:, 1:].isnan().any(dim=1).any(dim=0)
+    assert bool(slopes_nan[bad + 1:].any() | slopes_nan[:bad].any())
+    assert not bool(slopes_nan.all())
+    assert bool((got.view(C, 4, E)[:, 1:, flat] == 0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -769,7 +839,7 @@ def test_lf_and_thinc_on_card_match_cpu(card, case):
 
     used = {"p1_lf": {"limit_vol", "face_wflux_lf", "basis_accum"},
             "p1_lf_pdg": {"nbr_bounds", "face_wflux_lf", "basis_accum"},
-            "mm_thinc": {"nbr_bounds", "mm_face_wflux_thinc",
+            "mm_thinc": {"mm_limit", "mm_face_wflux_thinc",
                          "basis_accum"}}[case]
     a, b = solver(card), solver("cpu")
     kernels.reset_launches()
@@ -811,3 +881,35 @@ def test_sharded_dg_on_card_matches_cpu(card, nshard):
     assert np.isclose(dta, dtb, rtol=1e-12)
     assert la == {**ZERO, "limit_vol": 6 * nshard, "face_wflux": 6 * nshard,
                   "basis_accum": 6 * nshard}
+
+
+def test_sharded_multimat_on_card_matches_cpu(card):
+    """Multimat Sod P1 with consistent Superbee on 2 shards resident on the
+    card against the same sharded run on the CPU, float64, 2 steps: u
+    atol 1e-11 of max(1, max|u|), dt rtol 1e-12, and every shard's
+    limiter through K15 (3 launches a shard a step, no K4)."""
+    from quinoa_tpu_torch.parallel import (SPMDMultiMatSolver, ShardGroup,
+                                           build_dg_shards)
+    from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE
+    from quinoa_tpu_torch.pde.multimat import MultiMatSystem
+    from quinoa_tpu_torch.pde.problems import MMSodShocktube
+
+    mesh = box_tet_mesh(8, 3, 2, hi=(1.0, 0.375, 0.25))
+    bc = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
+          **{i: BC_SYMMETRY for i in range(3, 7)}}
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        sh = build_dg_shards(mesh, 2, 4, bc, dtype=torch.float64,
+                             group=ShardGroup(2, [dev]))
+        s = SPMDMultiMatSolver(MultiMatSystem(MMSodShocktube()), sh,
+                               cfl=0.5, limiter="superbeep1")
+        kernels.reset_launches()
+        st = s.nsteps(s.initial_state(), 2)
+        out[dev.type] = (s.gather_global(st), float(st.dt[0]),
+                         dict(kernels.launches))
+    (a, dta, la), (b, dtb, _) = out["cuda"], out["cpu"]
+    assert np.isfinite(a).all()
+    np.testing.assert_allclose(a, b, rtol=0,
+                               atol=1e-11 * max(1.0, np.abs(b).max()))
+    assert np.isclose(dta, dtb, rtol=1e-12)
+    assert la["mm_limit"] == 12 and la["nbr_bounds"] == 0

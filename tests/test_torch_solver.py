@@ -339,6 +339,8 @@ def test_cpu_tensors_leave_launch_counters_at_zero(runs):
                  device="cpu")
     p2 = DGSolver(TCompFlow(TTaylorGreen()), g2)
     p2.nsteps(p2.initial_state(), 1)
+    mm = _mm_sod_p1()
+    mm.nsteps(mm.initial_state(), 1)
     assert kernels.launches == {"limit_vol": 0, "nbr_bounds": 0,
                                 "face_gather": 0, "face_accum": 0,
                                 "alecg_vol": 0, "alecg_vol_cf": 0,
@@ -346,7 +348,8 @@ def test_cpu_tensors_leave_launch_counters_at_zero(runs):
                                 "cg_assemble": 0, "node_gather": 0,
                                 "node_assemble": 0, "face_wflux": 0,
                                 "face_wflux_lf": 0, "basis_accum": 0,
-                                "mm_face_wflux": 0, "mm_face_wflux_thinc": 0}
+                                "mm_face_wflux": 0, "mm_face_wflux_thinc": 0,
+                                "mm_limit": 0}
     U = torch.zeros(20, tg.nelem, dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.limit_vol(U, tg.esuelT, tg.jacInv, tg.vol, tg.ktab, 2.0,
@@ -367,6 +370,47 @@ def test_cpu_tensors_leave_launch_counters_at_zero(runs):
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.basis_accum(wfl, wfl[0], tg.fose, tg.fsideR, tg.xi_l,
                             tg.xi_r, 4, U)
+    assert set(kernels.launches.values()) == {0}
+
+
+def _mm_sod_p1():
+    """Two-material Sod DG(P1) with consistent Superbee on a small CPU
+    box."""
+    from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE
+    from quinoa_tpu_torch.pde.multimat import MultiMatSolver, MultiMatSystem
+    from quinoa_tpu_torch.pde.problems import MMSodShocktube
+
+    g = t_build(box_tet_mesh(4, 2, 2, hi=(1.0, 0.25, 0.25)), ndof=4,
+                bc_sidesets={1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
+                             **{i: BC_SYMMETRY for i in range(3, 7)}},
+                device="cpu")
+    return MultiMatSolver(MultiMatSystem(MMSodShocktube()), g, cfl=0.5,
+                          limiter="superbeep1")
+
+
+def test_mm_limit_refuses_what_it_does_not_take():
+    """K15's wrapper refuses a CPU tensor, a row count that is not
+    (3*nmat + 3)*4 and an nmat other than 2 or 3 before it builds
+    anything; on the CPU mm_consistent_limit is the plain version."""
+    from quinoa_tpu_torch.pde.multimat import (mm_consistent_limit,
+                                               mm_consistent_limit_plain)
+
+    mm = _mm_sod_p1()
+    g, sy = mm.geom, mm.system
+    u = mm.initial_state().u
+    assert u.shape == (36, g.nelem)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.mm_limit(u, g.esuelT, g.ktab, 2)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.mm_limit(u[:32], g.esuelT, g.ktab, 2)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.mm_limit(u, g.esuelT, g.ktab, 3)
+    for nmat in (1, 4):
+        with pytest.raises(ValueError, match="nmat"):
+            kernels.mm_limit(u, g.esuelT, g.ktab, nmat)
+    assert torch.equal(mm_consistent_limit(sy, g, u),
+                       mm_consistent_limit_plain(sy, g, u))
     assert set(kernels.launches.values()) == {0}
 
 
