@@ -22,7 +22,10 @@ innermost open span.  The counters:
   of a device tensor (``float``, ``bool``, ``.item()``, ``.cpu()``) or a
   copy of a host table onto the device, counted at the site whatever the
   device (on the CPU the site waits for nothing);
-- ``kernels_built``: nvcc builds of the CUDA library in this process.
+- ``kernels_built``: nvcc builds of the CUDA library in this process;
+- ``pref_p0_elements``: the elements at P0 of a p-adaptive state, from
+  the read that the DG diagnostics' mixed P0/P1 test makes anyway (a
+  shard counts its ghosts too).
 
 Kernel launches stay in ``kernels.launches``; the table reports them.
 

@@ -172,7 +172,11 @@ class DGSolver:
 
         Its spans (base/profiler.py) partition each stage: pref, limit,
         volume, face_pass, dt and rk_update; each closes before the next
-        yield."""
+        yield.  pref holds pref.eval (the sticky indicator),
+        pref.propagate (the ring promotion) and pref.mask (the dofmask,
+        the stage-0 zeroing and the masked face input); the split
+        Superbee route's limit holds limit.bounds (K4) and
+        limit.superbee."""
         g, system = self.geom, self.system
         C = system.ncomp
         u = un = state.u
@@ -182,15 +186,15 @@ class DGSolver:
             if s == 0 and self.pref and g.ndof >= 4:
                 # a ghost's sticky history lives with its owner: the
                 # decisions are exchanged, promoted one ring, exchanged
-                with span("pref"):
+                with span("pref"), span("pref.eval"):
                     ndofel = eval_ndof_sticky(g, u, ndofel, C, self.tolref)
                 ndofel = (yield "halo", ndofel[None])[0]
-                with span("pref"):
+                with span("pref"), span("pref.propagate"):
                     ndofel = propagate_ndof(g, ndofel)
                 ndofel = (yield "halo", ndofel[None])[0]
             dofmask = dm = None
             if self.pref:
-                with span("pref"):
+                with span("pref"), span("pref.mask"):
                     dofmask = self._dofmask(ndofel)
                     dm = dofmask.repeat(C, 1)
             rv = None
@@ -198,8 +202,10 @@ class DGSolver:
                 if self.fused_limit:
                     u, rv = superbee_limit_window(g, u, system)
                 elif self.limiter == "superbeep1":
-                    u = superbee_p1(g, u, dofmask, C,
-                                    bounds=neighbor_mean_bounds(g, u, C))
+                    with span("limit.bounds"):
+                        bounds = neighbor_mean_bounds(g, u, C)
+                    with span("limit.superbee"):
+                        u = superbee_p1(g, u, dofmask, C, bounds=bounds)
                 elif self.limiter == "wenop1":
                     u = weno_p1(g, u, dofmask, C, self.cweight)
             if self.fused_limit and system.has_src:
@@ -217,7 +223,7 @@ class DGSolver:
                     # stage 0 (DG.cpp:1452-1469), which also feeds the
                     # anchor: a later ring promotion restarts them from
                     # clean P0 state
-                    with span("pref"):
+                    with span("pref"), span("pref.mask"):
                         u = u * dm
                 un = u
                 if self.const_dt is not None:
@@ -248,7 +254,7 @@ class DGSolver:
                     # writes for inactive dofs are dropped by the restore
                     uf = u
                     if dm is not None and s != 0:
-                        with span("pref"):
+                        with span("pref"), span("pref.mask"):
                             uf = u * dm
                     if rv is None:
                         with span("volume"):
@@ -325,9 +331,17 @@ class DGDiagnostics:
         C, K = self.system.ncomp, g.ndof
         dt_, dev = state.u.dtype, state.u.device
         Uv = uview(state.u, C, K)
+        n_p0 = 0
         if K > 1:
-            count("host_syncs")         # the read of the mask test
-        mixed = K > 1 and bool((state.ndofel == 1).any())
+            # one read: the mixed P0/P1 test and the P0 count.  1 // ndofel
+            # is 1 exactly at P0 (ndofel >= 1); its int32 sum launches as
+            # many kernels as the == and any() it replaces, where a sum of
+            # the bool mask adds a cast
+            count("host_syncs")
+            n_p0 = int((1 // state.ndofel).sum(dtype=torch.int32))
+            if n_p0:
+                count("pref_p0_elements", n_p0)
+        mixed = n_p0 > 0
         p0 = None
         if mixed:
             kmask = (torch.arange(K, device=dev)[None, :, None]

@@ -34,6 +34,7 @@ SOD = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
 SEDOV_SPANS = {"limit", "face_pass", "dt", "rk_update"}
 MM_SPANS = {"limit", "volume", "face_pass", "nonconservative", "dt",
             "rk_update"}
+PDG_SPANS = SEDOV_SPANS | {"pref", "volume"}
 
 
 @pytest.fixture
@@ -52,12 +53,17 @@ def _spin(s):
         pass
 
 
-def _sedov():
+def _sedov(pref=False):
     mesh, _ = hilbert_element_reorder(box_tet_mesh(4, 4, 3,
                                                    hi=(0.4, 0.4, 0.3)))
     g = build_dggeom(mesh, 4, SYM, dtype=torch.float64, device="cpu")
     return DGSolver(DGCompFlow(SedovBlastwave()), g, cfl=0.5,
-                    limiter="superbeep1")
+                    limiter="superbeep1", pref=pref)
+
+
+def _solver(which):
+    return {"sedov": _sedov, "multimat": _mm,
+            "pdg": lambda: _sedov(pref=True)}[which]()
 
 
 def _mm():
@@ -169,9 +175,9 @@ def test_record_bound_keeps_the_table(monkeypatch):
     assert prof.times()[0][3] == 5 and prof.step == 5
 
 
-@pytest.mark.parametrize("which", ["sedov", "multimat"])
+@pytest.mark.parametrize("which", ["sedov", "multimat", "pdg"])
 def test_step_bit_identical_with_tracing_and_its_spans(f64, which):
-    solver = _sedov() if which == "sedov" else _mm()
+    solver = _solver(which)
     s0 = solver.initial_state()
     off = solver.nsteps(s0, 2)
     prof = PhaseProfiler()
@@ -182,8 +188,23 @@ def test_step_bit_identical_with_tracing_and_its_spans(f64, which):
     _well_nested(prof)
     assert prof.step == 2
     assert {r[0] for r in prof.records if r[1] < 0} == {"step"}
-    assert _children(prof, "step") == (SEDOV_SPANS if which == "sedov"
-                                       else MM_SPANS)
+    assert _children(prof, "step") == {"sedov": SEDOV_SPANS,
+                                       "multimat": MM_SPANS,
+                                       "pdg": PDG_SPANS}[which]
+    if which == "pdg":
+        # pref holds the indicator, the promotion and the masks (the
+        # dofmask each stage, the stage-0 zeroing, the masked face input
+        # of stages 1 and 2); the split Superbee route's limit holds K4's
+        # bounds and the torch Superbee
+        assert _children(prof, "pref") == {"pref.eval", "pref.propagate",
+                                           "pref.mask"}
+        assert _children(prof, "limit") == {"limit.bounds",
+                                            "limit.superbee"}
+        n = {k: sum(1 for r in prof.records if r[0] == k)
+             for k in ("pref.eval", "pref.propagate", "pref.mask",
+                       "limit.bounds", "limit.superbee")}
+        assert n == {"pref.eval": 2, "pref.propagate": 2, "pref.mask": 12,
+                     "limit.bounds": 6, "limit.superbee": 6}
     # each stage limits, updates; the stage-0 dt once a step
     n = {k: sum(1 for r in prof.records if r[0] == k)
          for k in ("limit", "dt", "rk_update")}
@@ -191,13 +212,15 @@ def test_step_bit_identical_with_tracing_and_its_spans(f64, which):
     # the multimat step's syncs: two uploads each in the volume integral
     # and the non-conservative terms, every stage
     syncs = {p[-1]: v for (c, p), v in prof.counters.items()}
-    assert syncs == ({} if which == "sedov"
-                     else {"volume": 12, "nonconservative": 12})
+    assert syncs == ({"volume": 12, "nonconservative": 12}
+                     if which == "multimat" else {})
 
 
-@pytest.mark.parametrize("which", ["sedov", "multimat"])
+@pytest.mark.parametrize("which", ["sedov", "multimat", "pdg"])
 def test_diagnostics_syncs_go_to_the_innermost_span(f64, which):
-    solver = _sedov() if which == "sedov" else _mm()
+    """The same syncs a row on every path; on the p-adaptive one the
+    mixed P0/P1 test's one read also gives pref_p0_elements."""
+    solver = _solver(which)
     st = solver.nsteps(solver.initial_state(), 1)
     diag = DGDiagnostics(solver.system, solver.geom)
     rows = diag.compute(st)
@@ -206,10 +229,15 @@ def test_diagnostics_syncs_go_to_the_innermost_span(f64, which):
         assert diag.compute(st) == rows
     C = solver.system.ncomp
     G = len(diag.w)
-    assert prof.counters == {
-        ("host_syncs", ("diag", "diag.read")): 3 * C,
-        ("host_syncs", ("diag", "diag.sums")): 1 + 2 * G}
+    want = {("host_syncs", ("diag", "diag.read")): 3 * C,
+            ("host_syncs", ("diag", "diag.sums")): 1 + 2 * G}
+    n0 = int((st.ndofel == 1).sum())
+    if which == "pdg":
+        assert 0 < n0 < solver.geom.nelem
+        want[("pref_p0_elements", ("diag", "diag.sums"))] = n0
+    assert prof.counters == want
     assert prof.counter("host_syncs") == 3 * C + 1 + 2 * G
+    assert prof.counter("pref_p0_elements") == n0
 
 
 def test_planted_site_counts_in_the_innermost_span():
