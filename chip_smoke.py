@@ -76,8 +76,13 @@ parallel layer (every shard resident on the one card):
            was harvested from (see tpu_precision_initial_u), whose L2(sol)
            must match that file at rtol 5e-4;
 5. pdg     the p-adaptive Sedov step (bench.py --pdg): 1 + 10 steps
-           through K4, K12 and K13, 33 launches each; finite, with P0 and
-           P1 elements; then 5 steps under torch.profiler;
+           through K1's p-adaptive flavour (limit_vol_pref), K12 and K13,
+           33 launches each; finite, with P0 and P1 elements; then that
+           flavour on the next step's input (the dof counts its stage 0
+           takes) against limit_vol_plain(..., ndofel=) bit for bit,
+           timed with the bound of what it moves (a P0 element reads no
+           neighbour), and in float64 on the small Sedov box; then 5 steps
+           under torch.profiler;
 6. hump    GaussHump transport on Dirichlet faces (the face Gauss-point
            path): 1 + 10 steps through K5 (left and right face states of
            every rhs and dt sweep: 8 launches a step) and K6 (3 a step);
@@ -259,6 +264,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -744,6 +750,11 @@ KERNELS = {
     # the multimat path's bounds (B6) with the consistent Superbee after it
     "mm_limit": ("quinoa_tpu_torch/csrc/mm_limit.cu",
                  "quinoa_tpu/ops/nbr_bounds.py:258"),
+    # pdg's bounds (B6), Superbee with the dofmask and volume integral in
+    # one pass: the TPU's fused limiter refuses a dofmask
+    # (maybe_fused_limit), so there B6 runs and the rest is XLA
+    "limit_vol_pref": ("quinoa_tpu_torch/csrc/limit_vol.cu",
+                       "quinoa_tpu/ops/nbr_bounds.py:258"),
 }
 #: the kernel instances of the paths, listed in the kernels line beside
 #: the kernels above: (entry, launch counter, path); the source and the
@@ -789,7 +800,7 @@ MM_SMALL = (8, 3, 2)            # float64 card-vs-CPU and kernel meshes
 #: launches per step of each path; every other kernel must launch 0 times
 PATHS = {
     "p1": {"limit_vol": 3, "face_wflux": 3, "basis_accum": 3},
-    "pdg": {"nbr_bounds": 3, "face_wflux": 3, "basis_accum": 3},
+    "pdg": {"limit_vol_pref": 3, "face_wflux": 3, "basis_accum": 3},
     "hump": {"face_gather": 8, "face_accum": 3},
     "alecg": {"alecg_vol": 3, "alecg_edge": 3, "cg_assemble": 3},
     "alecg_cf": {"alecg_vol_cf": 3, "alecg_edge_cf": 3, "cg_assemble": 3},
@@ -809,8 +820,10 @@ PATHS = {
     # the walker's draws and steps are torch ops: no hand kernel
     "walker": {},
 }
-#: the path whose launches the kernels line reports for each kernel
-MAIN_PATH = {"limit_vol": "p1", "nbr_bounds": "pdg",
+#: the path whose launches the kernels line reports for each kernel; K4
+#: is on no path (the split limiter route, P2 and P1 off compressible
+#: Euler, which only the card-vs-CPU solvers run): its launches are None
+MAIN_PATH = {"limit_vol": "p1", "limit_vol_pref": "pdg", "nbr_bounds": None,
              "face_gather": "hump", "face_accum": "hump", "alecg_vol": "alecg",
              "alecg_edge": "alecg", "cg_assemble": "alecg",
              "alecg_vol_cf": "alecg_cf", "alecg_edge_cf": "alecg_cf",
@@ -1086,6 +1099,46 @@ def kernel_checks(torch, geom, system, U, dtype_name, timed):
     out.update(single_stream_checks(torch, g, system, *p1(), dtype_name,
                                     timed))
     return out
+
+
+def limit_vol_pref_check(torch, solver, state, dtype_name, timed):
+    """K1's p-adaptive flavour on the input of the p-adaptive solver's
+    step after state, with the dof counts its stage 0 takes (the sticky
+    indicator, then the ring promotion), against limit_vol_plain(...,
+    ndofel=) bit for bit: the limited (masked) state, and the volume
+    integral on every active row, a P0 element's inactive rows zero (the
+    rows the step's restore drops).  The bound counts what the flavour
+    moves: each element reads its dof count, its 4 C modal rows, 9 jacInv
+    entries and its volume and writes 2 x 4 C rows; a P1 element also reads
+    its 4 neighbour ids (its neighbours' means are modal rows read once)
+    and does K1's operations.  Returns its record (times only when
+    timed)."""
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.ops.nbr_bounds import limit_vol_plain
+    from quinoa_tpu_torch.pde.dg import eval_ndof_sticky, propagate_ndof
+
+    g, system, U = solver.geom, solver.system, state.u
+    C = system.ncomp
+    nd = propagate_ndof(g, eval_ndof_sticky(g, U, state.ndofel, C,
+                                            solver.tolref))
+    p1 = nd == 4
+    n1 = int(p1.sum())
+    active = (torch.arange(g.ndof, device=U.device)[:, None]
+              < nd[None, :]).repeat(C, 1)
+    vole = g.vol * g.emask
+
+    def kf():
+        return kernels.limit_vol(U, g.esuelT, g.jacInv, vole, g.ktab, 2.0,
+                                 system.eos, nd)
+
+    def pf():
+        ulim, rv = limit_vol_plain(system, g, U, ndofel=nd)
+        return ulim, torch.where(active, rv, torch.zeros_like(rv))
+
+    return measure(
+        torch, "limit_vol_pref", f"E={g.nelem} P1={n1}", kf, pf,
+        (U, nd, g.jacInv, vole, g.ktab, g.esuelT[:, p1]),
+        OPS["limit_vol"] * n1, dtype_name, timed, bitwise=True)
 
 
 def p2_geom(n, dtype, device):
@@ -2020,13 +2073,21 @@ def diag_lines(path):
         return [line.rstrip("\n") for line in fh if not line.startswith("#")]
 
 
+#: a phase row of a --profile table (base/profiler.py PhaseProfiler.table):
+#: name (indented under its parent), sec, self, %, n
+PROFILE_ROW = re.compile(r"^\s*(\S.*?)\s+(\d+\.\d+)\s+\d+\.\d+\s+"
+                         r"\d+\.\d+\s+(\d+)$")
+
+
 def profile_table(out):
-    """{phase: (seconds, entries)} from a --profile table in out."""
+    """{phase: (seconds, entries)} from a --profile table in out; a name
+    that recurs under a parent keeps its outermost row."""
     rows = {}
     for line in out.splitlines():
-        parts = line.rsplit(None, 3)
-        if len(parts) == 4 and parts[3].isdigit():
-            rows[parts[0].strip()] = (float(parts[1]), int(parts[3]))
+        m = PROFILE_ROW.match(line)
+        if m:
+            rows.setdefault(m.group(1), (float(m.group(2)),
+                                         int(m.group(3))))
     return rows
 
 
@@ -3937,6 +3998,13 @@ def main():
                              "expected a mix of P0 and P1")
     phase("pdg", f"P1 share {n4 / big.nelem:.6f} ({n4} of {big.nelem} "
           f"elements), L2(sol) {DGDiagnostics(system, big).compute(state)[0]}")
+    stats["limit_vol_pref"] = limit_vol_pref_check(torch, solver, state,
+                                                   "float32", timed=True)
+    small_pdg = DGSolver(system, geom("sedov", "card"), cfl=0.5,
+                         limiter="superbeep1", pref=True)
+    limit_vol_pref_check(torch, small_pdg,
+                         small_pdg.nsteps(small_pdg.initial_state(), 2),
+                         "float64", timed=False)
     profile_path(torch, solver, "pdg", state, wall / NSTEPS)
 
     # 6. GaussHump transport on the face Gauss-point path
@@ -4003,7 +4071,7 @@ def main():
         {"name": entry, "route": "cuda", "source": KERNELS[counter][0],
          "replaces": (path != "p2" and NEARFAR.get(counter)
                       or KERNELS[counter][1]),
-         "launches": counts[path][counter],
+         "launches": counts[path][counter] if path else None,
          # the sharded paths launch each kernel at its main path's shape
          **({"spmd_launches": {p: c[counter]
                                for p, c in spmd_counts.items()

@@ -6,6 +6,20 @@
 // superbee_limit_window).  Plain version: ops/nbr_bounds.py
 // limit_vol_plain (superbee_p1 + volume_rhs_plain).
 //
+// Two flavours, a template flag (PREF) apart: limit_vol_kernel, and the
+// p-adaptive limit_vol_pref_kernel, which also reads ndofel (E,) int32,
+// each element's active dofs (1 or 4 at P1).  An element at 4 runs the
+// code of limit_vol_kernel.  An element at 1 (P0) skips the bounds, phi
+// and its volume points: it writes its mean row as it is and its slope
+// rows times 0, as the plain route's u * dofmask forms them, so the
+// kernel's limited state is the masked one; its volume rows are all zero
+// (row 0 is a structural zero of w_vol * dBdxi_vol, and the solver's RK
+// restore drops rows k >= 1 of an inactive dof).  Plain version:
+// limit_vol_plain(..., ndofel=), bit for bit on the limited state and on
+// every active volume row.  Elements are in Hilbert order and P1 ones
+// cluster at the shock, so almost every warp takes one side.  Without
+// the flag nothing reads ndofel and the code is limit_vol_kernel's own.
+//
 // Bound on the card: device-memory bytes, 0.0586 ms at 48^3 in float32.
 // Per element it reads 20 modal rows, 4 neighbour ids, 4 x 5 neighbour
 // means, 9 jacInv entries and one volume, and writes 40 rows: about 75
@@ -82,7 +96,7 @@ __device__ __forceinline__ void limit_lane(
     LimitVolShared<T>& sm, int c, int el, const T* __restrict__ U,
     const int* __restrict__ nbr, const T* __restrict__ jac,
     const T* __restrict__ vole, T beta, T* __restrict__ ulim, long long e,
-    long long E) {
+    long long E, bool p0) {
   T u[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) u[k] = U[(c * K + k) * E + e];
@@ -92,6 +106,14 @@ __device__ __forceinline__ void limit_lane(
     sm.jv[c + C][el] = jac[(c + C) * E + e];
   else
     sm.jv[9][el] = vole[e];
+  if (p0) {
+    // a P0 element of the p-adaptive flavour: the masked state, which no
+    // volume point reads
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      ulim[(c * K + k) * E + e] = k == 0 ? u[0] : u[k] * T(0);
+    return;
+  }
 
   // bounds: own mean and the valid face neighbours' means
   const T u0 = u[0];
@@ -157,19 +179,20 @@ __device__ __forceinline__ void point_values(const LimitVolShared<T>& sm,
   for (int c = 0; c < C; ++c) pv[4 + c] = s[c];
 }
 
-// phase 3 of lane c: the K volume rows of component c, scaled by the volume
+// phase 3 of lane c: the K volume rows of component c, scaled by the
+// volume; a P0 element (p0) adds no point and writes zero rows
 template <typename T>
 __device__ __forceinline__ void volume_lane(const LimitVolShared<T>& sm,
                                             int c, int el,
                                             T* __restrict__ rv, long long e,
-                                            long long E) {
+                                            long long E, bool p0) {
   T J[9], R[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) R[k] = T(0);
 #pragma unroll
   for (int i = 0; i < 9; ++i) J[i] = sm.jv[i][el];
 #pragma unroll 1
-  for (int g = 0; g < GV; ++g) {
+  for (int g = 0; g < (p0 ? 0 : GV); ++g) {
     T pv[LV_PT];
 #pragma unroll
     for (int i = 0; i < LV_PT; ++i) pv[i] = sm.pt[g][i][el];
@@ -208,11 +231,11 @@ template <typename T, int PHASE>
 __device__ __forceinline__ void lane_phase(
     int lane, LimitVolShared<T>& sm, int el, const T* U, const int* nbr,
     const T* jac, const T* vole, T beta, T* ulim, T* rv,
-    long long e, long long E) {
+    long long e, long long E, bool p0) {
   if constexpr (PHASE == 1)
-    limit_lane(sm, lane, el, U, nbr, jac, vole, beta, ulim, e, E);
+    limit_lane(sm, lane, el, U, nbr, jac, vole, beta, ulim, e, E, p0);
   else
-    volume_lane(sm, lane, el, rv, e, E);
+    volume_lane(sm, lane, el, rv, e, E, p0);
 }
 
 // a switch whose every case inlines the phase at a constant lane: one
@@ -222,13 +245,13 @@ template <typename T, int PHASE>
 __device__ __forceinline__ void limit_vol_lane_dispatch(
     int lane, LimitVolShared<T>& sm, int el, const T* U, const int* nbr,
     const T* jac, const T* vole, T beta, T* ulim, T* rv,
-    long long e, long long E) {
+    long long e, long long E, bool p0) {
   static_assert(C == 5, "one case a component");
   switch (lane) {
 #define QTK_LV_CASE(L)                                                     \
   case L:                                                                  \
     lane_phase<T, PHASE>(L, sm, el, U, nbr, jac, vole, beta, ulim, rv, e, \
-                         E);                                               \
+                         E, p0);                                           \
     break;
     QTK_LV_CASE(0)
     QTK_LV_CASE(1)
@@ -239,12 +262,15 @@ __device__ __forceinline__ void limit_vol_lane_dispatch(
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(C * LV_EPB)
-limit_vol_kernel(const T* __restrict__ U, const int* __restrict__ nbr,
-                 const T* __restrict__ jac, const T* __restrict__ vole,
-                 const T* __restrict__ tab, T beta, Eos<T> eos,
-                 T* __restrict__ ulim, T* __restrict__ rv, long long E) {
+// the block's work; p0 is false for every element unless PREF, and then
+// nothing reads ndofel
+template <typename T, bool PREF>
+__device__ __forceinline__ void limit_vol_block(
+    const T* __restrict__ U, const int* __restrict__ nbr,
+    const int* __restrict__ ndofel, const T* __restrict__ jac,
+    const T* __restrict__ vole, const T* __restrict__ tab, T beta,
+    const Eos<T>& eos, T* __restrict__ ulim, T* __restrict__ rv,
+    long long E) {
   __shared__ LimitVolShared<T> sm;
   for (int i = threadIdx.x; i < TAB_SIZE; i += blockDim.x) sm.tab[i] = tab[i];
   __syncthreads();
@@ -253,11 +279,13 @@ limit_vol_kernel(const T* __restrict__ U, const int* __restrict__ nbr,
   const int lane = threadIdx.x / LV_EPB, el = threadIdx.x % LV_EPB;
   const long long e = blockIdx.x * (long long)LV_EPB + el;
   const bool live = e < E;
+  bool p0 = false;
+  if constexpr (PREF) p0 = live && ndofel[e] == 1;
   if (live)
     limit_vol_lane_dispatch<T, 1>(lane, sm, el, U, nbr, jac, vole, beta,
-                                  ulim, rv, e, E);
+                                  ulim, rv, e, E, p0);
   __syncthreads();
-  if (live) {
+  if (live && !p0) {
     T pv[LV_PT];
     point_values(sm, eos, lane, el, pv);
 #pragma unroll
@@ -266,19 +294,49 @@ limit_vol_kernel(const T* __restrict__ U, const int* __restrict__ nbr,
   __syncthreads();
   if (live)
     limit_vol_lane_dispatch<T, 3>(lane, sm, el, U, nbr, jac, vole, beta,
-                                  ulim, rv, e, E);
+                                  ulim, rv, e, E, p0);
 }
 
 template <typename T>
-int launch_limit_vol(const void* U, const void* nbr, const void* jac,
-                     const void* vole, const void* tab, double beta,
-                     double gamma, double pstiff, void* ulim, void* rv,
-                     long long E, void* stream) {
+__global__ void __launch_bounds__(C * LV_EPB)
+limit_vol_kernel(const T* __restrict__ U, const int* __restrict__ nbr,
+                 const T* __restrict__ jac, const T* __restrict__ vole,
+                 const T* __restrict__ tab, T beta, Eos<T> eos,
+                 T* __restrict__ ulim, T* __restrict__ rv, long long E) {
+  limit_vol_block<T, false>(U, nbr, nullptr, jac, vole, tab, beta, eos, ulim,
+                            rv, E);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(C * LV_EPB)
+limit_vol_pref_kernel(const T* __restrict__ U, const int* __restrict__ nbr,
+                      const int* __restrict__ ndofel,
+                      const T* __restrict__ jac, const T* __restrict__ vole,
+                      const T* __restrict__ tab, T beta, Eos<T> eos,
+                      T* __restrict__ ulim, T* __restrict__ rv, long long E) {
+  limit_vol_block<T, true>(U, nbr, ndofel, jac, vole, tab, beta, eos, ulim,
+                           rv, E);
+}
+
+// PREF picks the kernel at compile time: limit_vol_kernel (ndofel unread)
+// or the p-adaptive limit_vol_pref_kernel
+template <typename T, bool PREF>
+int launch_limit_vol(const void* U, const void* nbr, const void* ndofel,
+                     const void* jac, const void* vole, const void* tab,
+                     double beta, double gamma, double pstiff, void* ulim,
+                     void* rv, long long E, void* stream) {
   const long long grid = (E + LV_EPB - 1) / LV_EPB;
   const Eos<T> eos{T(gamma), T(gamma - 1.0), T(pstiff)};
-  limit_vol_kernel<T><<<(unsigned)grid, C * LV_EPB, 0, (cudaStream_t)stream>>>(
-      (const T*)U, (const int*)nbr, (const T*)jac, (const T*)vole,
-      (const T*)tab, T(beta), eos, (T*)ulim, (T*)rv, E);
+  if constexpr (PREF)
+    limit_vol_pref_kernel<T><<<(unsigned)grid, C * LV_EPB, 0,
+                               (cudaStream_t)stream>>>(
+        (const T*)U, (const int*)nbr, (const int*)ndofel, (const T*)jac,
+        (const T*)vole, (const T*)tab, T(beta), eos, (T*)ulim, (T*)rv, E);
+  else
+    limit_vol_kernel<T><<<(unsigned)grid, C * LV_EPB, 0,
+                          (cudaStream_t)stream>>>(
+        (const T*)U, (const int*)nbr, (const T*)jac, (const T*)vole,
+        (const T*)tab, T(beta), eos, (T*)ulim, (T*)rv, E);
   return (int)cudaGetLastError();
 }
 
@@ -289,8 +347,9 @@ extern "C" int qtk_limit_vol_f32(const void* U, const void* nbr,
                                  const void* tab, double beta, double gamma,
                                  double pstiff, void* ulim, void* rv,
                                  long long E, void* stream) {
-  return qtk::launch_limit_vol<float>(U, nbr, jac, vole, tab, beta, gamma,
-                                      pstiff, ulim, rv, E, stream);
+  return qtk::launch_limit_vol<float, false>(U, nbr, nullptr, jac, vole, tab,
+                                             beta, gamma, pstiff, ulim, rv, E,
+                                             stream);
 }
 
 extern "C" int qtk_limit_vol_f64(const void* U, const void* nbr,
@@ -298,6 +357,29 @@ extern "C" int qtk_limit_vol_f64(const void* U, const void* nbr,
                                  const void* tab, double beta, double gamma,
                                  double pstiff, void* ulim, void* rv,
                                  long long E, void* stream) {
-  return qtk::launch_limit_vol<double>(U, nbr, jac, vole, tab, beta, gamma,
-                                       pstiff, ulim, rv, E, stream);
+  return qtk::launch_limit_vol<double, false>(U, nbr, nullptr, jac, vole, tab,
+                                              beta, gamma, pstiff, ulim, rv, E,
+                                              stream);
+}
+
+extern "C" int qtk_limit_vol_pref_f32(const void* U, const void* nbr,
+                                      const void* ndofel, const void* jac,
+                                      const void* vole, const void* tab,
+                                      double beta, double gamma,
+                                      double pstiff, void* ulim, void* rv,
+                                      long long E, void* stream) {
+  return qtk::launch_limit_vol<float, true>(U, nbr, ndofel, jac, vole, tab,
+                                            beta, gamma, pstiff, ulim, rv, E,
+                                            stream);
+}
+
+extern "C" int qtk_limit_vol_pref_f64(const void* U, const void* nbr,
+                                      const void* ndofel, const void* jac,
+                                      const void* vole, const void* tab,
+                                      double beta, double gamma,
+                                      double pstiff, void* ulim, void* rv,
+                                      long long E, void* stream) {
+  return qtk::launch_limit_vol<double, true>(U, nbr, ndofel, jac, vole, tab,
+                                             beta, gamma, pstiff, ulim, rv, E,
+                                             stream);
 }

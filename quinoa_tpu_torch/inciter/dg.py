@@ -12,10 +12,12 @@ with the block-diagonal mass matrix diagonal in the Dubiner basis
 (reference DG.cpp:1471).  The routes, as the JAX package dispatches them
 on a TPU:
 
-- Superbee at P1 without a dofmask on compressible Euler: the fused limit
-  + flux volume pass (K1), plus the source integral in torch where the
+- Superbee at P1 on compressible Euler: the fused limit + flux volume
+  pass (K1; with pref its p-adaptive flavour, which reads ndofel and
+  writes the masked state), plus the source integral in torch where the
   problem has one; otherwise Superbee is the split route, neighbour-mean
-  bounds (K4) then superbee_p1 in torch (P1 and P2); WENO is torch;
+  bounds (K4) then superbee_p1 in torch (P2, and P1 off compressible
+  Euler); WENO is torch;
 - a system and faces that need no face coordinates (Euler on symmetry,
   extrapolate, outlet faces): the fused face pass on the state masked by
   the dofmask, whose charvel gives the stage-0 dt: K12 + K13 (HLLC or
@@ -31,8 +33,9 @@ on a TPU:
 
 p-adaptive runs (pref) re-evaluate ndofel at stage 0 (sticky indicator,
 one-ring promotion; P1 elements only, so at P0 and P2 the dofmask stays
-all ones), zero the coarsened dofs at stage 0, and restore the inactive
-rows from the anchor after every stage.  rDG (evolve_ndof below ndof, the
+all ones), zero the coarsened dofs at stage 0 (K1's p-adaptive flavour
+writes them zeroed at every stage), and restore the inactive rows from
+the anchor after every stage.  rDG (evolve_ndof below ndof, the
 p0p1 scheme) advances only the first evolve_ndof dofs of every component
 and scales the CFL by the evolved order.  On a CUDA geometry the step
 launches only the kernels of csrc/ plus torch elementwise work, small
@@ -123,8 +126,7 @@ class DGSolver:
         # route's, as the JAX step takes it (dg_rhs with the dofmask)
         self.face_gp = (needs_face_gp(system, geom)
                         or (pref and geom.ndof != 4))
-        self.fused_limit = (limiter == "superbeep1" and not pref
-                            and geom.ndof == 4
+        self.fused_limit = (limiter == "superbeep1" and geom.ndof == 4
                             and getattr(system, "coord_free_flux", False))
         #: the DG(P1) face pass off the face Gauss-point path
         self.p1_face_pass = face_pass_for(system, 4)
@@ -173,10 +175,10 @@ class DGSolver:
         Its spans (base/profiler.py) partition each stage: pref, limit,
         volume, face_pass, dt and rk_update; each closes before the next
         yield.  pref holds pref.eval (the sticky indicator),
-        pref.propagate (the ring promotion) and pref.mask (the dofmask,
-        the stage-0 zeroing and the masked face input); the split
-        Superbee route's limit holds limit.bounds (K4) and
-        limit.superbee."""
+        pref.propagate (the ring promotion) and pref.mask (the dofmask
+        and, off the fused limiter, the stage-0 zeroing and the masked
+        face input); the split Superbee route's limit holds limit.bounds
+        (K4) and limit.superbee."""
         g, system = self.geom, self.system
         C = system.ncomp
         u = un = state.u
@@ -200,7 +202,9 @@ class DGSolver:
             rv = None
             with span("limit"):
                 if self.fused_limit:
-                    u, rv = superbee_limit_window(g, u, system)
+                    # with pref the kernel writes the masked state
+                    u, rv = superbee_limit_window(
+                        g, u, system, ndofel=ndofel if self.pref else None)
                 elif self.limiter == "superbeep1":
                     with span("limit.bounds"):
                         bounds = neighbor_mean_bounds(g, u, C)
@@ -218,7 +222,7 @@ class DGSolver:
                 # its owner's limited values
                 u = yield "halo", u
             if s == 0:
-                if dm is not None:
+                if dm is not None and not self.fused_limit:
                     # coarsened elements' high-order dofs are ZEROED at
                     # stage 0 (DG.cpp:1452-1469), which also feeds the
                     # anchor: a later ring promotion restarts them from
@@ -253,7 +257,7 @@ class DGSolver:
                     # the fused pass sees the masked state; the rows it
                     # writes for inactive dofs are dropped by the restore
                     uf = u
-                    if dm is not None and s != 0:
+                    if dm is not None and s != 0 and not self.fused_limit:
                         with span("pref"), span("pref.mask"):
                             uf = u * dm
                     if rv is None:

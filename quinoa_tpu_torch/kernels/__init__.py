@@ -67,12 +67,12 @@ THINC_ROWS = 8
 FLUXES = {"hllc": (0, "face_wflux"), "laxfriedrichs": (1, "face_wflux_lf")}
 
 #: kernel launches since the last reset_launches()
-launches = {"limit_vol": 0, "nbr_bounds": 0, "face_gather": 0,
-            "face_accum": 0, "alecg_vol": 0, "alecg_vol_cf": 0,
-            "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0,
-            "node_gather": 0, "node_assemble": 0, "face_wflux": 0,
-            "face_wflux_lf": 0, "basis_accum": 0, "mm_face_wflux": 0,
-            "mm_face_wflux_thinc": 0, "mm_limit": 0}
+launches = {"limit_vol": 0, "limit_vol_pref": 0, "nbr_bounds": 0,
+            "face_gather": 0, "face_accum": 0, "alecg_vol": 0,
+            "alecg_vol_cf": 0, "alecg_edge": 0, "alecg_edge_cf": 0,
+            "cg_assemble": 0, "node_gather": 0, "node_assemble": 0,
+            "face_wflux": 0, "face_wflux_lf": 0, "basis_accum": 0,
+            "mm_face_wflux": 0, "mm_face_wflux_thinc": 0, "mm_limit": 0}
 
 _lib = None
 
@@ -188,6 +188,9 @@ def _load(so: str) -> ctypes.CDLL:
         fn = getattr(lib, f"qtk_limit_vol_{sfx}")
         fn.argtypes = [P, P, P, P, P, D, D, D, P, P, L, P]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_limit_vol_pref_{sfx}")
+        fn.argtypes = [P, P, P, P, P, P, D, D, D, P, P, L, P]
+        fn.restype = ctypes.c_int
         fn = getattr(lib, f"qtk_nbr_bounds_{sfx}")
         fn.argtypes = [P] * 4 + [I, I, L, P]
         fn.restype = ctypes.c_int
@@ -278,8 +281,10 @@ def _launch(name, fn, args, device):
     launches[name] += 1
 
 
-def limit_vol(U, esuelT, jacInv, vole, ktab, beta, eos):
-    """K1 (csrc/limit_vol.cu): (u_lim, rv), each (C*K, E)."""
+def limit_vol(U, esuelT, jacInv, vole, ktab, beta, eos, ndofel=None):
+    """K1 (csrc/limit_vol.cu): (u_lim, rv), each (C*K, E).  With ndofel
+    (E,) int32, the p-adaptive flavour, counted as limit_vol_pref: a P0
+    element's u_lim is its masked state and its rv rows are zero."""
     dev = _cuda_device(U)
     dt = U.dtype
     E = U.shape[1]
@@ -288,13 +293,17 @@ def limit_vol(U, esuelT, jacInv, vole, ktab, beta, eos):
     _check("jacInv", jacInv, (3, 3, E), dt, dev)
     _check("vole", vole, (E,), dt, dev)
     _check("ktab", ktab, (TAB_SIZE,), dt, dev)
-    fn = getattr(build(), f"qtk_limit_vol_{_suffix(dt)}")
+    name, nd = "limit_vol", []
+    if ndofel is not None:
+        _check("ndofel", ndofel, (E,), torch.int32, dev)
+        name, nd = "limit_vol_pref", [_ptr(ndofel)]
+    fn = getattr(build(), f"qtk_{name}_{_suffix(dt)}")
     ulim = torch.empty_like(U)
     rv = torch.empty_like(U)
-    _launch("limit_vol", fn,
-            [_ptr(U), _ptr(esuelT), _ptr(jacInv), _ptr(vole), _ptr(ktab),
-             float(beta), float(eos.gamma), float(eos.pstiff), _ptr(ulim),
-             _ptr(rv), E], dev)
+    _launch(name, fn,
+            [_ptr(U), _ptr(esuelT), *nd, _ptr(jacInv), _ptr(vole),
+             _ptr(ktab), float(beta), float(eos.gamma), float(eos.pstiff),
+             _ptr(ulim), _ptr(rv), E], dev)
     return ulim, rv
 
 

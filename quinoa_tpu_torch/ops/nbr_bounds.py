@@ -6,12 +6,12 @@ Port of quinoa_tpu/ops/nbr_bounds.py:
 - neighbor_mean_bounds: min/max of each element's own cell mean and its
   face neighbours'.  On a CUDA tensor it launches kernel K4
   (csrc/nbr_bounds.cu); on a CPU tensor it runs
-  neighbor_mean_bounds_plain.  The split limiter route (p-adaptive DG,
-  systems other than compressible Euler) takes it.
-- superbee_limit_window(..., emit_vol=True): Superbee limiting and the
-  flux volume integral of the limited state in one pass.  On a CUDA
-  tensor it launches kernel K1 (csrc/limit_vol.cu); on a CPU tensor it
-  runs limit_vol_plain.
+  neighbor_mean_bounds_plain.  The split limiter route (DG(P2), systems
+  other than compressible Euler) takes it.
+- superbee_limit_window: Superbee limiting and the flux volume integral
+  of the limited state in one pass, p-adaptive when given each element's
+  dof count (ndofel).  On a CUDA tensor it launches kernel K1
+  (csrc/limit_vol.cu); on a CPU tensor it runs limit_vol_plain.
 
 The TPU kernels' element windows, far-neighbour gathers and one-hot
 placements exist to avoid HBM gathers on a TPU and have no counterpart
@@ -78,21 +78,36 @@ def volume_rhs_plain(system, geom, U, t=0.0):
     return Rv.reshape(C * K, E)
 
 
-def limit_vol_plain(system, geom, U, beta_lim: float = 2.0):
-    """K1's plain version: (Superbee-limited U, its volume integral)."""
+def limit_vol_plain(system, geom, U, beta_lim: float = 2.0, ndofel=None):
+    """K1's plain version: (Superbee-limited U, its volume integral).
+    With ndofel (E,), the p-adaptive sequence: Superbee with the dofmask,
+    the limited state times the dofmask, and the volume integral of that
+    masked state."""
     from ..pde.limiter import superbee_p1
 
-    ulim = superbee_p1(geom, U, None, system.ncomp, beta_lim)
+    C = system.ncomp
+    if ndofel is None:
+        ulim = superbee_p1(geom, U, None, C, beta_lim)
+    else:
+        k = torch.arange(geom.ndof, device=ndofel.device)[:, None]
+        dofmask = (k < ndofel[None, :]).to(U.dtype)
+        ulim = superbee_p1(geom, U, dofmask, C, beta_lim)
+        ulim = ulim * dofmask.repeat(C, 1)
     return ulim, volume_rhs_plain(system, geom, ulim)
 
 
-def superbee_limit_window(geom, U, system, beta_lim: float = 2.0):
+def superbee_limit_window(geom, U, system, beta_lim: float = 2.0,
+                          ndofel=None):
     """U (C*K, E) -> (u_lim, vol_rhs), both (C*K, E): the P1 dofs scaled by
     the Superbee coefficient and the flux volume integral of the limited
-    state (dg_rhs consumes it as vol_rhs)."""
+    state (dg_rhs consumes it as vol_rhs).  With ndofel (E,) int32 (1 or
+    4 at P1), u_lim is masked by each element's active dofs and
+    vol_rhs is that of the masked state on every active row; a P0
+    element's inactive rows of vol_rhs are the plain version's on a CPU
+    and zero on a card (the step's restore drops them)."""
     require_fused_physics(system, geom)
     if U.device.type == "cpu":
-        return limit_vol_plain(system, geom, U, beta_lim)
+        return limit_vol_plain(system, geom, U, beta_lim, ndofel)
     return kernels.limit_vol(U, geom.esuelT, geom.jacInv,
                              geom.vol * geom.emask, geom.ktab, beta_lim,
-                             system.eos)
+                             system.eos, ndofel)

@@ -36,7 +36,7 @@ from quinoa_tpu_torch.pde.problems import (GaussHump, SedovBlastwave,
 pytestmark = pytest.mark.cuda
 
 #: every kernel's launch count at zero
-ZERO = {"limit_vol": 0, "nbr_bounds": 0,
+ZERO = {"limit_vol": 0, "limit_vol_pref": 0, "nbr_bounds": 0,
         "face_gather": 0, "face_accum": 0, "alecg_vol": 0, "alecg_vol_cf": 0,
         "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0,
         "node_gather": 0, "node_assemble": 0, "face_wflux": 0,
@@ -129,6 +129,48 @@ def test_limit_vol_and_basis_accum_bit_for_bit(card, dtype):
                      basis_accum_plain(g, wfl, mx, base))
     torch.cuda.synchronize()
     assert kernels.launches == {**ZERO, "limit_vol": 1, "basis_accum": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mix", ["mixed", "p0", "p1"])
+def test_limit_vol_pref_matches_plain(card, dtype, mix):
+    """K1's p-adaptive flavour against limit_vol_plain(..., ndofel=) bit
+    for bit: the limited (masked) state whole, a P0 element's zeroed
+    slopes to the sign of their zeros, the volume integral on every
+    active row; a P0 element's inactive volume rows are zero.  With every element at P1 it equals
+    the non-adaptive K1 whole.  The ragged box of
+    test_limit_vol_and_basis_accum_bit_for_bit, with a negative slope on
+    a P0 element (its masked rows are -0)."""
+    system = DGCompFlow(SedovBlastwave())
+    g = _geom(card, dtype, 4, (6, 6, 3))
+    assert _ragged(g.nelem)
+    U = _state(g.nelem, dtype, card)
+    U.view(5, 4, -1)[1, 1] -= 0.02
+    rng = np.random.default_rng(11)
+    nd = {"mixed": np.where(rng.random(g.nelem) < 0.5, 1, 4),
+          "p0": np.ones(g.nelem), "p1": np.full(g.nelem, 4)}[mix]
+    ndofel = torch.as_tensor(nd, dtype=torch.int32, device=card)
+    kernels.reset_launches()
+    got = superbee_limit_window(g, U, system, ndofel=ndofel)
+    torch.cuda.synchronize()
+    assert kernels.launches == {**ZERO, "limit_vol_pref": 1}
+    ulim, rv = limit_vol_plain(system, g, U, ndofel=ndofel)
+    active = (torch.arange(4, device=card)[:, None]
+              < ndofel[None, :]).repeat(5, 1)
+    assert _same((got[0],), (ulim,))
+    assert torch.equal(got[0][~active].signbit(), ulim[~active].signbit())
+    assert _same((got[1][active],), (rv[active],))
+    assert bool((got[1][~active] == 0).all())
+    if mix != "p1":
+        assert bool((got[0][~active] == 0).all())
+        assert bool(got[0][~active].signbit().any())
+    else:
+        assert _same(got, kernels.limit_vol(U, g.esuelT, g.jacInv,
+                                            g.vol * g.emask, g.ktab, 2.0,
+                                            system.eos))
+        torch.cuda.synchronize()
+        assert kernels.launches == {**ZERO, "limit_vol_pref": 1,
+                                    "limit_vol": 1}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -232,8 +274,8 @@ def test_solver_on_card_matches_cpu(card):
 def test_new_paths_on_card_match_cpu(card, case):
     """The p-adaptive and face Gauss-point paths, two float64 steps on
     the card against the CPU: u atol 1e-11, dt rtol 1e-12, ndofel
-    equal, only the path's kernels launched (Sedov pdg: K4, K12 and K13
-    three times a step)."""
+    equal, only the path's kernels launched (Sedov pdg: K1's p-adaptive
+    flavour, K12 and K13 three times a step)."""
     def solver(device):
         if case == "sedov_pdg":
             return DGSolver(DGCompFlow(SedovBlastwave()),
@@ -254,7 +296,7 @@ def test_new_paths_on_card_match_cpu(card, case):
     assert torch.equal(sa.ndofel.cpu(), sb.ndofel)
     assert float((sa.u.cpu() - sb.u).abs().max()) <= 1e-11
     assert abs(float(sa.dt) - float(sb.dt)) <= 1e-12 * float(sb.dt)
-    path = {"sedov_pdg": ("nbr_bounds", "face_wflux", "basis_accum"),
+    path = {"sedov_pdg": ("limit_vol_pref", "face_wflux", "basis_accum"),
             "gausshump": ("face_gather", "face_accum"),
             "gausshump_pdg": ("face_gather", "face_accum")}[case]
     assert {k for k, v in kernels.launches.items() if v} == set(path)
@@ -838,7 +880,8 @@ def test_lf_and_thinc_on_card_match_cpu(card, case):
                         pref=case == "p1_lf_pdg")
 
     used = {"p1_lf": {"limit_vol", "face_wflux_lf", "basis_accum"},
-            "p1_lf_pdg": {"nbr_bounds", "face_wflux_lf", "basis_accum"},
+            "p1_lf_pdg": {"limit_vol_pref", "face_wflux_lf",
+                          "basis_accum"},
             "mm_thinc": {"mm_limit", "mm_face_wflux_thinc",
                          "basis_accum"}}[case]
     a, b = solver(card), solver("cpu")

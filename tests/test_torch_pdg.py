@@ -2,7 +2,11 @@
 (kernel K4's plain version) against the Pallas neighbor_mean_bounds kernel
 in interpret mode, Superbee with a dofmask and precomputed bounds, the
 sticky indicator and the one-ring promotion, the Sedov pdg solver and the
-mixed P0/P1 diagnostics.
+mixed P0/P1 diagnostics; and the solver's fused route (the limit +
+volume pass with the dof counts, K1's p-adaptive flavour on a card)
+against its split route (the same solver with fused_limit off) on a
+jittered box, bit for bit, and with a source against both volume
+formulations.
 
 Float64 on the CPU on the 6x6x4 box of the JAX package's own bounds-kernel
 test (far neighbours live at W=128).  Inputs are made with numpy from a
@@ -41,13 +45,21 @@ from quinoa_tpu.pde.limiter import superbee_p1 as j_superbee_p1
 from quinoa_tpu.pde.problems import SedovBlastwave as JSedov
 
 from quinoa_tpu_torch import convert
+from quinoa_tpu_torch.inciter import dg as t_dg
 from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
-from quinoa_tpu_torch.ops.nbr_bounds import neighbor_mean_bounds
+from quinoa_tpu_torch.mesh import hilbert_element_reorder as t_hilbert
+from quinoa_tpu_torch.ops.nbr_bounds import (neighbor_mean_bounds,
+                                             volume_rhs_plain)
+from quinoa_tpu_torch.pde.dg import BC_SYMMETRY as T_SYM
+from quinoa_tpu_torch.pde.dg import build_dggeom as t_build
 from quinoa_tpu_torch.pde.dg import (dg_dt_from_delt, eval_ndof_sticky,
-                                     propagate_ndof)
+                                     propagate_ndof, source_rhs)
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow as TCompFlow
 from quinoa_tpu_torch.pde.limiter import superbee_p1
+from quinoa_tpu_torch.pde.problems import NLEnergyGrowth as TNLEG
 from quinoa_tpu_torch.pde.problems import SedovBlastwave as TSedov
+
+from jittered_box import jittered_box
 
 C, K = 5, 4
 ATOL_LIM = 1e-13
@@ -213,3 +225,71 @@ def test_pdg_stage_face_pass_matches_pallas_nearfar(sedov_pdg):
     np.testing.assert_allclose(r.numpy(), r_j, rtol=0, atol=RHS_ATOL)
     assert np.isclose(float(dg_dt_from_delt(tg, delt)),
                       float(j_dt_from_delt(jg, delt_j)), rtol=DT_RTOL)
+
+
+def _fused_and_split(problem, nsteps=4, tolref=0.1):
+    """[(fused state, split state)] after each of nsteps steps of
+    p-adaptive DG(P1) + Superbee on a jittered box, each route from its
+    own previous state.  The split route is the same solver's with
+    fused_limit off: K4's bounds (its plain version here), superbee_p1
+    with the dofmask, the stage-0 zeroing (u * dofmask, which feeds the
+    anchor), the volume integral of u * dofmask (volume_rhs_plain, or
+    volume_rhs with a source), the face pass on that masked state, the RK
+    update and the restore of the inactive rows."""
+    mesh, _ = t_hilbert(jittered_box())
+    g = t_build(mesh, 4, {i: T_SYM for i in range(1, 7)},
+                dtype=torch.float64, device="cpu")
+    fused, split = (DGSolver(TCompFlow(problem), g, cfl=0.5,
+                             limiter="superbeep1", pref=True, tolref=tolref)
+                    for _ in range(2))
+    assert fused.fused_limit
+    split.fused_limit = False
+    a = b = fused.initial_state()
+    out = []
+    for _ in range(nsteps):
+        a, b = fused.step(a), split.step(b)
+        out.append((a, b))
+    return out
+
+
+def test_pdg_fused_limit_matches_split_route():
+    """Sedov: the solver's fused limit + volume route equals the split
+    route (K4 bounds, Superbee with the dofmask, stage-0 zeroing, the
+    volume integral of the masked state, the face pass) in u, ndofel, t
+    and dt, bit for bit, over four steps with P0 and P1 elements."""
+    for a, b in _fused_and_split(TSedov()):
+        nd = a.ndofel
+        assert bool((nd == 1).any()) and bool((nd == 4).any())
+        for f in ("u", "ndofel", "t", "dt"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("formulation", ["fused", "xla"])
+def test_pdg_fused_limit_with_source(formulation, monkeypatch):
+    """NLEnergyGrowth (a manufactured source) on the fused route: against
+    the split route with the non-adaptive fused route's volume term
+    (volume_rhs_plain + source_rhs) bit for bit; against the split route
+    with the XLA formulation (volume_rhs, the source summed into the flux
+    integral before the scaling) to round-off: u atol 1e-11 (U_ATOL),
+    dt and t rtol 1e-12 (DT_RTOL), ndofel equal.  Its smooth solution
+    keeps every element at P1 under tolref 0.1; at 1.0 about half of them
+    go to P0."""
+    if formulation == "fused":
+        # only the split route calls volume_rhs at P1
+        monkeypatch.setattr(
+            t_dg, "volume_rhs", lambda system, g, u, t:
+            volume_rhs_plain(system, g, u) + source_rhs(system, g, t))
+    for a, b in _fused_and_split(TNLEG(), 3, tolref=1.0):
+        nd = a.ndofel
+        assert bool((nd == 1).any()) and bool((nd == 4).any())
+        assert torch.equal(a.ndofel, b.ndofel)
+        if formulation == "fused":
+            for f in ("u", "t", "dt"):
+                assert torch.equal(getattr(a, f), getattr(b, f)), f
+        else:
+            np.testing.assert_allclose(a.u.numpy(), b.u.numpy(), rtol=0,
+                                       atol=U_ATOL)
+            assert not torch.equal(a.u, b.u)     # the sum orders differ
+            for f in ("t", "dt"):
+                assert np.isclose(float(getattr(a, f)),
+                                  float(getattr(b, f)), rtol=DT_RTOL), f

@@ -341,8 +341,9 @@ def test_cpu_tensors_leave_launch_counters_at_zero(runs):
     p2.nsteps(p2.initial_state(), 1)
     mm = _mm_sod_p1()
     mm.nsteps(mm.initial_state(), 1)
-    assert kernels.launches == {"limit_vol": 0, "nbr_bounds": 0,
-                                "face_gather": 0, "face_accum": 0,
+    assert kernels.launches == {"limit_vol": 0, "limit_vol_pref": 0,
+                                "nbr_bounds": 0, "face_gather": 0,
+                                "face_accum": 0,
                                 "alecg_vol": 0, "alecg_vol_cf": 0,
                                 "alecg_edge": 0, "alecg_edge_cf": 0,
                                 "cg_assemble": 0, "node_gather": 0,
@@ -354,6 +355,9 @@ def test_cpu_tensors_leave_launch_counters_at_zero(runs):
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.limit_vol(U, tg.esuelT, tg.jacInv, tg.vol, tg.ktab, 2.0,
                           ts.system.eos)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.limit_vol(U, tg.esuelT, tg.jacInv, tg.vol, tg.ktab, 2.0,
+                          ts.system.eos, ndofel=pdg.initial_state().ndofel)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.nbr_bounds(U, tg.esuelT, 5, 4)
     with pytest.raises(ValueError, match="CUDA tensor"):

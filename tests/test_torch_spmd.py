@@ -16,7 +16,9 @@ Sedov with superbeep1, DG(P0) Sod, p-adaptive DG, DG(P2) TaylorGreen and
 rDG p0p1 (the last two in test_torch_spmd_ho.py, which runs this file's
 tests on them: xdist schedules whole files).  The JAX side's SPMD
 programs compile for 10-30 s each, so each scheme compiles one (one step,
-no diagnostics program).
+no diagnostics program).  Last, the sharded p-adaptive step's fused
+limit + volume route against its split route (the shards' fused_limit
+off) on a jittered box, bit for bit.
 """
 
 import jax
@@ -39,6 +41,8 @@ from quinoa_tpu_torch.parallel import (SPMDDGSolver, ShardGroup,
 from quinoa_tpu_torch.pde import problems as tprob
 from quinoa_tpu_torch.pde.dg import build_dggeom
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow
+
+from jittered_box import jittered_box
 
 S = 4
 U_ATOL = 1e-11
@@ -154,3 +158,31 @@ def test_spmd_dg_matches_single_device(f64, name):
         np.testing.assert_array_equal(port.gather_ndofel(b),
                                       a.ndofel.numpy())
         assert (a.ndofel.numpy() == 1).any()   # P0 and P1 elements both
+
+
+def test_spmd_pdg_fused_limit_matches_split_route(f64):
+    """Sedov p-adaptive DG(P1) on S shards of a jittered box: the shards'
+    fused limit + volume route and the split route (each shard's
+    fused_limit off), three steps in lockstep, every shard's u, ndofel,
+    t and dt bit for bit, with P0 and P1 elements."""
+    mesh = jittered_box()
+    system = DGCompFlow(tprob.SedovBlastwave())
+
+    def solver():
+        sh = build_dg_shards(mesh, S, 4, SYM, dtype=torch.float64,
+                             group=ShardGroup(S, ["cpu"]))
+        return SPMDDGSolver(system, sh, cfl=0.5, limiter="superbeep1",
+                            pref=True)
+
+    fused, split = solver(), solver()
+    assert all(sv.fused_limit and not sv.face_gp for sv in fused.shards)
+    for sv in split.shards:
+        sv.fused_limit = False
+    a = b = fused.initial_state()
+    for _ in range(3):
+        a, b = fused.step(a), split.step(b)
+        for f in ("u", "ndofel", "t", "dt"):
+            for x, y in zip(getattr(a, f), getattr(b, f)):
+                assert torch.equal(x, y), f
+    nd = fused.gather_ndofel(a)
+    assert (nd == 1).any() and (nd == 4).any()

@@ -34,7 +34,7 @@ SOD = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
 SEDOV_SPANS = {"limit", "face_pass", "dt", "rk_update"}
 MM_SPANS = {"limit", "volume", "face_pass", "nonconservative", "dt",
             "rk_update"}
-PDG_SPANS = SEDOV_SPANS | {"pref", "volume"}
+PDG_SPANS = SEDOV_SPANS | {"pref"}
 
 
 @pytest.fixture
@@ -192,19 +192,18 @@ def test_step_bit_identical_with_tracing_and_its_spans(f64, which):
                                        "multimat": MM_SPANS,
                                        "pdg": PDG_SPANS}[which]
     if which == "pdg":
-        # pref holds the indicator, the promotion and the masks (the
-        # dofmask each stage, the stage-0 zeroing, the masked face input
-        # of stages 1 and 2); the split Superbee route's limit holds K4's
-        # bounds and the torch Superbee
+        # pref holds the indicator, the promotion and the dofmask of each
+        # stage; the fused limiter writes the masked state with its volume
+        # term, so limit has no split-route children and the step no
+        # volume span
         assert _children(prof, "pref") == {"pref.eval", "pref.propagate",
                                            "pref.mask"}
-        assert _children(prof, "limit") == {"limit.bounds",
-                                            "limit.superbee"}
+        assert _children(prof, "limit") == set()
         n = {k: sum(1 for r in prof.records if r[0] == k)
              for k in ("pref.eval", "pref.propagate", "pref.mask",
                        "limit.bounds", "limit.superbee")}
-        assert n == {"pref.eval": 2, "pref.propagate": 2, "pref.mask": 12,
-                     "limit.bounds": 6, "limit.superbee": 6}
+        assert n == {"pref.eval": 2, "pref.propagate": 2, "pref.mask": 6,
+                     "limit.bounds": 0, "limit.superbee": 0}
     # each stage limits, updates; the stage-0 dt once a step
     n = {k: sum(1 for r in prof.records if r[0] == k)
          for k in ("limit", "dt", "rk_update")}
