@@ -2022,7 +2022,7 @@ def mm_breakdown(torch, solver, name, state, reps=5):
     C, K = sy.ncomp, g.ndof
     Uv = u.reshape(C, K, -1)
     X = sy.thinc_carriers(g, Uv) if sy.intsharp else None
-    if solver.fused_ok:
+    if solver.route.face != "mm_dirichlet":
         face = {"face pass K14 + K13": lambda: mm_face_pass(sy, g, u, X)}
         acc = mm_face_pass(sy, g, u, X)[0]
     else:

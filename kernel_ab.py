@@ -200,18 +200,21 @@ def pdg_face_inputs(solver):
     """The state and volume term pdg's first step hands its first stage's
     face pass (K12 + K13): the p-adaptive Superbee limit of the initial
     state, masked by its dofs."""
+    from quinoa_tpu_torch.inciter import dg
+
     seen = []
-    face_pass = solver.p1_face_pass
+    face_pass = dg.fused_face_pass
 
     def spy(system, g, uf, vol_rhs):
         seen.append((uf, vol_rhs))
         return face_pass(system, g, uf, vol_rhs=vol_rhs)
 
-    solver.p1_face_pass = spy
+    # the face pass the route's stage calls (inciter/dg.py)
+    dg.fused_face_pass = spy
     try:
         solver.step(solver.initial_state())
     finally:
-        solver.p1_face_pass = face_pass
+        dg.fused_face_pass = face_pass
     return seen[0]
 
 

@@ -130,12 +130,6 @@ def fused_face_pass(system, geom, U, vol_rhs=None):
                                geom.xi_r, geom.ndof, vol_rhs)
 
 
-def face_pass_for(system, ndof):
-    """The fused face pass a compressible-Euler system takes at ndof:
-    K12 + K13 (fused_face_pass) at every order, with either flux."""
-    return fused_face_pass
-
-
 def mm_face_wflux_plain(system, geom, U, carriers=None):
     """K14's plain version, for a MultiMatSystem: (wfl (R*G, F), mx (F,)),
     R = C + 3*nmat + 1 rows a face point (the AUSM+up flux, -ap_k*n_i,

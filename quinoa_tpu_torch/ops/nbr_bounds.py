@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..pde.dg import require_fused_physics, uview
+from ..pde.dg import dofmask_of, require_fused_physics, uview
 
 
 def neighbor_mean_bounds_plain(geom, u0):
@@ -89,8 +89,7 @@ def limit_vol_plain(system, geom, U, beta_lim: float = 2.0, ndofel=None):
     if ndofel is None:
         ulim = superbee_p1(geom, U, None, C, beta_lim)
     else:
-        k = torch.arange(geom.ndof, device=ndofel.device)[:, None]
-        dofmask = (k < ndofel[None, :]).to(U.dtype)
+        dofmask = dofmask_of(ndofel, geom.ndof, U.dtype)
         ulim = superbee_p1(geom, U, dofmask, C, beta_lim)
         ulim = ulim * dofmask.repeat(C, 1)
     return ulim, volume_rhs_plain(system, geom, ulim)

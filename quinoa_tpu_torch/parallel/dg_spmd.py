@@ -4,9 +4,9 @@ shards of a ShardGroup.
 The port's counterpart of quinoa_tpu/parallel/dg_spmd.py (which replaces
 the reference DG chare's per-stage comsol/comlim ghost messages,
 src/Inciter/DG.cpp:1010-1086).  Each shard runs the single-device
-solver's step (inciter/dg.py DGSolver.step_coroutine; pde/multimat.py
-MultiMatSolver.step_coroutine) on its own geometry, so each shard
-launches the kernels of the single-device path: K1 (or K4), K12 and K13,
+solver's step (pde/dg_step.py SSPRK3.step_coroutine, of DGSolver or
+MultiMatSolver) on its own geometry and the group's one route, so each
+shard launches the kernels of the single-device path: K1 (or K4), K12 and K13,
 the face Gauss-point route's K5 and K6, K14 for multimat.  The shards run
 in lockstep (base/lockstep.py) and meet where the JAX program has a
 collective: the ghost refresh at each stage's start and after the
@@ -27,8 +27,9 @@ import torch
 
 from ..base.lockstep import run_lockstep
 from ..base.profiler import count, span
-from ..inciter.dg import DGDiagnostics, DGSolver, DGState
-from ..pde.dg import dg_initialize
+from ..inciter.dg import DGDiagnostics, DGSolver
+from ..pde.dg_step import DGState, choose_route, on_route
+from ..pde.multimat import MultiMatSolver
 from .dg_shard import ShardedDG
 
 
@@ -53,30 +54,18 @@ class SPMDDGSolver:
         self.system = system
         self.sharded = sharded
         self.group = sharded.group
-        self.cfl = cfl
-        self.const_dt = const_dt
-        self.limiter = limiter
-        self.pref = pref
+        self.pref = pref                # the command's load balancer reads it
         self.overdecomp = None
-        self.shards = [self._shard_solver(g, cfl, const_dt, limiter, cweight,
-                                          evolve_ndof, pref, tolref)
-                       for g in sharded.geoms]
-        self._align_routes()
+        # one route for every shard, from the group's faces
+        route = choose_route(system, sharded.geoms, limiter, pref, const_dt)
+        self.shards = [self._shard_solver(
+            g, route, cfl=cfl, const_dt=const_dt, limiter=limiter,
+            cweight=cweight, evolve_ndof=evolve_ndof, pref=pref,
+            tolref=tolref) for g in sharded.geoms]
         self._diag = [DGDiagnostics(system, g) for g in sharded.geoms]
 
-    def _shard_solver(self, geom, cfl, const_dt, limiter, cweight,
-                      evolve_ndof, pref, tolref):
-        return DGSolver(self.system, geom, cfl=cfl, const_dt=const_dt,
-                        limiter=limiter, cweight=cweight, pref=pref,
-                        tolref=tolref, evolve_ndof=evolve_ndof)
-
-    def _align_routes(self):
-        """One route for every shard: the face Gauss-point path wherever
-        some shard has a face that needs the face coordinates (the JAX
-        solver decides on the stacked tables)."""
-        fgp = any(sv.face_gp for sv in self.shards)
-        for sv in self.shards:
-            sv.face_gp = fgp
+    def _shard_solver(self, geom, route, **kw):
+        return on_route(DGSolver, route, self.system, geom, **kw)
 
     # -- collectives ----------------------------------------------------------
 
@@ -95,16 +84,9 @@ class SPMDDGSolver:
 
     def initial_state(self, t0: float = 0.0) -> DGState:
         with span("initial_state"):
-            us, nds, ts, its, dts = [], [], [], [], []
-            for g in self.sharded.geoms:
-                u = dg_initialize(self.system, g, t0).to(g.dtype).contiguous()
-                us.append(u)
-                nds.append(torch.full((g.nelem,), g.ndof, dtype=torch.int32,
-                                      device=g.device))
-                ts.append(torch.tensor(t0, dtype=g.dtype, device=g.device))
-                its.append(torch.tensor(0, dtype=torch.int32, device=g.device))
-                dts.append(torch.tensor(0.0, dtype=g.dtype, device=g.device))
-            return DGState(u=us, ndofel=nds, t=ts, it=its, dt=dts)
+            sts = [sv._initial(t0) for sv in self.shards]
+            return DGState(**{f: [getattr(st, f) for st in sts]
+                              for f in ("u", "ndofel", "t", "it", "dt")})
 
     def shard_state(self, state: DGState, s: int) -> DGState:
         return DGState(u=state.u[s], ndofel=state.ndofel[s], t=state.t[s],
@@ -199,27 +181,9 @@ class SPMDMultiMatSolver(SPMDDGSolver):
 
     def __init__(self, system, sharded: ShardedDG, cfl: float = 0.5,
                  const_dt=None, limiter=None):
-        from ..pde.dg import BC_DIRICHLET
-
-        if sharded.ndof not in (1, 4):
-            raise ValueError("multimat supports DG(P0) and DG(P1) only")
-        if limiter not in (None, "superbeep1"):
-            raise ValueError(
-                f"unknown multimat limiter {limiter!r} (superbeep1 only)")
-        self._has_dirichlet = bool(np.isin(sharded.arrays["bctype"],
-                                           [BC_DIRICHLET]).any())
         super().__init__(system, sharded, cfl=cfl, const_dt=const_dt,
                          limiter=limiter)
 
-    def _shard_solver(self, geom, cfl, const_dt, limiter, cweight,
-                      evolve_ndof, pref, tolref):
-        from ..pde.multimat import MultiMatSolver
-
-        # the face kernels cannot evaluate a Dirichlet ghost: the face
-        # Gauss-point route on every shard if any shard has such a face
-        return MultiMatSolver(self.system, geom, cfl=cfl, const_dt=const_dt,
-                              limiter=limiter,
-                              fused_ok=not self._has_dirichlet)
-
-    def _align_routes(self):
-        pass  # each shard solver was given the one route
+    def _shard_solver(self, geom, route, cfl, const_dt, limiter, **_):
+        return on_route(MultiMatSolver, route, self.system, geom, cfl,
+                        const_dt, limiter)

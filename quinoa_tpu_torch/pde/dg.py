@@ -349,30 +349,6 @@ def _phys_gp(node0, Jmat, xi):
     )
 
 
-def needs_face_gp(system, geom: DGGeom) -> bool:
-    """True where the face pass needs the face Gauss-point coordinates:
-    the system's flux samples them (a system without a needs_face_gp
-    attribute reads as True, as in quinoa_tpu/inciter/dg.py:99-102) or
-    some face is Dirichlet or inlet."""
-    return bool(getattr(system, "needs_face_gp", True) or geom.has_coord_bc)
-
-
-def require_slice(system, geom: DGGeom):
-    """Raise for what the port does not cover: anything but DG(P0), DG(P1)
-    and DG(P2), as in the JAX package; and on the fused face passes
-    (compressible Euler on faces that need no coordinates) a flux other
-    than HLLC and Lax-Friedrichs (ops/face_fused.py fused_face_pass), which
-    DGCompFlow refuses already."""
-    if geom.ndof not in (1, 4, 10):
-        raise NotImplementedError(f"ndof={geom.ndof}: only DG(P0), DG(P1) "
-                                  "and DG(P2) are ported")
-    if not needs_face_gp(system, geom):
-        from ..kernels import FLUXES
-
-        require_fused_physics(system, geom, face_pass=True, ndofs=(1, 4, 10),
-                              fluxes=tuple(FLUXES))
-
-
 def require_fused_physics(system, geom: DGGeom, face_pass: bool = False,
                           ndofs=(4,), fluxes=("hllc",)):
     """Raise unless the fused kernels cover the case, compressible Euler
@@ -398,6 +374,12 @@ def require_fused_physics(system, geom: DGGeom, face_pass: bool = False,
 
 
 # -- operators ---------------------------------------------------------------
+
+
+def dofmask_of(ndofel, ndof, dtype):
+    """The p-adaptive dofmask (ndof, E): 1 where dof k < ndofel[e]."""
+    k = torch.arange(ndof, device=ndofel.device)[:, None]
+    return (k < ndofel[None, :]).to(dtype)
 
 
 def _masked(U, dofmask, C):
@@ -472,6 +454,15 @@ def source_rhs(system, geom: DGGeom, t):
     return (Rs * (geom.vol * geom.emask)).reshape(C * K, -1)
 
 
+def volume_term(system, ndof, face_gp=True):
+    """The volume term of a DG rhs where no limit pass made one: 'plain'
+    (volume_rhs_plain, K1's sum order) at P1 without a source, 'none' on
+    the fused face pass at P0 without one, else 'xla' (volume_rhs)."""
+    if system.has_src or ndof == 10 or (ndof == 1 and face_gp):
+        return "xla"
+    return "plain" if ndof == 4 else "none"
+
+
 def no_plan(accum_plan):
     """The JAX package's accumulation-plan slot, which must be None: the
     port has no plans (the card gathers and sums directly)."""
@@ -492,7 +483,7 @@ def dg_rhs(system, geom: DGGeom, U, dofmask, t, accum_plan=None,
     XLA formulation, volume_rhs; without a source at P1 the sum order of
     the limit + volume kernel, volume_rhs_plain).  face_gp=False without
     a dofmask takes the fused face pass where the JAX package takes its
-    fused kernels (face_pass_for: K12 + K13 on a card at every order and
+    fused kernels (fused_face_pass: K12 + K13 on a card at every order and
     flux; compressible Euler on coordinate-free faces only); with
     want_charvel it also returns delt (E,), the dt sweep's per-element
     summed charvel.  Otherwise (the JAX default face_gp=True, or a
@@ -508,7 +499,7 @@ def dg_rhs(system, geom: DGGeom, U, dofmask, t, accum_plan=None,
         raise ValueError("the face Gauss-point path has no charvel: use "
                          "dg_dt")
     from ..ops.face_accum import accumulate_faces
-    from ..ops.face_fused import face_pass_for
+    from ..ops.face_fused import fused_face_pass
     from ..ops.nbr_bounds import volume_rhs_plain
 
     C, K = system.ncomp, geom.ndof
@@ -517,9 +508,8 @@ def dg_rhs(system, geom: DGGeom, U, dofmask, t, accum_plan=None,
         Rv = vol_rhs
     else:
         with span("volume"):
-            Rv = (volume_rhs_plain(system, geom, Um, t)  # K1's sum order
-                  if K == 4 and not system.has_src
-                  else volume_rhs(system, geom, Um, t))
+            Rv = (volume_rhs_plain if volume_term(system, K) == "plain"
+                  else volume_rhs)(system, geom, Um, t)
     with span("face_pass"):
         if face_gp:
             # the test functions are not masked: the rows they would zero
@@ -529,7 +519,7 @@ def dg_rhs(system, geom: DGGeom, U, dofmask, t, accum_plan=None,
                                  Rv)
             delt = None
         else:
-            r, delt = face_pass_for(system, K)(system, geom, Um, vol_rhs=Rv)
+            r, delt = fused_face_pass(system, geom, Um, vol_rhs=Rv)
         if dofmask is not None:
             r = r * dofmask.repeat(C, 1)
     return (r, delt) if want_charvel else r

@@ -52,13 +52,13 @@ from quinoa_tpu.pde.problems import SodShocktube as JSod
 from quinoa_tpu_torch import convert
 from quinoa_tpu_torch.inciter.dg import DGSolver
 from quinoa_tpu_torch.ops.face_fused import (basis_accum_plain,
-                                             face_pass_for,
                                              face_wflux_plain,
                                              fused_face_pass)
 from quinoa_tpu_torch.pde.dg import BC_DIRICHLET as T_DIRICHLET
 from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE as T_EXTRAPOLATE
 from quinoa_tpu_torch.pde.dg import dg_dt, dg_dt_from_delt, dg_rhs
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow as TCompFlow
+from quinoa_tpu_torch.pde.dg_step import choose_route
 from quinoa_tpu_torch.pde.problems import SodShocktube as TSod
 
 WFL_ATOL = 1e-13
@@ -212,13 +212,15 @@ def test_lf_solver_matches_jax(sod_p1, ndof, kw):
 
 def test_lf_routing(sod_p1):
     """Lax-Friedrichs and HLLC take K12 + K13 (fused_face_pass) at every
-    order, the solver's DG(P1) pass included; the pass refuses faces whose
-    ghost needs the face coordinates (Dirichlet)."""
+    order (the route's face pass, each flux's flavour), the solver's DG(P1)
+    pass included; the pass refuses faces whose ghost needs the face
+    coordinates (Dirichlet)."""
     _, _, tg = sod_p1
     lf, hllc = TCompFlow(TSod(), riemann_flux=LF), TCompFlow(TSod())
     for ndof in (1, 4, 10):
-        assert face_pass_for(lf, ndof) is fused_face_pass
-        assert face_pass_for(hllc, ndof) is fused_face_pass
+        g = dataclasses.replace(tg, ndof=ndof)
+        assert choose_route(lf, [g]).face == "k12_lf"
+        assert choose_route(hllc, [g]).face == "k12_hllc"
     for system in (lf, hllc):
         assert DGSolver(system, tg, limiter="superbeep1").p1_face_pass is (
             fused_face_pass)

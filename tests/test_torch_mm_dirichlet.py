@@ -76,7 +76,7 @@ def _case(geoms, nmat, thinc):
 def test_dirichlet_p1_rhs_matches_jax(geoms, nmat, thinc):
     js, ts, u = _case(geoms, nmat, thinc)
     jg, tg = geoms
-    assert not js.system.fused_ok and not ts.fused_ok
+    assert not js.system.fused_ok and ts.route.face == "mm_dirichlet"
     want = np.asarray(js.system.rhs(jg, jnp.asarray(u), T_RHS,
                                     face_gp=True))
     got = ts.system.rhs(tg, torch.as_tensor(u), T_RHS)

@@ -202,7 +202,7 @@ def test_p0_configurations_outside_the_port_raise():
         DGSolver(TCompFlow(TSod()), g, limiter="superbeep1")
     js = JSolver(JCompFlow(JSod()), jg, cfl=0.5, pref=True)
     ts = DGSolver(TCompFlow(TSod()), g, cfl=0.5, pref=True)
-    assert ts.face_gp
+    assert ts.route.face == "face_gp"
     a, b = js.initial_state(), ts.initial_state()
     for _ in range(2):
         a, b = js.step(a), ts.step(b)

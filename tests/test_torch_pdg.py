@@ -4,8 +4,8 @@ in interpret mode, Superbee with a dofmask and precomputed bounds, the
 sticky indicator and the one-ring promotion, the Sedov pdg solver and the
 mixed P0/P1 diagnostics; and the solver's fused route (the limit +
 volume pass with the dof counts, K1's p-adaptive flavour on a card)
-against its split route (the same solver with fused_limit off) on a
-jittered box, bit for bit, and with a source against both volume
+against its split route (the same solver built on the split Superbee
+route) on a jittered box, bit for bit, and with a source against both volume
 formulations.
 
 Float64 on the CPU on the 6x6x4 box of the JAX package's own bounds-kernel
@@ -53,8 +53,10 @@ from quinoa_tpu_torch.ops.nbr_bounds import (neighbor_mean_bounds,
 from quinoa_tpu_torch.pde.dg import BC_SYMMETRY as T_SYM
 from quinoa_tpu_torch.pde.dg import build_dggeom as t_build
 from quinoa_tpu_torch.pde.dg import (dg_dt_from_delt, eval_ndof_sticky,
-                                     propagate_ndof, source_rhs)
+                                     propagate_ndof, source_rhs,
+                                     volume_term)
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow as TCompFlow
+from quinoa_tpu_torch.pde.dg_step import on_route
 from quinoa_tpu_torch.pde.limiter import superbee_p1
 from quinoa_tpu_torch.pde.problems import NLEnergyGrowth as TNLEG
 from quinoa_tpu_torch.pde.problems import SedovBlastwave as TSedov
@@ -189,7 +191,7 @@ def test_mixed_p0_diagnostics_match_jax(sedov_pdg):
         np.testing.assert_allclose(x, y, rtol=L2_RTOL, atol=1e-14)
 
 
-def test_pdg_stage_face_pass_matches_pallas_nearfar(sedov_pdg):
+def test_pdg_stage_face_pass_matches_pallas_nearfar(sedov_pdg, monkeypatch):
     """pdg's first RK stage: the masked P0/P1 state and volume term the
     port's solver hands its face pass (K12 + K13), through that pass,
     against the JAX dg_rhs on the same state and volume term through the
@@ -205,11 +207,10 @@ def test_pdg_stage_face_pass_matches_pallas_nearfar(sedov_pdg):
         seen.append((uf, vol_rhs))
         return face_pass(system, g, uf, vol_rhs=vol_rhs)
 
-    ts.p1_face_pass = spy
-    try:
-        ndofel = ts.step(ts.initial_state()).ndofel.numpy()
-    finally:
-        ts.p1_face_pass = face_pass
+    # the face pass of the solver's route (K12 + K13), seen from outside
+    monkeypatch.setattr(t_dg, "fused_face_pass", spy)
+    ndofel = ts.step(ts.initial_state()).ndofel.numpy()
+    monkeypatch.undo()
     uf, rv = seen[0]
     assert (ndofel == 1).any() and (ndofel == 4).any()
     zero = (uf.reshape(C, K, -1)[:, 1:] == 0).all(dim=(0, 1)).numpy()
@@ -230,8 +231,8 @@ def test_pdg_stage_face_pass_matches_pallas_nearfar(sedov_pdg):
 def _fused_and_split(problem, nsteps=4, tolref=0.1):
     """[(fused state, split state)] after each of nsteps steps of
     p-adaptive DG(P1) + Superbee on a jittered box, each route from its
-    own previous state.  The split route is the same solver's with
-    fused_limit off: K4's bounds (its plain version here), superbee_p1
+    own previous state.  The split route is the same solver's built on
+    the split Superbee route: K4's bounds (its plain version here), superbee_p1
     with the dofmask, the stage-0 zeroing (u * dofmask, which feeds the
     anchor), the volume integral of u * dofmask (volume_rhs_plain, or
     volume_rhs with a source), the face pass on that masked state, the RK
@@ -239,11 +240,13 @@ def _fused_and_split(problem, nsteps=4, tolref=0.1):
     mesh, _ = t_hilbert(jittered_box())
     g = t_build(mesh, 4, {i: T_SYM for i in range(1, 7)},
                 dtype=torch.float64, device="cpu")
-    fused, split = (DGSolver(TCompFlow(problem), g, cfl=0.5,
-                             limiter="superbeep1", pref=True, tolref=tolref)
-                    for _ in range(2))
-    assert fused.fused_limit
-    split.fused_limit = False
+    kw = dict(cfl=0.5, limiter="superbeep1", pref=True, tolref=tolref)
+    fused = DGSolver(TCompFlow(problem), g, **kw)
+    assert fused.route.limit == "k1_pref"
+    system = TCompFlow(problem)
+    split = on_route(DGSolver, dataclasses.replace(
+        fused.route, limit="superbee_split",
+        volume=volume_term(system, 4, face_gp=False)), system, g, **kw)
     a = b = fused.initial_state()
     out = []
     for _ in range(nsteps):

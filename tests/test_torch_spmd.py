@@ -17,9 +17,11 @@ rDG p0p1 (the last two in test_torch_spmd_ho.py, which runs this file's
 tests on them: xdist schedules whole files).  The JAX side's SPMD
 programs compile for 10-30 s each, so each scheme compiles one (one step,
 no diagnostics program).  Last, the sharded p-adaptive step's fused
-limit + volume route against its split route (the shards' fused_limit
-off) on a jittered box, bit for bit.
+limit + volume route against its split route (the solver built on the
+split Superbee route) on a jittered box, bit for bit.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -37,7 +39,7 @@ from quinoa_tpu_torch import convert
 from quinoa_tpu_torch.inciter.dg import DGDiagnostics, DGSolver
 from quinoa_tpu_torch.mesh import box_tet_mesh
 from quinoa_tpu_torch.parallel import (SPMDDGSolver, ShardGroup,
-                                       build_dg_shards)
+                                       build_dg_shards, dg_spmd)
 from quinoa_tpu_torch.pde import problems as tprob
 from quinoa_tpu_torch.pde.dg import build_dggeom
 from quinoa_tpu_torch.pde.dg_compflow import DGCompFlow
@@ -160,11 +162,11 @@ def test_spmd_dg_matches_single_device(f64, name):
         assert (a.ndofel.numpy() == 1).any()   # P0 and P1 elements both
 
 
-def test_spmd_pdg_fused_limit_matches_split_route(f64):
+def test_spmd_pdg_fused_limit_matches_split_route(f64, monkeypatch):
     """Sedov p-adaptive DG(P1) on S shards of a jittered box: the shards'
-    fused limit + volume route and the split route (each shard's
-    fused_limit off), three steps in lockstep, every shard's u, ndofel,
-    t and dt bit for bit, with P0 and P1 elements."""
+    fused limit + volume route and the split route (the solver built on
+    the split Superbee route), three steps in lockstep, every shard's u,
+    ndofel, t and dt bit for bit, with P0 and P1 elements."""
     mesh = jittered_box()
     system = DGCompFlow(tprob.SedovBlastwave())
 
@@ -174,10 +176,15 @@ def test_spmd_pdg_fused_limit_matches_split_route(f64):
         return SPMDDGSolver(system, sh, cfl=0.5, limiter="superbeep1",
                             pref=True)
 
-    fused, split = solver(), solver()
-    assert all(sv.fused_limit and not sv.face_gp for sv in fused.shards)
-    for sv in split.shards:
-        sv.fused_limit = False
+    fused = solver()
+    assert {dataclasses.astuple(sv.route) for sv in fused.shards} == {
+        ("k1_pref", "k1", "k12_hllc", "charvel")}
+    split_route = dataclasses.replace(fused.shards[0].route,
+                                      limit="superbee_split", volume="plain")
+    monkeypatch.setattr(dg_spmd, "choose_route",
+                        lambda *a, **k: split_route)
+    split = solver()
+    assert all(sv.route == split_route for sv in split.shards)
     a = b = fused.initial_state()
     for _ in range(3):
         a, b = fused.step(a), split.step(b)

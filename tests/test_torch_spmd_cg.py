@@ -150,8 +150,8 @@ def test_multimat_route_leaves_the_system_alone(f64):
     single = MultiMatSolver(system, build_dggeom(mesh, 1, SOD,
                                                  device="cpu"))
     port = SPMDMultiMatSolver(system, sh, cfl=0.5)
-    assert single.fused_ok
-    assert [sv.fused_ok for sv in port.shards] == [False] * S
+    assert single.route.face == "k14"
+    assert [sv.route.face for sv in port.shards] == ["mm_dirichlet"] * S
     assert system.fused_ok is True
 
 
