@@ -755,6 +755,11 @@ KERNELS = {
     # (maybe_fused_limit), so there B6 runs and the rest is XLA
     "limit_vol_pref": ("quinoa_tpu_torch/csrc/limit_vol.cu",
                        "quinoa_tpu/ops/nbr_bounds.py:258"),
+    # multimat P1's volume integrals, which the JAX package leaves to XLA:
+    # no TPU kernel is replaced; the volume-only flavour is what
+    # pde/dg.py volume_rhs runs (no path's step)
+    "mm_volume_nc": ("quinoa_tpu_torch/csrc/mm_volume.cu", None),
+    "mm_volume": ("quinoa_tpu_torch/csrc/mm_volume.cu", None),
 }
 #: the kernel instances of the paths, listed in the kernels line beside
 #: the kernels above: (entry, launch counter, path); the source and the
@@ -776,6 +781,7 @@ INSTANCES = (
     ("mm_face_wflux THINC (nmat 3, K=4)", "mm_face_wflux_thinc", "mm_thinc"),
     ("basis_accum (R=22, K=4)", "basis_accum", "mm_thinc"),
     ("mm_limit (nmat 3, K=4)", "mm_limit", "mm_thinc"),
+    ("mm_volume_nc (nmat 3)", "mm_volume_nc", "mm_thinc"),
     ("face_gather (R=108)", "face_gather", "mm_iface_p1"),
     ("face_gather (R=48)", "face_gather", "mm_iface_p1"),
     ("face_accum (R=88)", "face_accum", "mm_iface_p1"),
@@ -809,20 +815,23 @@ PATHS = {
     "p2": {"face_wflux": 3, "basis_accum": 3},
     "p0": {"face_wflux": 3, "basis_accum": 3},
     "mm_p0": {"mm_face_wflux": 3, "basis_accum": 3},
-    "mm_p1": {"mm_limit": 3, "mm_face_wflux": 3, "basis_accum": 3},
+    "mm_p1": {"mm_limit": 3, "mm_face_wflux": 3, "basis_accum": 3,
+              "mm_volume_nc": 3},
     "mm_iface": {"face_gather": 8, "face_accum": 3},
     "p1_lf": {"limit_vol": 3, "face_wflux_lf": 3, "basis_accum": 3},
     "mm_thinc": {"mm_limit": 3, "mm_face_wflux_thinc": 3,
-                 "basis_accum": 3},
+                 "basis_accum": 3, "mm_volume_nc": 3},
     # K5: el and er of each stage's rhs (108 rows) and of the stage-0 dt
     # sweep (48 rows)
-    "mm_iface_p1": {"mm_limit": 3, "face_gather": 8, "face_accum": 3},
+    "mm_iface_p1": {"mm_limit": 3, "face_gather": 8, "face_accum": 3,
+                    "mm_volume_nc": 3},
     # the walker's draws and steps are torch ops: no hand kernel
     "walker": {},
 }
 #: the path whose launches the kernels line reports for each kernel; K4
 #: is on no path (the split limiter route, P2 and P1 off compressible
-#: Euler, which only the card-vs-CPU solvers run): its launches are None
+#: Euler, which only the card-vs-CPU solvers run), nor is K16's
+#: volume-only flavour: their launches are None
 MAIN_PATH = {"limit_vol": "p1", "limit_vol_pref": "pdg", "nbr_bounds": None,
              "face_gather": "hump", "face_accum": "hump", "alecg_vol": "alecg",
              "alecg_edge": "alecg", "cg_assemble": "alecg",
@@ -830,7 +839,8 @@ MAIN_PATH = {"limit_vol": "p1", "limit_vol_pref": "pdg", "nbr_bounds": None,
              "node_gather": "diagcg", "node_assemble": "diagcg",
              "face_wflux": "p1", "basis_accum": "p1",
              "mm_face_wflux": "mm_p0", "face_wflux_lf": "p1_lf",
-             "mm_face_wflux_thinc": "mm_thinc", "mm_limit": "mm_p1"}
+             "mm_face_wflux_thinc": "mm_thinc", "mm_limit": "mm_p1",
+             "mm_volume_nc": "mm_p1", "mm_volume": None}
 #: floating-point operations a kernel does per entity (element, face,
 #: edge or node; per row where it says so), counted from its source and
 #: rounded up.  Every kernel here is bound by bytes by a wide margin.
@@ -849,7 +859,11 @@ OPS = {"limit_vol": 2000, "nbr_bounds_row": 8, "mm_limit_row": 250,
        # material and side to each of the 3 points
        "mm_face_wflux": {(2, 1): 400, (2, 4): 1500, (3, 1): 500,
                          (3, 4): 2000},
-       "mm_face_wflux_thinc": {(2, 4): 2500, (3, 4): 3500}}
+       "mm_face_wflux_thinc": {(2, 4): 2500, (3, 4): 3500},
+       # K16 per element by nmat: 5 points of state sums, primitives,
+       # flux columns, jacInv contraction and the 6 nonzero w*dB/dxi
+       # entries a component; the NC flavour adds the integrands' modes
+       "mm_volume": {2: 2000, 3: 2600}, "mm_volume_nc": {2: 2400, 3: 3100}}
 
 
 def tpu_precision_initial_u(solver, torch):
@@ -1396,6 +1410,36 @@ def mm_limit_check(torch, solver, dtype_name, timed):
                    dtype_name, timed, bitwise=True)
 
 
+def mm_volume_check(torch, solver, dtype_name, timed):
+    """K16 in both flavours against mm_volume_plain bit for bit on
+    mm_perturbed's state of the multimat P1 solver and that state's face
+    sums (mm_face_pass, with THINC's carriers where the solver sharpens);
+    the bound counts the face rows the kernel reads (the C*K conservative
+    rows and mode 0 of the 3*nmat + 1 others).  Returns {counter:
+    record}."""
+    from quinoa_tpu_torch import kernels
+    from quinoa_tpu_torch.ops.face_fused import mm_face_pass
+    from quinoa_tpu_torch.pde.multimat import mm_volume_plain
+
+    g, sy = solver.geom, solver.system
+    C, K = sy.ncomp, g.ndof
+    U = mm_perturbed(torch, solver)
+    X = sy.thinc_carriers(g, U.reshape(C, K, -1)) if sy.intsharp else None
+    acc = mm_face_pass(sy, g, U, X)[0]
+    tabs = (g.jacInv, g.vol, g.emask, g.ktab, g.wB_vol)
+    out = {}
+    for name, a, rows in (("mm_volume", None, ()),
+                          ("mm_volume_nc", acc,
+                           (acc[:C * K], acc[C * K::K]))):
+        out[name] = measure(
+            torch, name, f"E={g.nelem} nmat={sy.nmat} K={K}",
+            lambda a=a: kernels.mm_volume(U, *tabs, sy.eos, a),
+            lambda a=a: mm_volume_plain(sy, g, U, a),
+            (U, g.jacInv, g.vol, g.emask, *rows),
+            OPS[name][sy.nmat] * g.nelem, dtype_name, timed, bitwise=True)
+    return out
+
+
 def face_gp_kernel_checks(torch, geom, U, C, fgeom, Uf, cL, cR, base,
                           dtype_name, timed):
     """K4 on the C-component state U (C*K, E) of geom, K5 on the rows Uf of
@@ -1476,13 +1520,13 @@ def mm_iface_p1_checks(torch, solver, dtype_name, timed):
     initial state: K5 on the C + 5 nmat rows of K modes (the state and its
     THINC carriers, 108 at nmat 3) at el and er, K5 on the C*K state rows
     of the dt sweep (48) at el and er, and K6 on the route's face rows
-    (R*K, 88 at nmat 3) onto the volume term; each timed (el for K5) with
-    its one-call yardstick, index_select or index_add_.  Returns {entry:
+    (R*K, 88 at nmat 3) from zero; each timed (el for K5) with its
+    one-call yardstick, index_select or index_add_.  Returns {entry:
     record}."""
     from quinoa_tpu_torch import kernels
     from quinoa_tpu_torch.ops.face_accum import (accumulate_faces_plain,
                                                  face_gather_plain)
-    from quinoa_tpu_torch.pde.dg import face_gp_rows, volume_rhs
+    from quinoa_tpu_torch.pde.dg import face_gp_rows
 
     sy, g = solver.system, solver.geom
     C, K, E, F = sy.ncomp, g.ndof, g.nelem, g.nface
@@ -1490,13 +1534,11 @@ def mm_iface_p1_checks(torch, solver, dtype_name, timed):
     X = sy.thinc_carriers(g, u.reshape(C, K, E))
     Ug = torch.cat([u.reshape(C, K, E), sy.thinc_modes(X, K)]).reshape(
         -1, E).contiguous()
-    Rv = volume_rhs(sy, g, u, 0.0)
     cL, cR = face_gp_rows(sy.thinc_facade, g, Ug, 0.0)
-    base = torch.cat([Rv, Rv.new_zeros(((sy.nrows - C) * K, E))])
     R = cL.shape[0]
     el, er = g.el.long(), g.er.long()
     inner = el != er
-    acc = base.clone()
+    acc = cL.new_zeros((R, E))
     src = torch.cat([cL, cR[:, inner]], dim=1)
     idx = torch.cat([el, er[inner]])
     out = {}
@@ -1514,10 +1556,10 @@ def mm_iface_p1_checks(torch, solver, dtype_name, timed):
                 lambda rows=rows: face_gather_plain(rows, g.er),
                 (rows, g.er), 0, dtype_name, False, bitwise=True)
     out[f"face_accum (R={R})"] = measure(
-        torch, "face_accum", f"E={E} F={F} rows={R} onto the volume term",
-        lambda: kernels.face_accum(cL, cR, g.fose, g.fsideR, base),
-        lambda: accumulate_faces_plain(g, cL, cR, base),
-        (cL, cR, g.fose, g.fsideR, base), OPS["face_accum_row"] * R * E,
+        torch, "face_accum", f"E={E} F={F} rows={R} from zero",
+        lambda: kernels.face_accum(cL, cR, g.fose, g.fsideR),
+        lambda: accumulate_faces_plain(g, cL, cR),
+        (cL, cR, g.fose, g.fsideR), OPS["face_accum_row"] * R * E,
         dtype_name, timed, lambda: acc.index_add_(1, idx, src), bitwise=True)
     return out
 
@@ -2009,14 +2051,13 @@ def p2_breakdown(torch, solver, state, reps=5):
 def mm_breakdown(torch, solver, name, state, reps=5):
     """Host-clock ms of one multimat P1 stage's parts, each call ending in
     a synchronize (median of reps): the consistent Superbee limit (K15),
-    the volume integral, with THINC the carriers, the face
-    pass (K14 + K13, or on Dirichlet faces the face Gauss-point route: K5,
-    the ghost, THINC and AUSM+up in torch, K6; then also the stage-0 dt
-    sweep, K5 and torch), the non-conservative volume terms and the alpha
-    closure."""
+    with THINC the carriers, the face pass (K14 + K13, or on Dirichlet
+    faces the face Gauss-point route: K5, the ghost, THINC and AUSM+up in
+    torch, K6; then also the stage-0 dt sweep, K5 and torch), the volume
+    pass (K16: the flux and non-conservative integrals summed with the
+    face rows) and the alpha closure."""
     from quinoa_tpu_torch.ops.face_fused import mm_face_pass
-    from quinoa_tpu_torch.pde.dg import volume_rhs
-    from quinoa_tpu_torch.pde.multimat import clean_alpha_closure
+    from quinoa_tpu_torch.pde.multimat import clean_alpha_closure, mm_volume
 
     sy, g, u, t = solver.system, solver.geom, state.u, state.t
     C, K = sy.ncomp, g.ndof
@@ -2026,20 +2067,16 @@ def mm_breakdown(torch, solver, name, state, reps=5):
         face = {"face pass K14 + K13": lambda: mm_face_pass(sy, g, u, X)}
         acc = mm_face_pass(sy, g, u, X)[0]
     else:
-        Rv = volume_rhs(sy, g, u, t)
         face = {"face Gauss-point pass K5 + torch + K6":
-                lambda: sy.dirichlet_face_gp_sums(g, u, X, Rv, t),
+                lambda: sy.dirichlet_face_gp_sums(g, u, X, t),
                 "dt sweep K5 + torch": lambda: sy.dt(g, u)}
-        acc = sy.dirichlet_face_gp_sums(g, u, X, Rv, t)
-    _, dap, divu = sy._split_acc(acc, K)
+        acc = sy.dirichlet_face_gp_sums(g, u, X, t)
     parts = {
         "limit": lambda: solver._limit(u),
-        "volume integral": lambda: volume_rhs(sy, g, u, t),
         **({"THINC carriers": lambda: sy.thinc_carriers(g, Uv)}
            if sy.intsharp else {}),
         **face,
-        "non-conservative terms": lambda: sy._nonconservative_ho(
-            g, Uv, dap, divu),
+        "volume pass K16": lambda: mm_volume(sy, g, u, acc),
         "alpha closure": lambda: clean_alpha_closure(u, C, K, sy.nmat),
     }
     phase(name, f"one stage's parts (host clock to a synchronize, median "
@@ -3843,6 +3880,9 @@ def main():
     stats["basis_accum (R=22, K=4)"] = rec["basis_accum"]
     stats["mm_limit (nmat 3, K=4)"] = mm_limit_check(
         torch, mm["mm_thinc"], "float32", timed=True)
+    stats.update(mm_volume_check(torch, mm["mm_p1"], "float32", timed=True))
+    stats["mm_volume_nc (nmat 3)"] = mm_volume_check(
+        torch, mm["mm_thinc"], "float32", timed=True)["mm_volume_nc"]
     # K5 at 108 and 48 rows, K6 at 88 rows (path 18)
     stats.update(mm_iface_p1_checks(torch, mm["mm_iface_p1"], "float32",
                                     timed=True))
@@ -3858,6 +3898,8 @@ def main():
                       timed=False)
     mm_limit_check(torch, sm["mm_p1"], "float64", timed=False)
     mm_limit_check(torch, sm["mm_thinc"], "float64", timed=False)
+    mm_volume_check(torch, sm["mm_p1"], "float64", timed=False)
+    mm_volume_check(torch, sm["mm_thinc"], "float64", timed=False)
     mm_kernel_checks(torch, mm_solver("mm_p0", sm["mm_p0"].geom, nmat=3),
                      "float64", timed=False)
     lf64 = sm["p1_lf"]

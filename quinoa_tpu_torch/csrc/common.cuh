@@ -1,4 +1,5 @@
-// Shared device code of the DG(P1) compressible-Euler kernels.
+// Shared device code of the DG(P1) compressible-Euler kernels, and the
+// multimat kernels' material constants (K14-K16).
 //
 // Every expression is written in the operation order of the plain torch
 // versions (quinoa_tpu_torch/pde/eos.py, ops/riemann.py,
@@ -29,6 +30,15 @@ constexpr int TAB_WDB = 68;      // w_vol * dBdxi_vol (GV, K, 3)
 constexpr int TAB_WFACE = 128;   // w_face (G,)
 constexpr int TAB_SIZE = 131;
 
+// the entries of w_vol * dBdxi_vol (mode k, direction m) that are not
+// zero for the P1 Dubiner basis: dB0 = 0, dB2/dxi = 0, dB3/dxi = dB3/deta
+// = 0 (kernels/__init__.py WDB_NONZERO).  The plain versions skip w == 0,
+// so K1's and K16's volume rows add exactly these terms; pack_tables
+// refuses a table with other zeros.
+__host__ __device__ constexpr bool wdb_nonzero(int k, int m) {
+  return k == 1 || (k == 2 && m > 0) || (k == 3 && m == 2);
+}
+
 constexpr int BC_INTERIOR = 0;
 constexpr int BC_SYMMETRY = 2;
 
@@ -42,6 +52,34 @@ struct Eos {
   T gamma, gm1, pstiff;
 };
 
+// the multimat kernels' (K14, K16) per-material stiffened-gas constants,
+// passed by value
+template <typename T>
+struct MMEos {
+  T gamma[3], gm1[3], pstiff[3];
+};
+
+// MMEos of the wrappers' three (gamma, pstiff) pairs, gm1 = gamma - 1
+// rounded once, as pde/eos.py's (self.gamma - 1.0)
+template <typename T>
+MMEos<T> mm_eos(const double* gamma, const double* pstiff) {
+  MMEos<T> eos;
+  for (int k = 0; k < 3; ++k) {
+    eos.gamma[k] = T(gamma[k]);
+    eos.gm1[k] = T(gamma[k] - 1.0);
+    eos.pstiff[k] = T(pstiff[k]);
+  }
+  return eos;
+}
+
+// the floor of MultiMatSystem._prim's alpha and material density: 50 *
+// the type's machine epsilon (torch.finfo(dtype).eps)
+template <typename T>
+__device__ __forceinline__ T mm_floor() {
+  return T(50.0 * (sizeof(T) == 4 ? 1.1920928955078125e-07
+                                  : 2.220446049250313e-16));
+}
+
 // torch.minimum / torch.maximum (and jnp's): a NaN operand gives NaN.
 // The propagation matters: a face point with negative pressure has a NaN
 // sound speed, and HLLC's wave selection must then fall through to the
@@ -53,6 +91,18 @@ __device__ __forceinline__ T vmin(T a, T b) {
 template <typename T>
 __device__ __forceinline__ T vmax(T a, T b) {
   return (a != a || b != b) ? a + b : (b > a ? b : a);
+}
+
+// num / den.  IEEE division sends a zero numerator to its slow path, a
+// called subroutine (FCHK in the SASS); over a divisor that is neither
+// zero nor NaN the quotient is the zero of the sign the division gives,
+// formed here without it.  A branch, not a select: the division must not
+// run on that side.  K1, K15 and K16 divide through it.
+template <typename T>
+__device__ __forceinline__ T quot(T num, T den) {
+  if (num == T(0) && den == den && den != T(0))
+    return signbit(num) != signbit(den) ? T(-0.0) : T(0);
+  return num / den;
 }
 
 template <typename T>

@@ -45,8 +45,8 @@
 // branches share one division, a zero numerator skips the division's
 // slow path (quot), a point that takes neither branch gets the clamp of
 // 1 evaluated once, and the volume rows skip the P1 basis's structural
-// zeros of w_vol * dBdxi_vol at compile time (lv_wdb_nonzero; pack_tables
-// refuses a table with other zeros).  Each lane runs its own inlined copy
+// zeros of w_vol * dBdxi_vol at compile time (common.cuh wdb_nonzero;
+// pack_tables refuses a table with other zeros).  Each lane runs its own inlined copy
 // of the code, with constant row offsets, and the point loops stay
 // rolled: unrolled, the five copies took twice the SASS and twice the
 // time (PERF.md).  The 131 quadrature constants sit in shared memory.
@@ -68,26 +68,6 @@ struct LimitVolShared {
   T jv[10][LV_EPB];                        // jacInv (row-major), vol*emask
   T pt[GV][LV_PT][LV_EPB];                 // phase 2's point values
 };
-
-// the entries of w_vol * dBdxi_vol (mode k, direction m) that are not
-// zero for the P1 Dubiner basis: dB0 = 0, dB2/dxi = 0, dB3/dxi = dB3/deta
-// = 0 (kernels/__init__.py WDB_NONZERO).  The plain version skips w == 0,
-// so the volume rows add exactly these terms.
-__host__ __device__ constexpr bool lv_wdb_nonzero(int k, int m) {
-  return k == 1 || (k == 2 && m > 0) || (k == 3 && m == 2);
-}
-
-// num / den.  IEEE division sends a zero numerator to its slow path, a
-// called subroutine (FCHK in the SASS); over a divisor that is neither
-// zero nor NaN the quotient is the zero of the sign the division gives,
-// formed here without it.  A branch, not a select: the division must not
-// run on that side.
-template <typename T>
-__device__ __forceinline__ T quot(T num, T den) {
-  if (num == T(0) && den == den && den != T(0))
-    return signbit(num) != signbit(den) ? T(-0.0) : T(0);
-  return num / den;
-}
 
 // phase 1 of lane c: bounds, phi, the limited rows (to ulim and shared
 // memory), and this lane's share of jacInv and the volume
@@ -218,7 +198,7 @@ __device__ __forceinline__ void volume_lane(const LimitVolShared<T>& sm,
     for (int m = 0; m < 3; ++m) {
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        if (lv_wdb_nonzero(k, m)) R[k] = R[k] + w[k * 3 + m] * fref[m];
+        if (wdb_nonzero(k, m)) R[k] = R[k] + w[k * 3 + m] * fref[m];
     }
   }
   const T ve = sm.jv[9][el];

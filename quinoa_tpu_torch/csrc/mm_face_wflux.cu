@@ -82,24 +82,11 @@
 
 namespace qtk {
 
-// per-material stiffened-gas constants, passed by value
-template <typename T>
-struct MMEos {
-  T gamma[3], gm1[3], pstiff[3];
-};
-
 // MultiMatSystem._prim of one face-point state
 template <typename T, int NMAT>
 struct MMPrim {
   T rho, vel[3], al[NMAT], pm[NMAT], hm[NMAT], am[NMAT];
 };
-
-template <typename T>
-__device__ __forceinline__ T mm_floor() {
-  // 50 * the type's machine epsilon (torch.finfo(dtype).eps)
-  return T(50.0 * (sizeof(T) == 4 ? 1.1920928955078125e-07
-                                  : 2.220446049250313e-16));
-}
 
 template <typename T, int NMAT>
 __device__ __forceinline__ void mm_prim(const MMEos<T>& eos, const T* u,
@@ -513,12 +500,7 @@ int launch_mm_face_wflux(const void* U, const void* el, const void* er,
                          const double* pstiff, const void* X, double beta,
                          void* wfl, void* mx, int nmat, int ndof, int thinc,
                          long long E, long long F, void* stream) {
-  MMEos<T> eos;
-  for (int k = 0; k < 3; ++k) {
-    eos.gamma[k] = T(gamma[k]);
-    eos.gm1[k] = T(gamma[k] - 1.0);
-    eos.pstiff[k] = T(pstiff[k]);
-  }
+  const MMEos<T> eos = mm_eos<T>(gamma, pstiff);
   const cudaStream_t s = (cudaStream_t)stream;
 #define QTK_MM_FACE_WFLUX(NM, KK, GG, TH)                                   \
   if (nmat == NM && ndof == KK && (thinc != 0) == TH) {                     \

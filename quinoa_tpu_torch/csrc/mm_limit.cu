@@ -38,10 +38,10 @@
 // missing neighbour as the plain gather does, the face state is the basis
 // sum in mode order, the taken Superbee branch divides the same operands
 // (one division serves both branches; a zero numerator skips the
-// division's slow path, ml_quot), a point that takes neither branch gets the
-// clamp of 1 evaluated once, and the minima propagate NaN like
-// torch.minimum and amin.  The phi loop of K1 is copied, not shared, so
-// that K1's code and timing stay as they are.
+// division's slow path, common.cuh quot), a point that takes neither
+// branch gets the clamp of 1 evaluated once, and the minima propagate
+// NaN like torch.minimum and amin.  The phi loop of K1 is copied, not
+// shared, so that K1's code and timing stay as they are.
 
 #include <cfloat>
 
@@ -61,16 +61,6 @@ struct MMLimitShared {
   alignas(16) T bself[ML_NPT * K];         // a basis row is one 16 B load
   T phi[3 * NMAT + 3][ML_EPB];
 };
-
-// num / den, zero numerators formed without the division's slow path
-// (as K1's quot: over a divisor that is neither zero nor NaN the
-// quotient is the zero of the sign the division gives)
-template <typename T>
-__device__ __forceinline__ T ml_quot(T num, T den) {
-  if (num == T(0) && den == den && den != T(0))
-    return signbit(num) != signbit(den) ? T(-0.0) : T(0);
-  return num / den;
-}
 
 template <typename T, int NMAT>
 __global__ void __launch_bounds__((3 * NMAT + 3) * ML_EPB)
@@ -125,7 +115,7 @@ mm_limit_kernel(const T* __restrict__ U, const int* __restrict__ nbr,
       const bool up = uNeg > eps;
       T pg = clamp1;
       if (up || uNeg < -eps) {
-        pg = vmin(T(1), ml_quot((up ? hi : lo) - u0, T(2) * uNeg));
+        pg = vmin(T(1), quot((up ? hi : lo) - u0, T(2) * uNeg));
         pg = vmax(vmax(vmin(beta * pg, T(1)), vmin(pg, beta)), T(0));
       }
       phi = vmin(phi, pg);

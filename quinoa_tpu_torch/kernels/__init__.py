@@ -47,7 +47,7 @@ TAB_BSELF, TAB_BVOL, TAB_WDB, TAB_WFACE, TAB_SIZE = 0, 48, 68, 128, 131
 C, K, G = 5, 4, 3
 #: the (mode, direction) entries of w_vol*dBdxi_vol that are not zero for
 #: the P1 Dubiner basis (dB0 = 0, dB2/dxi = 0, dB3/dxi = dB3/deta = 0);
-#: K1 adds only these (csrc/limit_vol.cu lv_wdb_nonzero)
+#: K1 and K16 add only these (csrc/common.cuh wdb_nonzero)
 WDB_NONZERO = np.array([[False, False, False], [True, True, True],
                         [False, True, True], [False, False, True]])
 #: the face kernels K12-K14 take DG(P0), DG(P1) and DG(P2): face points
@@ -57,7 +57,7 @@ FACE_POINTS = {1: 1, 4: 3, 10: 6}
 #: multimat (R = 3*nmat + 3 + 3*nmat + 1: 16 or 22 rows) at P0 and P1
 BASIS_ACCUM_SHAPES = {(5, 1), (5, 4), (5, 10), (16, 1), (16, 4), (22, 1),
                       (22, 4)}
-#: materials of the multimat face kernel K14
+#: materials of the multimat kernels K14-K16
 MM_NMAT = (2, 3)
 #: THINC carrier rows a material of K14's THINC flavour reads (pde/multimat.py
 #: thinc_carriers): the 4 P1 modes of q, then q0, the flag, rho_k, rhoE_k
@@ -72,7 +72,8 @@ launches = {"limit_vol": 0, "limit_vol_pref": 0, "nbr_bounds": 0,
             "alecg_vol_cf": 0, "alecg_edge": 0, "alecg_edge_cf": 0,
             "cg_assemble": 0, "node_gather": 0, "node_assemble": 0,
             "face_wflux": 0, "face_wflux_lf": 0, "basis_accum": 0,
-            "mm_face_wflux": 0, "mm_face_wflux_thinc": 0, "mm_limit": 0}
+            "mm_face_wflux": 0, "mm_face_wflux_thinc": 0, "mm_limit": 0,
+            "mm_volume": 0, "mm_volume_nc": 0}
 
 _lib = None
 
@@ -233,6 +234,9 @@ def _load(so: str) -> ctypes.CDLL:
         fn = getattr(lib, f"qtk_mm_limit_{sfx}")
         fn.argtypes = [P, P, P, D, P, I, L, P]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qtk_mm_volume_{sfx}")
+        fn.argtypes = [P] * 6 + [D] * 6 + [P, P, I, L, P]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -345,6 +349,42 @@ def mm_limit(U, esuelT, ktab, nmat):
     _launch("mm_limit", fn,
             [_ptr(U), _ptr(esuelT), _ptr(ktab), 2.0, _ptr(out), int(nmat),
              E], dev)
+    return out
+
+
+def mm_volume(U, jacInv, vol, emask, ktab, wB, eos, acc=None):
+    """K16 (csrc/mm_volume.cu): the volume Gauss-point pass of the multimat
+    DG(P1) state U (C*K, E), C = 3*nmat + 3 with nmat = len(eos) in
+    MM_NMAT, K = 4, with the P1 tables ktab and the volume points' w*B
+    (DGGeom.wB_vol).  Without acc, the flux volume integral (C*K, E)
+    scaled by vol*emask, counted as mm_volume.  With acc, the face pass's
+    sums (R*K, E), R = C + 3*nmat + 1, the stage's rhs (C*K, E): ((acc's
+    C*K rows + the volume integral) + the non-conservative integral) *
+    emask, counted as mm_volume_nc."""
+    nmat = len(eos)
+    if nmat not in MM_NMAT:
+        raise ValueError(f"the multimat volume kernel takes nmat in "
+                         f"{MM_NMAT}, not {nmat}")
+    nc = 3 * nmat + 3
+    E, dt, dev = U.shape[-1], U.dtype, U.device
+    _check("U", U, (nc * K, E), dt, dev)
+    if acc is not None:
+        _check("acc", acc, ((nc + 3 * nmat + 1) * K, E), dt, dev)
+    _check("jacInv", jacInv, (3, 3, E), dt, dev)
+    _check("vol", vol, (E,), dt, dev)
+    _check("emask", emask, (E,), dt, dev)
+    _check("ktab", ktab, (TAB_SIZE,), dt, dev)
+    _check("wB", wB, (5, K), dt, dev)
+    _cuda_device(U)
+    gam = [float(e.gamma) for e in eos] + [0.0] * (3 - nmat)
+    pst = [float(e.pstiff) for e in eos] + [0.0] * (3 - nmat)
+    fn = getattr(build(), f"qtk_mm_volume_{_suffix(dt)}")
+    out = torch.empty_like(U)
+    _launch("mm_volume" if acc is None else "mm_volume_nc", fn,
+            [_ptr(U), _ptr(jacInv), _ptr(vol), _ptr(emask), _ptr(ktab),
+             _ptr(wB), *gam, *pst,
+             ctypes.c_void_p(0 if acc is None else acc.data_ptr()), _ptr(out),
+             nmat, E], dev)
     return out
 
 

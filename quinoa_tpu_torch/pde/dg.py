@@ -126,6 +126,15 @@ class DGGeom:
                                device=self.device)
 
     @functools.cached_property
+    def wB_vol(self) -> torch.Tensor:
+        """w_vol * B_vol (Gv, K) in the geometry's dtype and device, the
+        test functions of the volume points' integrals, as the multimat
+        volume kernel K16 reads them."""
+        tb = self.tables
+        return torch.as_tensor(tb["w_vol"][:, None] * tb["B_vol"],
+                               dtype=self.dtype, device=self.device)
+
+    @functools.cached_property
     def face_gp(self) -> torch.Tensor:
         """Physical coordinates (3, G, F) of the face Gauss points, from
         the left element (quinoa_tpu/pde/dg.py:413-416).  Cached: they
@@ -412,9 +421,14 @@ def volume_rhs(system, geom: DGGeom, U, t=0.0):
     the jacInv contraction (skipped at K = 1, where the test function has
     no gradient, as :357 skips it), and w*B times the source at (gp, t)
     when the system has one.  The volume term of the DG(P0) and DG(P2)
-    routes and of multimat DG(P1): products the JAX package leaves to XLA,
-    so they stay torch here."""
+    routes: products the JAX package leaves to XLA, so they stay torch
+    here.  A multimat system at P1 takes its volume pass instead
+    (pde/multimat.py mm_volume: kernel K16 on a card)."""
     C, K, E = system.ncomp, geom.ndof, U.shape[-1]
+    if K == 4 and hasattr(system, "nmat"):
+        from .multimat import mm_volume
+
+        return mm_volume(system, geom, U)
     tb = geom.tables
     dt_, dev = U.dtype, U.device
     count("host_syncs", 2)              # the two uploads below

@@ -60,7 +60,7 @@ def choose_route(system, geoms, limiter=None, pref=False,
         dirichlet = any(bool((g.bctype == BC_DIRICHLET).any())
                         for g in geoms)
         limit = "none" if limiter is None else "k15"
-        volume = "xla" if K == 4 else "none"
+        volume = "k16" if K == 4 else "none"
         face = ("mm_dirichlet" if dirichlet
                 else "k14_thinc" if system.intsharp and K == 4 else "k14")
     else:
@@ -216,7 +216,7 @@ class SSPRK3:
         dg_spmd.py:185-331, 471-524).
 
         Its spans (base/profiler.py) partition each stage: pref, limit,
-        volume, face_pass, nonconservative (multimat), dt and rk_update,
+        volume, face_pass, nonconservative (multimat P0), dt and rk_update,
         each closed before the next yield; pref holds pref.eval,
         pref.propagate and pref.mask, the split Superbee's limit
         limit.bounds (K4) and limit.superbee."""

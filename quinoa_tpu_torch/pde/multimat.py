@@ -22,7 +22,9 @@ choose_route: face 'k14' or 'k14_thinc', else 'mm_dirichlet'):
 
 - no Dirichlet face: the multimat face pass, kernel K14
   mm_face_wflux + K13 basis_accum (ops/face_fused.py mm_face_pass), whose
-  charvel gives the stage-0 dt; at P1 the volume integral in torch first;
+  charvel gives the stage-0 dt; at P1 then the volume pass (mm_volume,
+  kernel K16: the flux volume integral and the non-conservative terms,
+  summed with the face rows);
 - Dirichlet faces at P0: the face states through the gather (K5), the
   ghost, AUSM+up and the riemannDeriv rows in torch, the element sums
   through the accumulation (K6), and the dt sweep dt_p0 in torch;
@@ -31,8 +33,8 @@ choose_route: face 'k14' or 'k14_thinc', else 'mm_dirichlet'):
   THINC, and of the 5*nmat carrier rows) through K5, the ghost (the
   problem's solution at the face points and t, the carriers copied from
   the left side), the sharpening and AUSM+up in torch, the R rows' sums
-  through K6 onto the volume term; the dt is dg_dt's face sweep through
-  the facade (K5 on the C rows).
+  through K6, then the volume pass (K16) as above; the dt is dg_dt's face
+  sweep through the facade (K5 on the C rows).
 
 The JAX package pads the state with 3*nmat + 1 zero rows so its generic
 face kernels carry the riemannDeriv rows; here the state stays C rows and
@@ -50,6 +52,7 @@ MultiMatSolver.step_coroutine on each shard.
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import torch
@@ -60,7 +63,7 @@ from ..ops.face_accum import accumulate_faces, face_gather
 from ..ops.face_fused import delt_plain, mm_face_pass
 from ..ops.nbr_bounds import neighbor_mean_bounds
 from .dg import (BC_DIRICHLET, BC_INTERIOR, BC_SYMMETRY, DGGeom, dg_dt,
-                 dg_dt_from_delt, face_gp_rows, no_plan, volume_rhs)
+                 dg_dt_from_delt, face_gp_rows, no_plan)
 from .dg_step import SSPRK3, choose_route
 from .eos import StiffenedGas
 from .limiter import consistent_mm_phi, superbee_phi
@@ -271,11 +274,9 @@ class MultiMatSystem:
         nmat = self.nmat
         beta = self.thinc_beta
         delta = 1.0e-4
-        dt_, dev = Uv.dtype, Uv.device
+        dt_ = Uv.dtype
         J, Jm = geom.jacInv, geom.Jmat
-        count("host_syncs", 2)          # the two uploads below
-        eb = torch.exp(torch.tensor(beta, dtype=dt_, device=dev))
-        emb = torch.exp(torch.tensor(-beta, dtype=dt_, device=dev))
+        eb, emb = _exp_pm(beta, dt_, Uv.device)
         rows = []
         for k in range(nmat):
             a = Uv[volfrac_idx(nmat, k)]                     # (K,E)
@@ -402,14 +403,14 @@ class MultiMatSystem:
     def rhs(self, geom: DGGeom, U, t, accum_plan=None, want_delt=False,
             face_gp=False):
         """Order-dispatching rhs (C*K, E) [, delt]: P0 keeps the finite-
-        volume path (intsharp ignored); P1 (ndof 4) adds the XLA-formulation
-        volume integral to the face sums (with intsharp, of the THINC-
-        sharpened faces, on the carriers of U) and integrates the
-        non-conservative terms at the volume Gauss points.  With fused_ok
-        the face sums are the multimat face pass's (K14 + K13), whose
-        charvel want_delt returns; otherwise the face Gauss-point path's
-        (dirichlet_face_gp_sums, K5 + K6), which has no charvel.  The
-        THINC carriers accumulate nothing, so both give R rows.
+        volume path (intsharp ignored); P1 (ndof 4) sums the face rows
+        (with intsharp, of the THINC-sharpened faces, on the carriers of
+        U) with the volume pass (mm_volume: the flux volume integral and
+        the non-conservative terms at the volume Gauss points).  With
+        fused_ok the face sums are the multimat face pass's (K14 + K13),
+        whose charvel want_delt returns; otherwise the face Gauss-point
+        path's (dirichlet_face_gp_sums, K5 + K6), which has no charvel.
+        The THINC carriers accumulate nothing, so both give R rows.
         accum_plan and face_gp sit at the JAX package's positions
         (quinoa_tpu/pde/multimat.py:407-408); accum_plan must be None, and
         fused_ok, not face_gp, picks the route, as the JAX solver sets
@@ -421,42 +422,30 @@ class MultiMatSystem:
         """rhs on the route the caller names, fused (the multimat face
         pass) or not (the Dirichlet route), whatever fused_ok says: a
         MultiMatSolver's step names its own."""
-        K = geom.ndof
-        if K == 1:
+        if geom.ndof == 1:
             return self._rhs_p0(geom, U, t, fused, want_delt)
-        C = self.ncomp
-        E = U.shape[-1]
-        Uv = U.reshape(C, K, E)
-        # spans (base/profiler.py): the THINC carriers, the face sums, their
-        # split and the emask product are the face pass's; the sum with the
-        # non-conservative terms is theirs
-        with span("volume"):
-            Rv = volume_rhs(self, geom, U, t)
+        # spans (base/profiler.py): the THINC carriers and the face sums
+        # are the face pass's; the volume pass, which sums them with the
+        # volume integrals and takes the emask product, is the volume's
         with span("face_pass"):
-            carriers = (self.thinc_carriers(geom, Uv) if self.intsharp
-                        else None)
+            carriers = (self.thinc_carriers(geom, U.reshape(
+                self.ncomp, geom.ndof, -1)) if self.intsharp else None)
             if fused:
                 acc, delt = mm_face_pass(self, geom, U, carriers)
-                R, dap, divu = self._split_acc(acc, K)
-                R = Rv.reshape(C, K, E) + R
             else:
                 if want_delt:
                     raise ValueError("want_delt needs the multimat face "
                                      "pass")
-                R, dap, divu = self._split_acc(
-                    self.dirichlet_face_gp_sums(geom, U, carriers, Rv, t), K)
-        with span("nonconservative"):
-            R = R + self._nonconservative_ho(geom, Uv, dap, divu)
-        with span("face_pass"):
-            R = (R * geom.emask).reshape(C * K, E)
+                acc = self.dirichlet_face_gp_sums(geom, U, carriers, t)
+        with span("volume"):
+            R = mm_volume(self, geom, U, acc)
         return (R, delt) if want_delt else R
 
-    def dirichlet_face_gp_sums(self, geom: DGGeom, U, carriers, Rv, t):
+    def dirichlet_face_gp_sums(self, geom: DGGeom, U, carriers, t):
         """The P1 face Gauss-point route's element sums (R*K, E) of U (C*K,
         E): the facade's R rows (the THINC facade's with carriers) summed
-        by K6 on top of the volume term Rv (C*K, E), whose riemannDeriv
-        and divergence rows start from zero, as the JAX package's padded
-        state gives them (quinoa_tpu/pde/multimat.py:407-450)."""
+        by K6 from zero (the JAX package sums them onto its volume term,
+        quinoa_tpu/pde/multimat.py:407-450; here the volume pass adds it)."""
         C, K = self.ncomp, geom.ndof
         E = U.shape[-1]
         facade, Ug = self.facade, U
@@ -464,30 +453,7 @@ class MultiMatSystem:
             facade = self.thinc_facade
             Ug = torch.cat([U.reshape(C, K, E),
                             self.thinc_modes(carriers, K)]).reshape(-1, E)
-        base = torch.cat([Rv, Rv.new_zeros(((self.nrows - C) * K, E))])
-        return accumulate_faces(geom, *face_gp_rows(facade, geom, Ug, t),
-                                base)
-
-    def _nonconservative_ho(self, geom: DGGeom, Uv, dap, divu):
-        """High-order non-conservative volume integral: the face-summed
-        riemannDeriv surrogates are cell constants (divided by vol), the
-        state is evaluated at the volume Gauss points, and the product is
-        integrated against every basis function.  Uv (C, K, E) -> (C, K,
-        E)."""
-        nmat, C = self.nmat, self.ncomp
-        tb = geom.tables
-        dt_, dev = Uv.dtype, Uv.device
-        V = geom.vol * geom.emask + (1.0 - geom.emask)
-        dapv = dap / V                                   # (3*nmat, E)
-        divuv = divu / V                                 # (E,)
-        count("host_syncs", 2)          # the two uploads below
-        B_vol = torch.as_tensor(tb["B_vol"], dtype=dt_, device=dev)  # (G,K)
-        wB = torch.as_tensor(tb["w_vol"][:, None] * tb["B_vol"], dtype=dt_,
-                             device=dev)
-        s = torch.einsum("gk,cke->cge", B_vol, Uv)       # (C,G,E)
-        ncf = self._ncf(s, dapv, divuv)
-        Rnc = torch.einsum("gk,cge->cke", wB, torch.stack(ncf))
-        return Rnc * (geom.vol * geom.emask)
+        return accumulate_faces(geom, *face_gp_rows(facade, geom, Ug, t))
 
     def _ncf(self, s, dap, divu):
         """Non-conservative integrands (C rows) of the states s from the
@@ -557,6 +523,78 @@ def clean_alpha_closure(u, C, K, nmat):
               == kmax[None, None, :])
     return torch.cat([torch.where(onehot, fix, al), Uv[nmat:]]).reshape(
         C * K, E)
+
+
+@functools.lru_cache(maxsize=None)
+def _exp_pm(beta, dtype, device):
+    """exp(beta) and exp(-beta) as tensors of dtype on device, taken there
+    once (the THINC carriers' constants)."""
+    count("host_syncs", 2)              # the two uploads below
+    return (torch.exp(torch.tensor(beta, dtype=dtype, device=device)),
+            torch.exp(torch.tensor(-beta, dtype=dtype, device=device)))
+
+
+def mm_volume(system, geom: DGGeom, U, acc=None):
+    """Multimat DG(P1)'s volume Gauss-point pass over the state U (C*K,
+    E): without acc the flux volume integral (C*K, E) scaled by
+    vol*emask; with acc, the face pass's sums (R*K, E), the stage's rhs
+    ((acc's C*K rows + the flux integral) + the non-conservative
+    integral) * emask.  On a CUDA tensor kernel K16 (csrc/mm_volume.cu);
+    on a CPU tensor mm_volume_plain."""
+    if U.device.type == "cpu":
+        return mm_volume_plain(system, geom, U, acc)
+    return kernels.mm_volume(U, geom.jacInv, geom.vol, geom.emask, geom.ktab,
+                             geom.wB_vol, system.eos, acc)
+
+
+def mm_volume_plain(system, geom: DGGeom, U, acc=None):
+    """K16's plain version, in its sum order: at each volume point the
+    state (the basis sum in mode order), flux_cols' columns contracted
+    with jacInv and added through the nonzero entries of w*dB/dxi into
+    the volume rows (ops/nbr_bounds.py volume_rhs_plain's order), and with
+    acc _ncf's integrands of the fraction and energy rows (the others are
+    zero) against w*B, from the face pass's riemannDeriv and divergence
+    sums over the volume; the point loop is the outer one of every sum."""
+    nmat, C, K = system.nmat, system.ncomp, geom.ndof
+    E = U.shape[-1]
+    tb = geom.tables
+    Bv = tb["B_vol"]
+    wdB = tb["w_vol"][:, None, None] * tb["dBdxi_vol"]
+    wB = tb["w_vol"][:, None] * Bv
+    Uv = U.reshape(C, K, E)
+    J = geom.jacInv
+    rows = [U.new_zeros((C, E)) for _ in range(K)]
+    if acc is not None:
+        accv = acc.reshape(system.nrows, K, E)
+        V = geom.vol * geom.emask + (1.0 - geom.emask)
+        dap = accv[C:C + 3 * nmat, 0] / V
+        divu = accv[C + 3 * nmat, 0] / V
+        nc = [volfrac_idx(nmat, k) for k in range(nmat)] + [
+            energy_idx(nmat, k) for k in range(nmat)]
+        rnc = [U.new_zeros((2 * nmat, E)) for _ in range(K)]
+    for g in range(Bv.shape[0]):
+        s = float(Bv[g, 0]) * Uv[:, 0]
+        for k in range(1, K):
+            s = s + float(Bv[g, k]) * Uv[:, k]
+        Fj = system.flux_cols(s, None, 0.0)
+        for m in range(3):
+            fref = Fj[0] * J[m, 0] + Fj[1] * J[m, 1] + Fj[2] * J[m, 2]
+            for k in range(K):
+                w = float(wdB[g, k, m])
+                if w != 0.0:
+                    rows[k] = rows[k] + w * fref
+        if acc is not None:
+            ncf = system._ncf(s, dap, divu)
+            f = torch.stack([ncf[r] for r in nc])
+            for k in range(K):
+                rnc[k] = rnc[k] + float(wB[g, k]) * f
+    ve = geom.vol * geom.emask
+    Rv = torch.stack(rows, dim=1) * ve
+    if acc is None:
+        return Rv.reshape(C * K, E)
+    R = accv[:C] + Rv
+    R[nc] = R[nc] + torch.stack(rnc, dim=1) * ve
+    return (R * geom.emask).reshape(C * K, E)
 
 
 def mm_consistent_limit(system, geom: DGGeom, u):

@@ -41,7 +41,8 @@ ZERO = {"limit_vol": 0, "limit_vol_pref": 0, "nbr_bounds": 0,
         "alecg_edge": 0, "alecg_edge_cf": 0, "cg_assemble": 0,
         "node_gather": 0, "node_assemble": 0, "face_wflux": 0,
         "face_wflux_lf": 0, "basis_accum": 0, "mm_face_wflux": 0,
-        "mm_face_wflux_thinc": 0, "mm_limit": 0}
+        "mm_face_wflux_thinc": 0, "mm_limit": 0, "mm_volume": 0,
+        "mm_volume_nc": 0}
 
 
 @pytest.fixture(scope="module")
@@ -577,7 +578,7 @@ def _mm(case, device, dtype=torch.float64):
         system = MultiMatSystem(MMSodShocktube())
         kw = {"cfl": 0.5, "limiter": "superbeep1" if ndof == 4 else None}
         used = ("mm_face_wflux", "basis_accum") + (
-            ("mm_limit",) if ndof == 4 else ())
+            ("mm_limit", "mm_volume_nc") if ndof == 4 else ())
     mesh, _ = hilbert_element_reorder(mesh)
     g = build_dggeom(mesh, ndof, bc, dtype=dtype, device=device)
     return MultiMatSolver(system, g, **kw), used
@@ -721,6 +722,90 @@ def test_mm_limit_matches_plain_version(card, nmat, dtype):
     assert bool(slopes_nan[bad + 1:].any() | slopes_nan[:bad].any())
     assert not bool(slopes_nan.all())
     assert bool((got.view(C, 4, E)[:, 1:, flat] == 0).all())
+
+
+def _jittered_box(n, hi, seed):
+    """box_tet_mesh(*n, hi=hi) with every interior node moved by up to a
+    tenth of an edge along each axis, in Hilbert order."""
+    mesh = box_tet_mesh(*n, hi=hi)
+    x = mesh.coords
+    inner = ((x > 1e-9) & (x < np.asarray(hi) - 1e-9)).all(axis=1)
+    h = np.asarray(hi) / np.asarray(n)
+    x[inner] += np.random.default_rng(seed).uniform(
+        -0.1, 0.1, (int(inner.sum()), 3)) * h
+    return hilbert_element_reorder(mesh)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["sod", "thinc"])
+def test_mm_volume_matches_plain_version(card, case, dtype):
+    """K16 against mm_volume_plain on the same card tensors bit for bit
+    (NaN by position), both flavours, on jittered boxes whose element
+    counts leave a ragged last block: Sod (nmat 2) and the THINC
+    interface advection (nmat 3), each after 3 steps of its card solver,
+    limited, with the stage's face rows (mm_face_pass, THINC's with its
+    carriers).  In the THINC state a few elements' material 0 is a trace
+    below the floors of alpha and of the material density; in the Sod
+    state one element has no density, so its velocity and rows are NaN.
+    One launch a flavour, the inputs left as they were; one step of
+    either solver launches mm_volume_nc once a stage."""
+    from quinoa_tpu_torch.ops.face_fused import mm_face_pass
+    from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE
+    from quinoa_tpu_torch.pde.multimat import (MultiMatSolver,
+                                               MultiMatSystem, mm_volume,
+                                               mm_volume_plain)
+    from quinoa_tpu_torch.pde.problems import (MMInterfaceAdvection,
+                                               MMSodShocktube)
+
+    if case == "sod":
+        mesh = _jittered_box((7, 3, 2), (1.0, 3 / 7, 2 / 7), 41)
+        bc = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
+              **{i: BC_SYMMETRY for i in range(3, 7)}}
+        system, cfl = MultiMatSystem(MMSodShocktube()), 0.5
+    else:
+        mesh = _jittered_box((6, 6, 2), (1.0, 1.0, 0.3), 43)
+        bc = {i: BC_EXTRAPOLATE for i in range(1, 7)}
+        system = MultiMatSystem(MMInterfaceAdvection(nmat=3), intsharp=True)
+        cfl = 0.4
+    g = build_dggeom(mesh, 4, bc, dtype=dtype, device=card)
+    solver = MultiMatSolver(system, g, cfl=cfl, limiter="superbeep1")
+    sy, E = solver.system, g.nelem
+    C, nmat = sy.ncomp, sy.nmat
+    assert _ragged(E) and E % 128 != 0
+    st = solver.nsteps(solver.initial_state(), 3)
+    u = solver._limit(st.u).reshape(C, 4, E)
+    floor = 50.0 * torch.finfo(dtype).eps
+    if case == "sod":
+        u[nmat:2 * nmat + 3, :, E // 2] = 0.0
+    else:
+        few = torch.arange(E // 4, E // 4 + 5, device=card)
+        u[0, 0, few], u[0, 1:, few] = 1e-20, 0.0
+        u[nmat, 0, few], u[nmat, 1:, few] = 1e-30, 0.0
+        s = torch.einsum("gk,cke->cge", g.ktab[kernels.TAB_BVOL:
+                                               kernels.TAB_WDB].view(5, 4), u)
+        a = s[:nmat].clamp_min(floor)
+        assert bool((s[:nmat] < floor).any())
+        assert bool((s[nmat:2 * nmat] / a < floor).any())
+    u = u.reshape(C * 4, E).contiguous()
+    X = (sy.thinc_carriers(g, u.view(C, 4, E)) if sy.intsharp else None)
+    acc, _ = mm_face_pass(sy, g, u, X)
+    ins = [t.clone() for t in (u, acc)]
+    kernels.reset_launches()
+    for a, name in ((None, "mm_volume"), (acc, "mm_volume_nc")):
+        got = mm_volume(sy, g, u, a)
+        torch.cuda.synchronize()
+        assert kernels.launches == {**ZERO, name: 1}
+        kernels.reset_launches()
+        want = mm_volume_plain(sy, g, u, a)
+        assert _same((got,), (want,))
+        assert bool(want.isnan().any()) == (case == "sod")
+        assert bool(want.isfinite().any())
+    assert _same((u, acc), ins)
+    solver.nsteps(st, 1)
+    torch.cuda.synchronize()
+    face = "mm_face_wflux_thinc" if sy.intsharp else "mm_face_wflux"
+    assert kernels.launches == {**ZERO, "mm_limit": 3, face: 3,
+                                "basis_accum": 3, "mm_volume_nc": 3}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -883,7 +968,7 @@ def test_lf_and_thinc_on_card_match_cpu(card, case):
             "p1_lf_pdg": {"limit_vol_pref", "face_wflux_lf",
                           "basis_accum"},
             "mm_thinc": {"mm_limit", "mm_face_wflux_thinc",
-                         "basis_accum"}}[case]
+                         "basis_accum", "mm_volume_nc"}}[case]
     a, b = solver(card), solver("cpu")
     kernels.reset_launches()
     sa = a.nsteps(a.initial_state(), 2)
@@ -930,7 +1015,8 @@ def test_sharded_multimat_on_card_matches_cpu(card):
     """Multimat Sod P1 with consistent Superbee on 2 shards resident on the
     card against the same sharded run on the CPU, float64, 2 steps: u
     atol 1e-11 of max(1, max|u|), dt rtol 1e-12, and every shard's
-    limiter through K15 (3 launches a shard a step, no K4)."""
+    limiter through K15 and volume pass through K16 (3 launches each a
+    shard a step, no K4)."""
     from quinoa_tpu_torch.parallel import (SPMDMultiMatSolver, ShardGroup,
                                            build_dg_shards)
     from quinoa_tpu_torch.pde.dg import BC_EXTRAPOLATE
@@ -955,4 +1041,5 @@ def test_sharded_multimat_on_card_matches_cpu(card):
     np.testing.assert_allclose(a, b, rtol=0,
                                atol=1e-11 * max(1.0, np.abs(b).max()))
     assert np.isclose(dta, dtb, rtol=1e-12)
-    assert la["mm_limit"] == 12 and la["nbr_bounds"] == 0
+    assert la["mm_limit"] == la["mm_volume_nc"] == 12
+    assert la["nbr_bounds"] == 0

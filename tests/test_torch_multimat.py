@@ -225,6 +225,45 @@ def test_p1_rhs_matches_jax(sod_p1, limited):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=RHS_ATOL)
 
 
+@pytest.mark.parametrize("problem", ["sod", "iface"])
+def test_volume_pass_matches_jax(problem):
+    """The P1 volume pass (mm_volume, K16's plain version on the CPU)
+    against the JAX package's volume integral (dg_rhs's XLA formulation,
+    quinoa_tpu/pde/dg.py:341-370, through its flux_cols) and its
+    _nonconservative_ho: the flux volume integral alone, and the stage's
+    rhs from face sums (random rows), ((face rows + volume integral) +
+    non-conservative integral) * emask, atol 1e-11 of max(1, max|r|);
+    nmat 2 (Sod) and 3 (the interface advection, whose trace fractions
+    meet the floors)."""
+    jsys, jg, tsys, tg = _pair(problem, 4)
+    U = _state(jsys, jg, 9)
+    C, nmat, E = jsys.ncomp, jsys.nmat, U.shape[-1]
+    acc = np.random.default_rng(10).standard_normal((tsys.nrows * 4, E))
+    accv = acc.reshape(tsys.nrows, 4, E)
+    tb = jg.tables
+    state = jnp.einsum("gk,cke->cge", jnp.asarray(tb["B_vol"]),
+                       jnp.asarray(U).reshape(C, 4, E))
+    Fj = jsys.flux_cols(state, None, 0.0)
+    Fref = jnp.stack([sum(Fj[j] * jg.jacInv[m, j] for j in range(3))
+                      for m in range(3)])
+    wdB = jnp.asarray(tb["w_vol"][:, None, None] * tb["dBdxi_vol"])
+    rv = np.asarray(jnp.einsum("gkm,mcge->cke", wdB, Fref)
+                    * (jg.vol * jg.emask)).reshape(C * 4, E)
+    rnc = np.asarray(jsys._nonconservative_ho(
+        jg, jnp.asarray(U).reshape(C, 4, E), jnp.asarray(accv[C:C + 3 * nmat,
+                                                              0]),
+        jnp.asarray(accv[C + 3 * nmat, 0])))
+    rhs = ((accv[:C] + rv.reshape(C, 4, E) + rnc)
+           * np.asarray(jg.emask)).reshape(C * 4, E)
+    Ut = torch.as_tensor(U)
+    for got, want in ((tm.mm_volume(tsys, tg, Ut), rv),
+                      (tm.mm_volume(tsys, tg, Ut, torch.as_tensor(acc)),
+                       rhs)):
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=RHS_ATOL * scale)
+
+
 @pytest.mark.parametrize("ndof", [1, 4])
 def test_dt_matches_jax(ndof):
     """dt_p0 (P0) and the facade's dg_dt sweep (P1)."""

@@ -98,22 +98,22 @@ CASES = {
                     ("none", "none", "k14", "charvel")),
     "mm_p0_dirichlet": (_mm("dg", DIR5), None,
                         ("none", "none", "mm_dirichlet", "sweep")),
-    "mm_p1": (_mm("dgp1", SOD), None, ("k15", "xla", "k14", "charvel")),
+    "mm_p1": (_mm("dgp1", SOD), None, ("k15", "k16", "k14", "charvel")),
     "mm_p1_thinc": (_mm("dgp1", SOD, "intsharp 1"), None,
-                    ("k15", "xla", "k14_thinc", "charvel")),
+                    ("k15", "k16", "k14_thinc", "charvel")),
     "mm_p1_dirichlet": (_mm("dgp1", DIR5), None,
-                        ("k15", "xla", "mm_dirichlet", "sweep")),
+                        ("k15", "k16", "mm_dirichlet", "sweep")),
     "mm_p1_thinc_dirichlet": (_mm("dgp1", DIR5, "intsharp 1"), None,
-                              ("k15", "xla", "mm_dirichlet", "sweep")),
+                              ("k15", "k16", "mm_dirichlet", "sweep")),
     "mm_p1_const_dt": (_mm("dgp1 dt 1.0e-5", SOD), None,
-                       ("k15", "xla", "k14", "const")),
+                       ("k15", "k16", "k14", "const")),
     "spmd_p1_dirichlet": (_deck("dgp1", "compflow problem sedov_blastwave "
                                 + DIR5, "limiter superbeep1"), 2,
                           ("k1", "k1", "face_gp", "sweep")),
     "spmd_pdg": (_deck("pdg", SEDOV, "limiter superbeep1"), 2,
                  ("k1_pref", "k1", "k12_hllc", "charvel")),
     "spmd_mm_p1_dirichlet": (_mm("dgp1", DIR5), 2,
-                             ("k15", "xla", "mm_dirichlet", "sweep")),
+                             ("k15", "k16", "mm_dirichlet", "sweep")),
 }
 
 

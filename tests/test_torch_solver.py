@@ -350,7 +350,8 @@ def test_cpu_tensors_leave_launch_counters_at_zero(runs):
                                 "node_assemble": 0, "face_wflux": 0,
                                 "face_wflux_lf": 0, "basis_accum": 0,
                                 "mm_face_wflux": 0, "mm_face_wflux_thinc": 0,
-                                "mm_limit": 0}
+                                "mm_limit": 0, "mm_volume": 0,
+                                "mm_volume_nc": 0}
     U = torch.zeros(20, tg.nelem, dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.limit_vol(U, tg.esuelT, tg.jacInv, tg.vol, tg.ktab, 2.0,
@@ -415,6 +416,45 @@ def test_mm_limit_refuses_what_it_does_not_take():
             kernels.mm_limit(u, g.esuelT, g.ktab, nmat)
     assert torch.equal(mm_consistent_limit(sy, g, u),
                        mm_consistent_limit_plain(sy, g, u))
+    assert set(kernels.launches.values()) == {0}
+
+
+def test_mm_volume_refuses_what_it_does_not_take():
+    """K16's wrapper refuses an nmat other than 2 or 3, a state or face-row
+    count that is not the nmat's, an input of another dtype or device
+    than the state's, and a CPU tensor, before it builds anything; on the
+    CPU mm_volume is the plain version in both flavours."""
+    from quinoa_tpu_torch.ops.face_fused import mm_face_pass
+    from quinoa_tpu_torch.pde.multimat import mm_volume, mm_volume_plain
+
+    mm = _mm_sod_p1()
+    g, sy = mm.geom, mm.system
+    u = mm._limit(mm.initial_state().u)
+    acc, _ = mm_face_pass(sy, g, u)
+    assert acc.shape == (64, g.nelem)
+    tabs = (g.jacInv, g.vol, g.emask, g.ktab, g.wB_vol)
+    kernels.reset_launches()
+    for a in (None, acc):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            kernels.mm_volume(u, *tabs, sy.eos, a)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.mm_volume(u[:32], *tabs, sy.eos)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.mm_volume(u, *tabs, sy.eos, acc[:60])
+    with pytest.raises(ValueError, match="shape"):
+        kernels.mm_volume(u, *tabs, sy.eos + sy.eos[:1])
+    for nmat in (1, 4):
+        with pytest.raises(ValueError, match="nmat"):
+            kernels.mm_volume(u, *tabs, sy.eos[:1] * nmat)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.mm_volume(u, g.jacInv.float(), *tabs[1:], sy.eos)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.mm_volume(u, *tabs, sy.eos, acc.float())
+    with pytest.raises(ValueError, match="meta"):
+        kernels.mm_volume(u, *tabs[:4], g.wB_vol.to("meta"), sy.eos)
+    for a in (None, acc):
+        assert torch.equal(mm_volume(sy, g, u, a),
+                           mm_volume_plain(sy, g, u, a))
     assert set(kernels.launches.values()) == {0}
 
 

@@ -32,8 +32,7 @@ SOD = {1: BC_EXTRAPOLATE, 2: BC_EXTRAPOLATE,
        **{i: BC_SYMMETRY for i in range(3, 7)}}
 #: the spans each solver's P1 step opens under `step`
 SEDOV_SPANS = {"limit", "face_pass", "dt", "rk_update"}
-MM_SPANS = {"limit", "volume", "face_pass", "nonconservative", "dt",
-            "rk_update"}
+MM_SPANS = {"limit", "volume", "face_pass", "dt", "rk_update"}
 PDG_SPANS = SEDOV_SPANS | {"pref"}
 
 
@@ -208,11 +207,8 @@ def test_step_bit_identical_with_tracing_and_its_spans(f64, which):
     n = {k: sum(1 for r in prof.records if r[0] == k)
          for k in ("limit", "dt", "rk_update")}
     assert n == {"limit": 6, "dt": 2, "rk_update": 6}
-    # the multimat step's syncs: two uploads each in the volume integral
-    # and the non-conservative terms, every stage
-    syncs = {p[-1]: v for (c, p), v in prof.counters.items()}
-    assert syncs == ({"volume": 12, "nonconservative": 12}
-                     if which == "multimat" else {})
+    # no step syncs: the volume pass reads its tables from the geometry
+    assert {p[-1]: v for (c, p), v in prof.counters.items()} == {}
 
 
 @pytest.mark.parametrize("which", ["sedov", "multimat", "pdg"])
